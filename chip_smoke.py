@@ -4,16 +4,26 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``circuitmap_torch/csrc``, holds each
-against its plain PyTorch version at the main path's shapes, then drives
-the main path through the user entry points — ``simulate`` (N=1000,
-K=20000), the int4d2 demixer with its QAT checkpoint, and a 50-iteration
-CAVIaR fit through ``Model.fit`` — and checks that the fit recovers the
-simulated weights. Phases print ``# ...`` lines; any failure raises and
-the exit code is non-zero. The line before the last is a JSON record of
-every kernel (launches on the main path, error against the plain
-version, times and bound); the last line is
-``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
-result.
+against its plain PyTorch version at the shapes its path gives it, then
+drives the paths through the user entry points and checks that each fit
+recovers the simulated weights:
+
+* the main path: ``simulate`` (N=1000, K=20000), the int4d2 demixer with
+  its QAT checkpoint, and a 50-iteration CAVIaR fit through
+  ``Model.fit`` (the blocked 8-row sweep);
+* the strictly sequential fit: the same fit at ``sweep_block_size=1``
+  (the row kernel);
+* ``caviar_many`` on 4 cross-validation folds of that map (each holds out
+  one quarter of the trials), batched (the batched row kernel) and
+  sequential, and on a ragged stack of 4 folds with 18000..12000 trials
+  at block 8 (the batched blocked kernel).
+
+Every kernel's launch count is set to 0 just before each path and read
+just after it. Phases print ``# ...`` lines; any failure raises and the
+exit code is non-zero. The line before the last is a JSON record of
+every kernel (launches on each path, error against the plain version,
+times and bound); the last line is ``{"ok": true, "device": {...}}``.
+Without CUDA it exits 1 and prints no result.
 """
 
 import json
@@ -55,29 +65,30 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def sweep_inputs(seed=0):
-    """Bench-like sweep inputs at the main-path shape: H targets per
-    trial at one of three powers, ~5% connected neurons, spike
-    posteriors on targeted trials, power-curve means near the
-    simulator's phi."""
+def sweep_inputs(seed=0, n=N, k=K):
+    """Bench-like sweep inputs at the main-path shape (or n x k): H
+    targets per trial at one of three powers, ~5% connected neurons,
+    spike posteriors on targeted trials, power-curve means near the
+    simulator's phi, a block order and a row order."""
     import torch
 
     rng = np.random.default_rng(seed)
-    stim = np.zeros((N, K), np.float32)
-    cols = np.repeat(np.arange(K), H)
-    stim[rng.integers(0, N, K * H), cols] = rng.choice(POWERS, K * H)
-    lam = np.where(stim > 0, rng.uniform(0, 1, (N, K)), 0).astype(np.float32)
-    mu = np.where(rng.random(N) < 0.05, rng.uniform(10, 40, N), 0).astype(np.float32)
-    spikes = (rng.random((N, K)) < lam).astype(np.float32)
-    y = (mu @ spikes + rng.normal(0, 1, K)).astype(np.float32)
+    stim = np.zeros((n, k), np.float32)
+    cols = np.repeat(np.arange(k), H)
+    stim[rng.integers(0, n, k * H), cols] = rng.choice(POWERS, k * H)
+    lam = np.where(stim > 0, rng.uniform(0, 1, (n, k)), 0).astype(np.float32)
+    mu = np.where(rng.random(n) < 0.05, rng.uniform(10, 40, n), 0).astype(np.float32)
+    spikes = (rng.random((n, k)) < lam).astype(np.float32)
+    y = (mu @ spikes + rng.normal(0, 1, k)).astype(np.float32)
     d = dict(
-        y=y, stim=stim, mu=mu, beta=rng.uniform(0.5, 3, N).astype(np.float32),
-        lam=lam, m0=rng.uniform(0.2, 0.25, N).astype(np.float32),
-        m1=rng.uniform(10, 15, N).astype(np.float32),
-        lam_mask=(rng.random(K) > 0.02).astype(np.float32),
+        y=y, stim=stim, mu=mu, beta=rng.uniform(0.5, 3, n).astype(np.float32),
+        lam=lam, m0=rng.uniform(0.2, 0.25, n).astype(np.float32),
+        m1=rng.uniform(10, 15, n).astype(np.float32),
+        lam_mask=(rng.random(k) > 0.02).astype(np.float32),
         powers=np.asarray(POWERS, np.float32),
-        border=rng.permutation(-(-N // 8)).astype(np.int64))
-    out = {k: torch.from_numpy(v).cuda() for k, v in d.items()}
+        border=rng.permutation(-(-n // 8)).astype(np.int64),
+        order=rng.permutation(n).astype(np.int64))
+    out = {key: torch.from_numpy(v).cuda() for key, v in d.items()}
     out["power_counts"] = torch.stack(
         [(out["stim"] == p).sum(1) for p in POWERS], 1).float()
     return out
@@ -91,6 +102,37 @@ def sweep_call(fn, a, gate_active, dtype=None):
     return fn(t["y"], t["stim"], t["mu"], t["beta"], t["lam"], 0.1,
               t["m0"], t["m1"], t["lam_mask"], t["powers"], t["power_counts"],
               t["border"], 0.35, 3.0, float(gate_active))
+
+
+def counters():
+    """Each kernel's wrappers, whose ``launches`` count its launches."""
+    from circuitmap_torch.ops import laplace_cuda, sweep_cuda, sweep_row_cuda
+
+    return {
+        "sweep_blocked": (sweep_cuda.sweep_spikes_blocked,
+                          sweep_cuda.sweep_spikes_blocked_batched),
+        "laplace": (laplace_cuda.laplace_from_stats,),
+        "sweep_row": (sweep_row_cuda.sweep_spikes_row,
+                      sweep_row_cuda.sweep_spikes_row_batched),
+    }
+
+
+def reset_counts():
+    for fns in counters().values():
+        for fn in fns:
+            fn.launches = 0
+
+
+def read_counts():
+    """Launches per wrapper since the last reset."""
+    return {fn.__name__: fn.launches
+            for fns in counters().values() for fn in fns}
+
+
+def kernel_launches(counts):
+    """Launches per kernel from read_counts()."""
+    return {kernel: sum(counts[fn.__name__] for fn in fns)
+            for kernel, fns in counters().items()}
 
 
 def phase_sweep():
@@ -221,14 +263,14 @@ def phase_main_path():
         return dem, Model(N).fit(dem, sim["stim_matrix"], method="caviar",
                                  fit_options=dict(opts))
 
-    sweep_spikes_blocked.launches = 0
-    laplace_from_stats.launches = 0
+    reset_counts()
     t0 = time.time()
     dem, model = pipeline()
     torch.cuda.synchronize()
     first_s = time.time() - t0
     launches = {"sweep_blocked": sweep_spikes_blocked.launches,
                 "laplace": laplace_from_stats.launches}
+    by_path = kernel_launches(read_counts())
     r2 = r2_score(sim["weights"], model.state["mu"])
     log(f"first run {first_s:.3f} s; launches {launches}; truth-R2 {r2:.4f}")
     for key in ("mu", "beta", "lam", "shape", "rate", "phi", "phi_cov", "z"):
@@ -258,7 +300,253 @@ def phase_main_path():
     log(f"fit-only median of 3 warm runs: {statistics.median(fit_only):.4f} s "
         f"{fit_only}")
     log(f"truth-R2 {r2:.6f} (JAX package on this data: 0.9968)")
+    return by_path, sim, dem
+
+
+def row_call(fn, a, gate, msrmp=0.35, sig=0.1, dtype=None):
+    t = {k: (v.to(dtype) if dtype is not None and v.is_floating_point() else v)
+         for k, v in a.items()}
+    if dtype is not None and hasattr(msrmp, "to"):
+        sig, msrmp = sig.to(dtype), msrmp.to(dtype)
+    return fn(t["y"], t["stim"], t["mu"], t["beta"], t["lam"], sig,
+              t["m0"], t["m1"], t["lam_mask"], t["powers"], t["power_counts"],
+              t["order"], msrmp, 3.0, float(gate))
+
+
+def check_row_kernel(fn, plain_fn, a, what, **kw):
+    """The row kernel against its plain version on the same inputs, as
+    phase 3 holds the blocked kernel: rtol 1e-4 / atol 1e-5 with the
+    gate off; with it on, at most 0.5% of the gate decisions may differ
+    (a borderline iso >= msrmp can flip under another reduction order).
+    The distances of both from the plain version run in float64 are
+    printed beside. Returns the largest |kernel - plain|, gate off."""
+    import torch
+
+    ker = row_call(fn, a, 0, **kw)
+    plain = row_call(plain_fn, a, 0, **kw)
+    exact = row_call(plain_fn, a, 0, dtype=torch.float64, **kw)
+    err = (ker - plain).abs().max().item()
+    err_k = (ker.double() - exact).abs().max().item()
+    err_p = (plain.double() - exact).abs().max().item()
+    log(f"{what}, gate off: max |kernel - plain| = {err:.3e}; vs float64 "
+        f"plain: kernel {err_k:.3e}, f32 plain {err_p:.3e}")
+    if not torch.allclose(ker, plain, rtol=1e-4, atol=1e-5):
+        raise AssertionError(f"{what}: row kernel disagrees with its plain "
+                             "version beyond rtol 1e-4 / atol 1e-5 (gate "
+                             "off)")
+    ker1 = row_call(fn, a, 1, **kw)
+    plain1 = row_call(plain_fn, a, 1, **kw)
+    off_k = (ker1.sum(-1) == 0) & (ker.sum(-1) > 0)
+    off_p = (plain1.sum(-1) == 0) & (plain.sum(-1) > 0)
+    flips = int((off_k != off_p).sum())
+    log(f"{what}, gate on: {int(off_k.sum())} rows gated off; {flips} gate "
+        f"decisions differ from the plain version")
+    if flips > 0.005 * off_k.numel():
+        raise AssertionError(f"{what}: {flips} gate decisions differ "
+                             "(> 0.5% of rows)")
+    return err
+
+
+def phase_row_sweep():
+    import torch
+    from circuitmap_torch.ops import sweep_row_cuda as sr
+
+    log("phase 6: row kernel vs plain version (block 1, P=3: N=1000 "
+        "K=20000; E=4 at K=15000; N=200 at K=100000)")
+    a = sweep_inputs(seed=1)
+    err = check_row_kernel(sr.sweep_spikes_row, sr.sweep_spikes_row_torch, a,
+                           "E=1 N=1000 K=20000")
+    ms = cuda_ms(lambda: row_call(sr.sweep_spikes_row, a, 1))
+    plain_ms = cuda_ms(lambda: row_call(sr.sweep_spikes_row_torch, a, 1),
+                       reps=3, warmup=1)
+    bound_ms = 3 * N * K * 4 / PEAK_BYTES_PER_S * 1e3
+    log(f"row kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, byte bound "
+        f"{bound_ms:.4f} ms (3*N*K*4 B at 3.35 TB/s)")
+
+    E, KE = 4, 15000
+    parts = [sweep_inputs(seed=10 + e, k=KE) for e in range(E)]
+    b = {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+    b["powers"] = parts[0]["powers"]
+    kw = dict(msrmp=torch.tensor([0.3, 0.35, 0.4, 0.45], device="cuda"),
+              sig=torch.tensor([0.1, 0.12, 0.09, 0.11], device="cuda"))
+    check_row_kernel(sr.sweep_spikes_row_batched,
+                     sr.sweep_spikes_row_batched_torch, b,
+                     f"E={E} N=1000 K={KE}", **kw)
+    ms_e4 = cuda_ms(lambda: row_call(sr.sweep_spikes_row_batched, b, 1, **kw))
+    plain_ms_e4 = cuda_ms(
+        lambda: row_call(sr.sweep_spikes_row_batched_torch, b, 1, **kw),
+        reps=3, warmup=1)
+    bound_ms_e4 = 3 * E * N * KE * 4 / PEAK_BYTES_PER_S * 1e3
+    log(f"batched row kernel (E={E}) {ms_e4:.4f} ms, plain "
+        f"{plain_ms_e4:.3f} ms, byte bound {bound_ms_e4:.4f} ms")
+    del b, parts
+
+    big = sweep_inputs(seed=2, n=200, k=100000)
+    check_row_kernel(sr.sweep_spikes_row, sr.sweep_spikes_row_torch, big,
+                     "E=1 N=200 K=100000 (past the blocked kernel's K "
+                     "limit)")
+    del big
+    torch.cuda.synchronize()
+    return dict(name="sweep_row", route="cuda",
+                source="circuitmap_torch/csrc/sweep_row.cu",
+                replaces="circuitmap_tpu/ops/sweep_pallas.py:338, :89, :481",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None, ms_e4=ms_e4,
+                plain_ms_e4=plain_ms_e4, bound_ms_e4=bound_ms_e4)
+
+
+def timed(fn):
+    import torch
+
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def phase_block1_fit(sim, dem):
+    from circuitmap_torch import Model
+    from circuitmap_torch.utils.metrics import r2_score
+
+    log("phase 7: strictly sequential fit (sweep_block_size=1, 50 "
+        "iterations) on the demixed traces")
+    opts = {"iters": 50, "msrmp": 0.3, "powers": list(POWERS),
+            "verbose": False, "sweep_block_size": 1}
+
+    def fit():
+        return Model(N).fit(dem, sim["stim_matrix"], method="caviar",
+                            fit_options=dict(opts))
+
+    reset_counts()
+    model, first_s = timed(fit)
+    launches = kernel_launches(read_counts())
+    r2 = r2_score(sim["weights"], model.state["mu"])
+    log(f"first run {first_s:.3f} s; launches {launches}; truth-R2 {r2:.4f}")
+    if launches["sweep_row"] != 50 or launches["sweep_blocked"] != 0:
+        raise AssertionError(f"the block-1 fit must launch the row kernel "
+                             f"50 times and nothing else: {launches}")
+    if np.isnan(model.state["mu"]).any() or r2 < 0.98:
+        raise AssertionError(f"block-1 fit: truth-R2 {r2:.4f} < 0.98 or NaN")
+    fit_only = [timed(fit)[1] for _ in range(3)]
+    log(f"block-1 fit-only median of 3 warm runs: "
+        f"{statistics.median(fit_only):.4f} s {fit_only}")
     return launches
+
+
+def fold_r2(sim, results, what, floor, mean_floor=None):
+    """Truth-R2 of every fold: each at least ``floor``, and their mean at
+    least ``mean_floor`` where given; no NaN outside beta (NaN there
+    marks a cell reconnected from one event)."""
+    from circuitmap_torch.utils.metrics import r2_score
+
+    w = sim["weights"]
+    r2s = [r2_score(w, r["mu"]) for r in results]
+    log(f"{what}: truth-R2 per fold " + ", ".join(f"{v:.4f}" for v in r2s)
+        + f"; mean {np.mean(r2s):.4f}")
+    misses = [int(np.argmax(np.abs(r["mu"] - w))) for r in results]
+    log(f"{what}: largest miss per fold (cell: mu vs w) " + ", ".join(
+        f"{n}: {r['mu'][n]:.2f} vs {w[n]:.2f}"
+        for n, r in zip(misses, results)))
+    for r in results:
+        for key, v in r.items():
+            if np.isnan(np.asarray(v)).any() and key != "beta":
+                raise AssertionError(f"{what}: posterior {key} holds a NaN")
+    if min(r2s) < floor:
+        raise AssertionError(f"{what}: a fold's truth-R2 {min(r2s):.4f} < "
+                             f"{floor}")
+    if mean_floor is not None and np.mean(r2s) < mean_floor:
+        raise AssertionError(f"{what}: mean truth-R2 {np.mean(r2s):.4f} < "
+                             f"{mean_floor}")
+    return r2s
+
+
+def phase_many(sim, dem):
+    """caviar_many on 4 folds. The batched run (auto: block 1) must equal
+    the same folds fit one by one through the single fit's loop at block
+    1 with the same seeds. Recovery floors: the strictly sequential
+    schedule can gate off a strong cell for good at some seeds (on fold
+    3 at seed 3 it drops one with w=33.5 and scores 0.924, alone as in
+    the batch), so block-1 runs need every fold at 0.90 and their
+    mean at 0.95; block-8 runs need every fold at 0.95."""
+    import torch
+    from circuitmap_torch import caviar_many, default_priors
+
+    log("phase 8: caviar_many on 4 cross-validation folds (each holds out "
+        "one quarter of the trials: [4, 15000, 900] device traces, "
+        "[4, 1000, 15000] stims), 50 iterations")
+    q = K // 4
+    keeps = [np.r_[0:f * q, (f + 1) * q:K] for f in range(4)]
+    ys = torch.stack([dem[torch.from_numpy(kp).cuda()] for kp in keeps])
+    stims = np.stack([sim["stim_matrix"][:, kp] for kp in keeps])
+    p = default_priors(N)
+    args = (p["mu"], p["beta"], p["shape"], p["rate"], p["phi"], p["phi_cov"])
+    kw = dict(iters=50, msrmp=0.3, powers=list(POWERS), verbose=False)
+    paths = {}
+
+    def many(**opts):
+        return timed(lambda: caviar_many(ys, stims, *args, **kw, **opts))
+
+    reset_counts()
+    batched, first_s = many(compile_mode="batched")
+    paths["many_batched"] = launches = kernel_launches(read_counts())
+    counts = read_counts()
+    log(f"batched (auto: block 1) first run {first_s:.3f} s; launches "
+        f"{counts}")
+    if counts["sweep_spikes_row_batched"] != 50 or launches["laplace"] < 50:
+        raise AssertionError("the batched fit must launch the batched row "
+                             "kernel 50 times and the Laplace kernel at "
+                             f"least 50 times: {counts}")
+    fold_r2(sim, batched, "batched", 0.90, 0.95)
+    warm = [many(compile_mode="batched")[1] for _ in range(3)]
+    log(f"batched caviar_many, 4 folds, median of 3 warm runs: "
+        f"{statistics.median(warm):.4f} s {warm}")
+
+    reset_counts()
+    seq1, seq1_s = many(compile_mode="sequential", sweep_block_size=1)
+    paths["many_sequential_block1"] = kernel_launches(read_counts())
+    log(f"sequential at block 1 one run {seq1_s:.3f} s; launches "
+        f"{read_counts()}")
+    fold_r2(sim, seq1, "sequential block 1", 0.90, 0.95)
+    for f, (a, b) in enumerate(zip(batched, seq1)):
+        d = float(np.abs(a["mu"] - b["mu"]).max())
+        if d > 1e-3 or not np.array_equal(a["mu"] != 0, b["mu"] != 0):
+            raise AssertionError(f"fold {f}: batched and sequential block-1 "
+                                 f"fits differ (max |d mu| {d:.3e})")
+    log("batched == sequential at block 1 on every fold (max |d mu| "
+        + ", ".join(f"{np.abs(a['mu'] - b['mu']).max():.2e}"
+                    for a, b in zip(batched, seq1)) + ")")
+
+    reset_counts()
+    res, seq_s = many(compile_mode="sequential")
+    paths["many_sequential"] = kernel_launches(read_counts())
+    log(f"sequential (auto: block 8) one run {seq_s:.3f} s; launches "
+        f"{read_counts()}")
+    if paths["many_sequential"]["sweep_blocked"] != 200:
+        raise AssertionError("the sequential fits must launch the blocked "
+                             "kernel 4 x 50 times")
+    fold_r2(sim, res, "sequential block 8", 0.95)
+    del ys, res, batched, seq1
+
+    log("phase 9: ragged caviar_many, 4 folds of 18000, 16000, 14000 and "
+        "12000 trials, sweep_block_size=8, batched")
+    host = dem.cpu().numpy()
+    sizes = [K * m // 10 for m in (9, 8, 7, 6)]  # 18000 .. 12000
+    idx = [(np.arange(k) + K // 10 * f) % K for f, k in enumerate(sizes)]
+    reset_counts()
+    res, rag_s = timed(lambda: caviar_many(
+        [host[i] for i in idx], [sim["stim_matrix"][:, i] for i in idx],
+        *args, compile_mode="batched", sweep_block_size=8, **kw))
+    paths["many_ragged"] = kernel_launches(read_counts())
+    counts = read_counts()
+    log(f"ragged batched (block 8) one run {rag_s:.3f} s; launches {counts}")
+    if counts["sweep_spikes_blocked_batched"] != 50:
+        raise AssertionError("the ragged batched fit must launch the "
+                             f"batched blocked kernel 50 times: {counts}")
+    if [r["lam"].shape[1] for r in res] != sizes:
+        raise AssertionError("ragged results must come back at each "
+                             "fold's true width")
+    fold_r2(sim, res, "ragged", 0.95)
+    return paths
 
 
 def main():
@@ -290,14 +578,27 @@ def main():
 
     sweep_rec, sweep_state = phase_sweep()
     laplace_rec = phase_laplace(sweep_state)
-    launches = phase_main_path()
-    sweep_rec["launches"] = launches["sweep_blocked"]
-    laplace_rec["launches"] = launches["laplace"]
+    del sweep_state
+    paths = {}
+    paths["main"], sim, dem = phase_main_path()
+    row_rec = phase_row_sweep()
+    paths["block1_fit"] = phase_block1_fit(sim, dem)
+    paths.update(phase_many(sim, dem))
+    records = (sweep_rec, laplace_rec, row_rec)
+    for rec in records:
+        # launches: the sum over the paths driven, each counted from 0
+        rec["launches_by_path"] = {path: c[rec["name"]]
+                                   for path, c in paths.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+        if rec["launches"] == 0:
+            raise AssertionError(f"kernel {rec['name']} never launched")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in (sweep_rec, laplace_rec)]}),
-          flush=True)
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_by_path"]
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys},
+         **{k: v for k, v in r.items() if k not in keys}}
+        for r in records]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,14 +7,15 @@ an ``nn.Module``, the solvers are plain functions on tensors, devices
 are explicit and random streams are ``torch.Generator``s.
 
 Device rule: every entry point (``Model.fit``, ``caviar``,
-``NeuralDemixer``, ``simulate``) takes ``device=None``, which means
-``"cuda"``. Pass ``device="cpu"`` to run on the CPU; without a CUDA
-device and without that request, the entry point raises RuntimeError
-instead of quietly running on the CPU.
+``caviar_many``, ``NeuralDemixer``, ``simulate``) takes ``device=None``,
+which means ``"cuda"``. Pass ``device="cpu"`` to run on the CPU; without
+a CUDA device and without that request, the entry point raises
+RuntimeError instead of quietly running on the CPU.
 
-The Pallas TPU kernels of the main path are hand-written CUDA C++ for
-sm_90a (``csrc/``), built with nvcc at first use (``ops/_build.py``).
-A CPU tensor takes each kernel's plain PyTorch version.
+Every Pallas TPU kernel of the JAX package has a hand-written CUDA C++
+counterpart for sm_90a (``csrc/``), built with nvcc at first use
+(``ops/_build.py``). A CPU tensor takes each kernel's plain PyTorch
+version.
 
 Imports are lazy, so importing the package pulls in nothing heavy.
 """
@@ -26,6 +27,7 @@ _LAZY = {
     "default_priors": ("circuitmap_torch.model", "default_priors"),
     "NeuralDemixer": ("circuitmap_torch.demix.demixer", "NeuralDemixer"),
     "caviar": ("circuitmap_torch.solvers.caviar", "caviar"),
+    "caviar_many": ("circuitmap_torch.solvers.batched", "caviar_many"),
     "simulate": ("circuitmap_torch.simulation", "simulate"),
 }
 

@@ -103,6 +103,8 @@ def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.cm_sweep_blocked_f32.argtypes = [p] * 14 + [i] * 5 + [p]
     lib.cm_sweep_blocked_f32.restype = i
+    lib.cm_sweep_row_f32.argtypes = [p] * 14 + [i] * 4 + [p]
+    lib.cm_sweep_row_f32.restype = i
     lib.cm_laplace_f32.argtypes = [p] * 7 + [i, i, p]
     lib.cm_laplace_f32.restype = i
     lib.cm_error_string.argtypes = [i]

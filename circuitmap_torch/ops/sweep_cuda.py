@@ -11,6 +11,11 @@ start), Gauss-Seidel across blocks. Per row: ``est``, the per-power
 spike rates, the isotonic fit at max power (suffix-mean maximum), the
 connection gate and the gated new row.
 
+``sweep_spikes_blocked_batched`` runs E independent experiments in one
+launch (``sweep_spikes_pallas_dma_blocked_batched``, the batched fits'
+form). ``_sweep_row_blocks`` is the plain per-row algebra that every
+plain sweep of the port runs, blocked or strictly sequential.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA float32 tensor
 launches ``csrc/sweep_blocked.cu``; anything else raises.
 """
@@ -29,60 +34,98 @@ MAX_K = (232448 - 8192) // 4
 MAX_POWERS = 8
 
 
-def _scalar(v, dtype, device):
-    """A 0-d tensor on ``device``: a tensor is moved, a Python number is
-    filled in place (no host-to-device copy, which would wait on the
-    stream)."""
+def _per_expt(v, E, dtype, device):
+    """An [E] tensor on ``device`` from a number, a 0-d tensor or an [E]
+    tensor. A number is filled in place (no host-to-device copy, which
+    would wait on the stream)."""
     if isinstance(v, torch.Tensor):
-        return v.to(device=device, dtype=dtype).reshape(())
-    return torch.full((), float(v), dtype=dtype, device=device)
+        return v.to(device=device, dtype=dtype).reshape(-1).expand(E)
+    return torch.full((E,), float(v), dtype=dtype, device=device)
+
+
+def _residual(mu, lam):
+    """r = mu @ lam per experiment: [E, N], [E, N, K] -> [E, K], one
+    full-float32 matrix-vector product each (the single fit's own)."""
+    with highest_matmul():
+        return torch.stack([m @ lm for m, lm in zip(mu, lam)])
 
 
 def _sweep_row_blocks(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
                       power_counts, blocks, msrmp_eff, minimum_spike_count,
                       gate_active):
-    """The plain sweep over ``blocks`` [NB, B] of row indices, in order;
-    index N marks an inert padding lane (a zero row). Returns new lam."""
-    N, K = lam.shape
-    pad = lambda a: torch.cat([a, torch.zeros_like(a[:1])])  # noqa: E731
+    """The plain sweep of E independent experiments, the one copy of the
+    per-row algebra every plain sweep runs.
+
+    y, lam_mask: [E, K]; stim, lam: [E, N, K]; mu, beta, m0, m1: [E, N];
+    power_counts: [E, N, P]; blocks: [E, NB, B] row indices, one block
+    per step (index N marks an inert padding lane, a zero row); sig,
+    msrmp_eff, minimum_spike_count, gate_active: numbers, 0-d or [E]
+    tensors. Returns the new lam [E, N, K].
+    """
+    E, N, K = lam.shape
+    dt, dev = lam.dtype, lam.device
+    sig, msrmp_eff, min_count, gate_active = (
+        _per_expt(v, E, dt, dev)[:, None]
+        for v in (sig, msrmp_eff, minimum_spike_count, gate_active))
+    pad = lambda a: torch.cat([a, torch.zeros_like(a[:, :1])], 1)  # noqa: E731
     stim_p, lam_p, counts_p = pad(stim), pad(lam), pad(power_counts)
     mu_p, beta_p, m0_p, m1_p = pad(mu), pad(beta), pad(m0), pad(m1)
-    with highest_matmul():
-        r = mu @ lam
-    for idx in blocks:
-        stim_b, lam_b, mu_b = stim_p[idx], lam_p[idx], mu_p[idx]
-        beta_b = beta_p[idx]
-        r_excl = r[None, :] - mu_b[:, None] * lam_b
-        quad = sig * (-2.0 * y[None, :] * mu_b[:, None]
-                      + 2.0 * mu_b[:, None] * r_excl
-                      + (mu_b * mu_b + beta_b * beta_b)[:, None])
-        est = lam_mask[None, :] * (stim_b > 0) * torch.sigmoid(
-            m0_p[idx][:, None] * stim_b - m1_p[idx][:, None] - 0.5 * quad)
+    r = _residual(mu, lam)
+    ex = torch.arange(E, device=dev)[:, None]
+    for t in range(blocks.shape[1]):
+        idx = blocks[:, t]                                    # [E, B]
+        stim_b, lam_b = stim_p[ex, idx], lam_p[ex, idx]       # [E, B, K]
+        mu_b, beta_b = mu_p[ex, idx], beta_p[ex, idx]         # [E, B]
+        r_excl = r[:, None, :] - mu_b[..., None] * lam_b
+        quad = sig[..., None] * (-2.0 * y[:, None, :] * mu_b[..., None]
+                                 + 2.0 * mu_b[..., None] * r_excl
+                                 + (mu_b * mu_b + beta_b * beta_b)[..., None])
+        est = lam_mask[:, None, :] * (stim_b > 0) * torch.sigmoid(
+            m0_p[ex, idx][..., None] * stim_b - m1_p[ex, idx][..., None]
+            - 0.5 * quad)
         sums = torch.sum(torch.where(
-            stim_b[:, None, :] == powers[None, :, None], est[:, None, :], 0.0),
-            dim=-1)                                              # [B, P]
-        c = counts_p[idx]
+            stim_b[..., None, :] == powers[:, None], est[..., None, :], 0.0),
+            dim=-1)                                           # [E, B, P]
+        c = counts_p[ex, idx]
         rates = sums / (c + 1e-4 * (c == 0.0))
         ok = (isotonic_fit_at_max_batched(rates) >= msrmp_eff) & (
-            torch.sum(est, dim=1) >= minimum_spike_count)
-        gate = torch.where(_scalar(gate_active, est.dtype, est.device) > 0,
-                           ok.to(est.dtype), torch.ones_like(mu_b))
-        new_lam = est * gate[:, None]
+            torch.sum(est, dim=-1) >= min_count)
+        gate = torch.where(gate_active > 0, ok.to(dt), torch.ones_like(mu_b))
+        new_lam = est * gate[..., None]
         new_mu = mu_b * gate
-        lam_p[idx] = new_lam
-        if idx.numel() == 1:  # strictly sequential: the reference's algebra
-            r = r_excl[0] + new_mu[0] * new_lam[0]
+        lam_p[ex, idx] = new_lam
+        if idx.shape[1] == 1:  # strictly sequential: the reference's algebra
+            r = r_excl[:, 0] + new_mu * new_lam[:, 0]
         else:
-            r = r + torch.sum(new_mu[:, None] * new_lam
-                              - mu_b[:, None] * lam_b, dim=0)
-    return lam_p[:N]
+            r = r + torch.sum(new_mu[..., None] * new_lam
+                              - mu_b[..., None] * lam_b, dim=1)
+    return lam_p[:, :N]
+
+
+def _expt_axis(*arrays):
+    """Each array with a leading experiment axis of 1."""
+    return [a[None] for a in arrays]
 
 
 def _border_blocks(border, N, block_size):
-    """Block order -> [NB, B] row indices (N for rows past the end)."""
-    rows = (border.to(torch.long)[:, None] * block_size
+    """Block order [..., NB] -> [..., NB, B] row indices (N for rows
+    past the end)."""
+    rows = (border.to(torch.long)[..., None] * block_size
             + torch.arange(block_size, device=border.device))
     return torch.where(rows < N, rows, torch.full_like(rows, N))
+
+
+def sweep_spikes_blocked_batched_torch(y, stim, mu, beta, lam, sig, m0, m1,
+                                       lam_mask, powers, power_counts, border,
+                                       msrmp_eff, minimum_spike_count,
+                                       gate_active, block_size=BLOCK):
+    """Plain PyTorch version of the batched blocked sweep (any device,
+    any float dtype). Same arguments as
+    :func:`sweep_spikes_blocked_batched`."""
+    blocks = _border_blocks(border.to(lam.device), lam.shape[1], block_size)
+    return _sweep_row_blocks(y, stim, mu, beta, lam, sig, m0, m1, lam_mask,
+                             powers, power_counts.to(lam.dtype), blocks,
+                             msrmp_eff, minimum_spike_count, gate_active)
 
 
 def sweep_spikes_blocked_torch(y, stim, mu, beta, lam, sig, m0, m1, lam_mask,
@@ -91,11 +134,11 @@ def sweep_spikes_blocked_torch(y, stim, mu, beta, lam, sig, m0, m1, lam_mask,
                                block_size=BLOCK):
     """Plain PyTorch version of the blocked sweep (any device, any float
     dtype). Same arguments as :func:`sweep_spikes_blocked`."""
-    N = lam.shape[0]
-    blocks = _border_blocks(border.to(lam.device), N, block_size)
-    return _sweep_row_blocks(y, stim, mu, beta, lam, sig, m0, m1, lam_mask,
-                             powers, power_counts.to(lam.dtype), blocks,
-                             msrmp_eff, minimum_spike_count, gate_active)
+    return sweep_spikes_blocked_batched_torch(
+        *_expt_axis(y, stim, mu, beta, lam), sig,
+        *_expt_axis(m0, m1, lam_mask), powers,
+        *_expt_axis(power_counts, border), msrmp_eff, minimum_spike_count,
+        gate_active, block_size)[0]
 
 
 def sweep_spikes_blocked(y, stim, mu, beta, lam, sig, m0, m1, lam_mask,
@@ -116,12 +159,75 @@ def sweep_spikes_blocked(y, stim, mu, beta, lam, sig, m0, m1, lam_mask,
             gate_active, block_size)
     if lam.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {lam.device}")
-    return _launch(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
-                   power_counts, border, msrmp_eff, minimum_spike_count,
-                   gate_active, block_size)
+    out = _launch(*_expt_axis(y, stim, mu, beta, lam), sig,
+                  *_expt_axis(m0, m1, lam_mask), powers,
+                  *_expt_axis(power_counts, border), msrmp_eff,
+                  minimum_spike_count, gate_active, block_size)
+    sweep_spikes_blocked.launches += 1
+    return out[0]
 
 
 sweep_spikes_blocked.launches = 0
+
+
+def sweep_spikes_blocked_batched(y, stim, mu, beta, lam, sig, m0, m1,
+                                 lam_mask, powers, power_counts, border,
+                                 msrmp_eff, minimum_spike_count, gate_active,
+                                 block_size=BLOCK):
+    """E independent blocked sweeps in one launch (one thread block per
+    experiment); returns the new lam [E, N, K].
+
+    y, lam_mask: [E, K]; stim, lam: [E, N, K]; mu, beta, m0, m1:
+    [E, N]; powers: [P], shared; power_counts: [E, N, P]; border:
+    [E, ceil(N/block_size)]; sig, msrmp_eff: [E] (or scalars);
+    minimum_spike_count, gate_active: scalars or [E]. The signature of
+    ``sweep_spikes_pallas_dma_blocked_batched``.
+    """
+    if lam.device.type == "cpu":
+        return sweep_spikes_blocked_batched_torch(
+            y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
+            power_counts, border, msrmp_eff, minimum_spike_count,
+            gate_active, block_size)
+    if lam.device.type != "cuda":
+        raise ValueError(f"no sweep kernel for device {lam.device}")
+    out = _launch(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
+                  power_counts, border, msrmp_eff, minimum_spike_count,
+                  gate_active, block_size)
+    sweep_spikes_blocked_batched.launches += 1
+    return out
+
+
+sweep_spikes_blocked_batched.launches = 0
+
+
+def _kernel_args(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
+                power_counts, msrmp_eff, minimum_spike_count, gate_active,
+                what):
+    """The float32 operands both sweep kernels take, checked: (the ten
+    arrays y, lam_mask, stim, lam, mu, beta, m0, m1, power_counts, powers
+    as contiguous float32 on lam's device, scalars [E, 4] = (sig,
+    msrmp_eff, min_count, gate_active), r = mu @ lam [E, K])."""
+    if lam.dtype != torch.float32:
+        raise TypeError(
+            f"the CUDA {what} kernel takes float32 only, got {lam.dtype}; "
+            "a float64 fit runs on the CPU in this version")
+    E = lam.shape[0]
+    P = powers.shape[0]
+    if not 1 <= P <= MAX_POWERS:
+        raise ValueError(
+            f"the CUDA {what} kernel takes 1..{MAX_POWERS} power levels, "
+            f"got {P}")
+    dev = lam.device
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+
+    scalars = torch.stack([_per_expt(v, E, torch.float32, dev) for v in
+                           (sig, msrmp_eff, minimum_spike_count, gate_active)],
+                          dim=1).contiguous()
+    arrays = [f32(a) for a in (y, lam_mask, stim, lam, mu, beta, m0, m1,
+                               power_counts, powers)]
+    return arrays, scalars, _residual(arrays[4], arrays[3])
 
 
 def _launch(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
@@ -129,48 +235,31 @@ def _launch(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
             gate_active, block_size):
     from . import _build
 
-    if lam.dtype != torch.float32:
-        raise TypeError(
-            f"the CUDA sweep kernel takes float32 only, got {lam.dtype}; "
-            "a float64 fit runs on the CPU in this version")
     if block_size != BLOCK:
         raise ValueError(
             f"the CUDA sweep kernel takes block_size={BLOCK}, got "
             f"{block_size}")
-    N, K = lam.shape
-    P = powers.shape[0]
-    if not 1 <= P <= MAX_POWERS:
-        raise ValueError(
-            f"the CUDA sweep kernel takes 1..{MAX_POWERS} power levels, "
-            f"got {P}")
+    arrays, scalars, r_init = _kernel_args(
+        y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers, power_counts,
+        msrmp_eff, minimum_spike_count, gate_active, "sweep")
+    E, N, K = lam.shape
     if K > MAX_K:
         raise ValueError(
             f"K={K} trials: the residual r [K] must fit in one block's "
-            f"shared memory (K <= {MAX_K}); larger K needs the multi-block "
-            "sweep (ROADMAP)")
+            f"shared memory (K <= {MAX_K}); larger K runs the row kernel "
+            "(sweep_block_size=1, ops/sweep_row_cuda.py)")
     nb = -(-N // BLOCK)
-    if border.numel() != nb:
-        raise ValueError(f"border must hold {nb} block indices, got "
-                         f"{border.numel()}")
+    if border.shape != (E, nb):
+        raise ValueError(f"border must hold {nb} block indices per "
+                         f"experiment, got {tuple(border.shape)}")
     dev = lam.device
-
-    def f32(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
-
-    scalars = torch.stack([_scalar(v, torch.float32, dev) for v in
-                           (sig, msrmp_eff, minimum_spike_count, gate_active)])
-    args = [f32(a) for a in (y, lam_mask, stim, lam, mu, beta, m0, m1,
-                             power_counts, powers)]
-    lam = args[3]
-    with highest_matmul():
-        r_init = args[4] @ lam
     border32 = border.to(device=dev, dtype=torch.int32).contiguous()
-    out = torch.empty_like(lam)
+    out = torch.empty_like(arrays[3])
     lib = _build.library()
     err = lib.cm_sweep_blocked_f32(
-        *(a.data_ptr() for a in args), border32.data_ptr(),
+        *(a.data_ptr() for a in arrays), border32.data_ptr(),
         scalars.data_ptr(), r_init.data_ptr(), out.data_ptr(),
-        1, N, K, P, nb, torch.cuda.current_stream(dev).cuda_stream)
+        E, N, K, powers.shape[0], nb,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "sweep_blocked")
-    sweep_spikes_blocked.launches += 1
     return out

@@ -12,11 +12,17 @@ weight update (Cholesky plus one triangular solve), the truncated-normal
 power-curve means, one spike sweep, the noise update, the bucket
 statistics with the Laplace refit of phi, and the soft-threshold
 spontaneous update. On CUDA the sweep is the blocked 8-row kernel
-(ops/sweep_cuda.py) and the refit the Laplace kernel
+(ops/sweep_cuda.py) or, at block 1, the row kernel
+(ops/sweep_row_cuda.py), and the refit the Laplace kernel
 (ops/laplace_cuda.py); on the CPU their plain versions run, with the
 reference's strictly sequential sweep (block 1) by default. The loop
 needs no host read; the reconnection scan after it reads one flag per
 reconnection.
+
+The updates and the loop take one experiment ([K] charges, [N, K]
+spikes) or a stack of independent experiments with a leading axis
+([E, K], [E, N, K]): the batched fits (solvers/batched.py) run the same
+loop, with one random stream per experiment and the batched kernels.
 
 Random streams are a ``torch.Generator`` seeded from ``seed``; they
 cannot reproduce ``jax.random``, so cross-package parity runs use
@@ -25,13 +31,17 @@ cannot reproduce ``jax.random``, so cross-package parity runs use
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from .._device import highest_matmul, resolve_device, torch_dtype
 from ..ops.charge import prepare_observations
 from ..ops.pava import isotonic_fit_at_max_batched
-from ..ops.sweep_cuda import _sweep_row_blocks, sweep_spikes_blocked
+from ..ops.sweep_cuda import (MAX_K, _sweep_row_blocks, sweep_spikes_blocked,
+                              sweep_spikes_blocked_batched)
+from ..ops.sweep_row_cuda import sweep_spikes_row, sweep_spikes_row_batched
 from ..ops.truncnorm import sample_truncated_normal, truncated_normal_mean
 from ._common import (prepare_stim_and_init, prepare_traces,
                       warn_data_thin_design)
@@ -46,40 +56,58 @@ CUDA_BLOCK_SIZE = 8
 # ---------------------------------------------------------------------------
 
 
+def _mv(A, x):
+    """[..., N, K] @ [..., K] -> [..., N] in full float32; one
+    experiment takes the plain matrix-vector product."""
+    with highest_matmul():
+        if x.dim() == 1:
+            return A @ x
+        return (A @ x[..., None])[..., 0]
+
+
+def _vm(x, A):
+    """[..., N] @ [..., N, K] -> [..., K] in full float32."""
+    with highest_matmul():
+        if x.dim() == 1:
+            return x @ A
+        return (x[..., None, :] @ A)[..., 0, :]
+
+
 def update_weights(y, lam, shape, rate, mu_prior, beta_prior):
     """Blocked Gaussian update of all weights: solves the N x N normal
     equations by Cholesky; returns the posterior mean and the covariance
     diagonal. The Gram matrix runs in full float32 (no TF32)."""
-    N = lam.shape[0]
-    sig = shape / rate
+    N = lam.shape[-2]
+    sig = torch.as_tensor(shape / rate)[..., None]  # [..., 1]
     with highest_matmul():
-        gram = lam @ lam.T
-        lam_y = lam @ y
+        gram = lam @ lam.mT
+    lam_y = _mv(lam, y)
     soft_var = torch.sum(lam * (1.0 - lam), dim=-1)
     prior_prec = 1.0 / (beta_prior * beta_prior)
-    M = sig * gram + torch.diag(sig * soft_var + prior_prec)
+    M = sig[..., None] * gram + torch.diag_embed(sig * soft_var + prior_prec)
     rhs = sig * lam_y + mu_prior * prior_prec
     chol, _ = torch.linalg.cholesky_ex(M)  # no host sync on the info flag
     eye = torch.eye(N, dtype=lam.dtype, device=lam.device)
     # diag(M^-1) = column sums of (L^-1)^2: one triangular solve
     Linv = torch.linalg.solve_triangular(chol, eye, upper=False)
-    with highest_matmul():
-        mean = Linv.T @ (Linv @ rhs)
-    return mean, torch.sum(Linv * Linv, dim=0)
+    mean = _mv(Linv.mT, _mv(Linv, rhs))
+    return mean, torch.sum(Linv * Linv, dim=-2)
 
 
 def update_noise(y, mu, beta, lam, shape_prior, rate_prior, k_true=None):
-    """Gamma noise posterior (shape, rate)."""
-    K = y.shape[0] if k_true is None else k_true
-    with highest_matmul():
-        pred = mu @ lam
-    row_lam = torch.sum(lam, dim=1)
-    row_lam2 = torch.sum(lam * lam, dim=1)
+    """Gamma noise posterior (shape, rate). ``k_true``: the real trial
+    count (a number or an [E] tensor) when the arrays carry inert padded
+    columns; the shape term counts trials."""
+    K = y.shape[-1] if k_true is None else k_true
+    pred = _vm(mu, lam)
+    row_lam = torch.sum(lam, dim=-1)
+    row_lam2 = torch.sum(lam * lam, dim=-1)
     rate = rate_prior + 0.5 * (
-        torch.sum(torch.square(y - pred))
-        - torch.sum(mu * mu * row_lam2)
-        + torch.sum((mu * mu + beta * beta) * row_lam))
-    return shape_prior + 0.5 * K, rate
+        torch.sum(torch.square(y - pred), dim=-1)
+        - torch.sum(mu * mu * row_lam2, dim=-1)
+        + torch.sum((mu * mu + beta * beta) * row_lam, dim=-1))
+    # one shape per experiment, like rate
+    return torch.as_tensor(shape_prior + 0.5 * K).expand(rate.shape), rate
 
 
 def powercurve_logit_means(generator, phi, phi_cov, num_mc_samples, analytic):
@@ -97,9 +125,9 @@ def powercurve_logit_means(generator, phi, phi_cov, num_mc_samples, analytic):
 
 
 def power_counts_of(stim, powers, dtype):
-    """[N, P] trials per neuron per power."""
+    """[..., N, P] trials per neuron per power."""
     return torch.stack([torch.sum(stim == powers[p], dim=-1)
-                        for p in range(powers.shape[0])], dim=1).to(dtype)
+                        for p in range(powers.shape[0])], dim=-1).to(dtype)
 
 
 def sweep_spikes(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers, order,
@@ -114,10 +142,11 @@ def sweep_spikes(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers, order,
     fill = torch.full((nb * block_size - N,), N, dtype=torch.long,
                       device=lam.device)
     blocks = torch.cat([order.to(torch.long), fill]).reshape(nb, block_size)
-    return _sweep_row_blocks(y, stim, mu, beta, lam, sig, m0, m1, lam_mask,
-                             powers, power_counts_of(stim, powers, lam.dtype),
-                             blocks, msrmp_eff, minimum_spike_count,
-                             gate_active)
+    return _sweep_row_blocks(
+        y[None], stim[None], mu[None], beta[None], lam[None], sig, m0[None],
+        m1[None], lam_mask[None], powers,
+        power_counts_of(stim, powers, lam.dtype)[None], blocks[None],
+        msrmp_eff, minimum_spike_count, gate_active)[0]
 
 
 def update_spontaneous(y, mu, lam, z, it, penalty, lam_mask, scale_factor,
@@ -131,19 +160,20 @@ def update_spontaneous(y, mu, lam, z, it, penalty, lam_mask, scale_factor,
     masked loop: a step that the reference's ``err > tol`` test would
     not take leaves the state unchanged, without a host read.
     """
-    with highest_matmul():
-        resid = y - mu @ lam
-    explained = torch.any(lam >= orthogonality, dim=0)
-    denom = torch.sum(y * y) + 1e-5
-    err = torch.sum(y)
-    pen = torch.full((), float(penalty), dtype=y.dtype, device=y.device)
+    resid = y - _vm(mu, lam)
+    explained = torch.any(lam >= orthogonality, dim=-2)
+    denom = torch.sum(y * y, dim=-1) + 1e-5
+    err = torch.sum(y, dim=-1)
+    pen = torch.full(err.shape, float(penalty), dtype=y.dtype,
+                     device=y.device)
     for _ in range(max(0, int(max_iters) - int(it))):
         live = err > tol
-        z_new = torch.where(resid < pen, 0.0, resid - pen)
+        z_new = torch.where(resid < pen[..., None], 0.0,
+                            resid - pen[..., None])
         z_new = torch.clamp(z_new, min=0.0)
         z_new = torch.where(explained, 0.0, z_new) * lam_mask
-        err_new = torch.sum(torch.square(resid - z_new)) / denom
-        z = torch.where(live, z_new, z)
+        err_new = torch.sum(torch.square(resid - z_new), dim=-1) / denom
+        z = torch.where(live[..., None], z_new, z)
         err = torch.where(live, err_new, err)
         pen = torch.where(live, pen * scale_factor, pen)
     return z
@@ -154,48 +184,74 @@ def update_spontaneous(y, mu, lam, z, it, penalty, lam_mask, scale_factor,
 # ---------------------------------------------------------------------------
 
 
+def _each_stream(generators, fn):
+    """``fn(generator, b)`` for each experiment's random stream, stacked
+    on a leading axis; one stream (a single fit) is not stacked."""
+    if len(generators) == 1:
+        return fn(generators[0], None)
+    return torch.stack([fn(g, b) for b, g in enumerate(generators)])
+
+
+_SWEEPS = {  # (strictly sequential, experiment axis) -> sweep wrapper
+    (True, False): sweep_spikes_row, (True, True): sweep_spikes_row_batched,
+    (False, False): sweep_spikes_blocked,
+    (False, True): sweep_spikes_blocked_batched,
+}
+
+
 def _run_caviar(y, stim, lam0, lam_mask, powers, power_counts, hyper,
-                generator, *, iters, num_mc_samples, minimum_spike_count,
+                generators, *, iters, num_mc_samples, minimum_spike_count,
                 delay_spont_est, msrmp, scale_factor, penalty,
                 max_backtrack_iters, tol, spont_orthogonality, analytic_mc,
-                save_histories, sweep_block_size, update_order):
+                save_histories, sweep_block_size, update_order, k_true=None):
+    """The fit loop over one experiment (y [K], stim [N, K], one
+    generator) or E of them (y [E, K], stim [E, N, K], E generators,
+    the batched sweep kernels). ``k_true``: None, or the real trial
+    counts [E] of a ragged stack whose padded columns are inert (zero
+    traces, stim and mask); the places that count trials use it."""
     mu_prior, beta_prior, shape_prior, rate_prior, phi_prior, phi_cov_prior = hyper
-    N, K = stim.shape
+    N, K = stim.shape[-2:]
+    lead = y.shape[:-1]  # () for one experiment, (E,) for a stack
     dev = y.device
     B = sweep_block_size
+    sweep = _SWEEPS[B == 1, bool(lead)]
+    if B != 1:
+        sweep = functools.partial(sweep, block_size=B)
     n_slots = N if B == 1 else -(-N // B)  # rows, or blocks incl. padding
+    k_count = K if k_true is None else k_true
     mu, beta, lam = mu_prior, beta_prior, lam0
-    shape, rate, phi, phi_cov = shape_prior, rate_prior, phi_prior, phi_cov_prior
-    z = torch.zeros(K, dtype=y.dtype, device=dev)
-    spont_rate = torch.zeros((), dtype=y.dtype, device=dev)
+    shape, rate = shape_prior, rate_prior
+    phi = phi_prior.expand(*lead, N, 2)
+    phi_cov = phi_cov_prior.expand(*lead, N, 2, 2)
+    z = torch.zeros(*lead, K, dtype=y.dtype, device=dev)
+    spont_rate = torch.zeros(lead, dtype=y.dtype, device=dev)
     snaps = []
     for it in range(iters):
         mu, beta = update_weights(y, lam, shape, rate, mu_prior, beta_prior)
         if update_order == "identity":
-            order = torch.arange(n_slots, device=dev)
+            order = torch.arange(n_slots, device=dev).expand(*lead, n_slots)
         else:
-            order = torch.randperm(n_slots, generator=generator, device=dev)
-        m0, m1 = powercurve_logit_means(generator, phi, phi_cov,
-                                        num_mc_samples, analytic_mc)
+            order = _each_stream(generators, lambda g, b: torch.randperm(
+                n_slots, generator=g, device=dev))
+        m0, m1 = _each_stream(generators, lambda g, b: torch.stack(
+            powercurve_logit_means(
+                g, phi if b is None else phi[b],
+                phi_cov if b is None else phi_cov[b], num_mc_samples,
+                analytic_mc))).unbind(-2)
         sig = shape / rate
         gate_active = float(it > delay_spont_est)
-        if B == 1:
-            lam = sweep_spikes(y, stim, mu, beta, lam, sig, m0, m1, lam_mask,
-                               powers, order, msrmp + spont_rate,
-                               minimum_spike_count, gate_active)
-        else:
-            lam = sweep_spikes_blocked(
-                y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
-                power_counts, order, msrmp + spont_rate,
-                minimum_spike_count, gate_active, block_size=B)
-        shape, rate = update_noise(y, mu, beta, lam, shape_prior, rate_prior)
+        lam = sweep(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
+                    power_counts, order, msrmp + spont_rate,
+                    minimum_spike_count, gate_active)
+        shape, rate = update_noise(y, mu, beta, lam, shape_prior, rate_prior,
+                                   k_true)
         phi, phi_cov = laplace_phi_update(lam, stim, phi_prior, phi_cov_prior,
-                                          powers=powers, total_trials=K,
+                                          powers=powers, total_trials=k_count,
                                           counts=power_counts)
         z = update_spontaneous(y, mu, lam, z, it, penalty, lam_mask,
                                scale_factor, tol, spont_orthogonality,
                                max_backtrack_iters)
-        spont_rate = torch.sum((z != 0.0).to(y.dtype)) / K
+        spont_rate = torch.sum((z != 0.0).to(y.dtype), dim=-1) / k_count
         if save_histories:
             snaps.append((mu, beta, lam, shape, rate, phi, phi_cov, z))
     return (mu, beta, lam, shape, rate, phi, phi_cov, z), snaps
@@ -262,6 +318,82 @@ def _reconnect_scan_device(stim, lam, mu, beta, z, powers, msrmp,
     return mu, beta, lam, z, n_rec
 
 
+def _host(a):
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else \
+        np.asarray(a)
+
+
+def reconnect_from_spontaneous(y, stim, lam, mu, beta, z, msrmp=0.3,
+                               minimum_spike_count=3, powers=None,
+                               power_counts=None, verbose=False):
+    """The greedy reconnection scan in host numpy (reference
+    ``reconnect_spont_cells``; the batched fits run it per experiment).
+
+    Same decisions as :func:`_reconnect_scan_device`: while more than
+    ``minimum_spike_count`` events remain, the candidate (mu == 0) with
+    the most events among those whose isotonic event rate at max power
+    clears ``msrmp`` and whose count clears the minimum is reconnected
+    and absorbs its events. mu, beta and z come back as numpy arrays;
+    lam keeps its kind (a tensor is updated on its device in one
+    scatter). ``y`` is accepted for the reference's signature. Returns
+    (mu, beta, lam, z, reconnected).
+    """
+    del y
+    mu, beta, z = (_host(a).copy() for a in (mu, beta, z))
+    stim = _host(stim)
+    if powers is None:
+        powers = np.unique(stim)[1:]
+    else:
+        powers = np.sort(np.asarray(powers, dtype=stim.dtype))
+    if power_counts is None:  # [N, P]
+        power_counts = np.stack([(stim == p).sum(1) for p in powers], 1)
+    else:
+        power_counts = np.asarray(power_counts, dtype=float)
+    candidate = mu == 0.0
+    z_nz = z != 0.0
+    suffix_div = np.arange(1, powers.size + 1, dtype=float)
+    # events are only ever removed, so hits update incrementally and a
+    # candidate that fails once never passes later
+    stim_z = stim[:, np.flatnonzero(z_nz)]
+    hits = np.stack([(stim_z == p).sum(1) for p in powers], 1).astype(float)
+    updates = []  # (neuron, trials) reconnections, scattered at the end
+    while z_nz.sum() > minimum_spike_count:
+        with np.errstate(invalid="ignore"):
+            rates = np.where(power_counts > 0, hits / power_counts, 0.0)
+        iso_at_max = (np.cumsum(rates[:, ::-1], axis=1) / suffix_div).max(1)
+        n_events = hits.sum(1)
+        ok = candidate & (iso_at_max >= msrmp) & (
+            n_events >= minimum_spike_count)
+        if not ok.any():
+            break
+        n = int(np.argmax(np.where(ok, n_events, -1.0)))
+        candidate[n] = False
+        locs = np.flatnonzero((stim[n] != 0.0) & z_nz)
+        vals = z[locs]
+        mu[n] = vals.mean()
+        # standard error of the mean (ddof=1), NaN for one event
+        beta[n] = (vals.std(ddof=1) / np.sqrt(vals.size) if vals.size > 1
+                   else np.nan)
+        updates.append((n, locs))
+        z[locs] = 0.0
+        z_nz[locs] = False
+        hits -= np.stack([(stim[:, locs] == p).sum(1) for p in powers], 1)
+        if verbose:
+            print(f"reconnected cell {n} "
+                  f"(iso fit at max power {iso_at_max[n]:.2f})")
+    if updates:
+        rows = np.concatenate([np.full(lc.size, n) for n, lc in updates])
+        cols = np.concatenate([lc for _, lc in updates])
+        if isinstance(lam, torch.Tensor):
+            lam = lam.clone()
+            lam[torch.from_numpy(rows).to(lam.device),
+                torch.from_numpy(cols).to(lam.device)] = 1.0
+        else:
+            lam = np.array(lam)
+            lam[rows, cols] = 1.0
+    return mu, beta, lam, z, bool(updates)
+
+
 def _reconnect_and_refit(stim, lam, mu, beta, z, powers, phi, phi_cov,
                          phi_prior, phi_cov_prior, msrmp,
                          minimum_spike_count):
@@ -287,27 +419,44 @@ def _validate_update_order(update_order):
     return update_order
 
 
-def _resolve_sweep(sweep_impl, sweep_block_size, device):
-    """The sweep's block size. 'auto' is 8 on CUDA (the blocked kernel)
-    and 1 on the CPU (the reference's strictly sequential schedule)."""
+def _resolve_sweep(sweep_impl, sweep_block_size, device, k=None):
+    """The sweep's block size for ``k`` trials on ``device`` (only its
+    type is read).
+
+    'auto' is 1 on the CPU (the reference's strictly sequential
+    schedule). On CUDA it is 8, the blocked kernel, while its residual
+    fits in shared memory (K <= ``sweep_cuda.MAX_K``), and 1 above that:
+    the row kernel takes any K. A pinned size is honoured verbatim: on
+    CUDA 1 runs the row kernel, 8 the blocked kernel (raising above
+    MAX_K), and no other size has a kernel.
+    """
     if sweep_impl not in SWEEP_IMPLS:
         raise ValueError(
             f"sweep_impl must be one of {SWEEP_IMPLS}, got {sweep_impl!r} "
             "(the JAX package's 'xla' and 'pallas*' implementations do "
             "not exist in the port; both values dispatch by device)")
+    on_cuda = device.type == "cuda"
+    fits = k is None or k <= MAX_K
     if sweep_block_size == "auto":
-        return CUDA_BLOCK_SIZE if device.type == "cuda" else 1
+        return CUDA_BLOCK_SIZE if on_cuda and fits else 1
     block = int(sweep_block_size)
-    if device.type == "cuda" and block == 1:
+    if on_cuda and block not in (1, CUDA_BLOCK_SIZE):
         raise NotImplementedError(
-            "sweep_block_size=1 on CUDA needs the strictly sequential "
-            "row-sweep kernel, which is not ported yet (ROADMAP B3/B4); "
-            "use sweep_block_size=8 or 'auto' on the GPU, or run on the CPU")
-    if device.type == "cuda" and block != CUDA_BLOCK_SIZE:
-        raise NotImplementedError(
-            f"the CUDA sweep kernel runs 8-row blocks; sweep_block_size="
-            f"{block} is not available on the GPU")
+            f"the CUDA sweep kernels run single rows or 8-row blocks; "
+            f"sweep_block_size={block} is not available on the GPU")
+    if on_cuda and block == CUDA_BLOCK_SIZE and not fits:
+        raise ValueError(
+            f"sweep_block_size=8 on CUDA holds the residual of K={k} "
+            f"trials in one block's shared memory, which takes K <= "
+            f"{MAX_K}; use sweep_block_size=1 or 'auto' (the row kernel)")
     return block
+
+
+def seeded_generator(seed, device):
+    """The fit's random stream: a ``torch.Generator`` on ``device``."""
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int(seed))
+    return generator
 
 
 def _as(a, dtype, device):
@@ -340,6 +489,10 @@ def caviar(
     ``sweep_impl``/``laplace_impl`` take "auto" or "cuda" (both dispatch
     by device: the kernels on CUDA float32, the plain versions on the
     CPU). CUDA fits are float32; a float64 fit runs on the CPU.
+
+    ``sweep_block_size="auto"`` is 8 on CUDA (the blocked kernel) up to
+    ``sweep_cuda.MAX_K`` trials and 1 above (the row kernel), and 1 on
+    the CPU; a pinned 1 or 8 is honoured (``_resolve_sweep``).
     """
     if track_elbo or elbo_tol is not None:
         raise NotImplementedError(
@@ -351,7 +504,8 @@ def caviar(
         raise NotImplementedError(
             f"the CUDA kernels of this version take float32 only; a "
             f"{dtype} fit runs with device='cpu'")
-    block_size = _resolve_sweep(sweep_impl, sweep_block_size, dev)
+    block_size = _resolve_sweep(sweep_impl, sweep_block_size, dev,
+                                k=np.shape(stim)[-1])
     resolve_laplace_impl(laplace_impl)
     update_order = _validate_update_order(str(update_order))
     if verbose:
@@ -366,12 +520,10 @@ def caviar(
     hyper = tuple(_as(a, dtype, dev) for a in (
         mu_prior, beta_prior, shape_prior, rate_prior, phi_prior,
         phi_cov_prior))
-    generator = torch.Generator(device=dev)
-    generator.manual_seed(int(seed))
-
     final, snaps = _run_caviar(
         y, stim_t, lam0, lam_mask, powers_t,
-        power_counts_of(stim_t, powers_t, dtype), hyper, generator,
+        power_counts_of(stim_t, powers_t, dtype), hyper,
+        [seeded_generator(seed, dev)],
         iters=int(iters), num_mc_samples=int(num_mc_samples),
         minimum_spike_count=int(minimum_spike_count),
         delay_spont_est=int(delay_spont_est), msrmp=float(msrmp),

@@ -270,9 +270,10 @@ def test_sweep_block_size_resolution():
     assert tcav._resolve_sweep("auto", "auto", cpu) == 1
     assert tcav._resolve_sweep("auto", "auto", gpu) == 8
     assert tcav._resolve_sweep("cuda", 8, cpu) == 8
-    # the strictly sequential schedule on CUDA needs the row kernel
-    with pytest.raises(NotImplementedError, match="B3"):
-        tcav._resolve_sweep("auto", 1, gpu)
+    # the strictly sequential schedule on CUDA runs the row kernel
+    assert tcav._resolve_sweep("auto", 1, gpu) == 1
+    with pytest.raises(NotImplementedError, match="sweep_block_size=4"):
+        tcav._resolve_sweep("auto", 4, gpu)
 
 
 def test_default_priors_match_jax():

@@ -96,13 +96,20 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cm.caviar(psc, stim, p["mu"], p["beta"], p["shape"], p["rate"],
                   p["phi"], p["phi_cov"], verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cm.caviar_many(np.stack([psc, psc]), np.stack([stim, stim]),
+                       p["mu"], p["beta"], p["shape"], p["rate"], p["phi"],
+                       p["phi_cov"], verbose=False)
 
 
 def test_lazy_exports():
     import circuitmap_torch as cm
 
     assert set(cm.__all__) == {"Model", "default_priors", "NeuralDemixer",
-                               "caviar", "simulate"}
+                               "caviar", "caviar_many", "simulate"}
+    from circuitmap_torch.solvers import caviar_many
+
+    assert cm.caviar_many is caviar_many
     with pytest.raises(AttributeError):
         cm.not_a_name  # noqa: B018
 

@@ -9,11 +9,13 @@ machine with the card and without JAX it runs on its own:
 The rest checks, on any machine, what surrounds the kernels: dispatch
 by device, launch counters and the build's failure without nvcc.
 
-Tolerances. The sweep kernel runs the plain version's float32 algebra
-with its sums in another order: rtol 1e-4 / atol 1e-5 with the gate
-off, and with the gate on at most one gate decision in 200 rows may
-flip (a borderline ``iso >= msrmp`` can fall either way under another
-reduction order). The Laplace kernel computes in double from float32
+Tolerances. The sweep kernels (blocked and row, single and batched) run
+the plain versions' float32 algebra with their sums in another order:
+rtol 1e-4 / atol 1e-5 with the gate off, and with the gate on at most
+one gate decision in 200 rows may flip (a borderline ``iso >= msrmp``
+can fall either way under another reduction order). In a row sweep a
+flip changes every later row through the residual, so with the gate on
+only the decisions are compared. The Laplace kernel computes in double from float32
 inputs and is held to the plain version run in float64 on the same
 inputs, per neuron relative to its largest entry, at 1e-5.
 """
@@ -22,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from circuitmap_torch.ops import _build, laplace_cuda, sweep_cuda
+from circuitmap_torch.ops import (_build, laplace_cuda, sweep_cuda,
+                                  sweep_row_cuda)
 
 
 @pytest.fixture
@@ -32,14 +35,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def _sweep_inputs(N, K, powers, seed=0, device="cpu"):
+def _sweep_inputs(N, K, powers, seed=0, device="cpu", H=None,
+                  connected=0.2):
     rng = np.random.default_rng(seed)
-    H = max(1, N // 10)
+    H = max(1, N // 10) if H is None else H
     stim = np.zeros((N, K), np.float32)
     stim[rng.integers(0, N, H * K), np.repeat(np.arange(K), H)] = rng.choice(
         powers, H * K)
     lam = np.where(stim > 0, rng.uniform(0, 1, (N, K)), 0).astype(np.float32)
-    mu = np.where(rng.random(N) < 0.2, rng.uniform(5, 30, N), 0).astype(
+    mu = np.where(rng.random(N) < connected, rng.uniform(5, 30, N), 0).astype(
         np.float32)
     y = (mu @ (rng.random((N, K)) < lam) + rng.normal(0, 1, K)).astype(
         np.float32)
@@ -84,6 +88,111 @@ def test_sweep_kernel_matches_plain(cuda, N, K, powers):
     assert int((off_k != off_p).sum()) <= max(0, N // 200)
     same = ~(off_k | off_p)
     torch.testing.assert_close(ker1[same], plain1[same], rtol=1e-4, atol=1e-5)
+
+
+def _stacked(E, N, K, powers, device, seed=0):
+    """E experiments of sweep inputs with a leading axis, a row order
+    and a block order each. The row kernel's inputs are the main path's
+    kind (at most 10 targets a trial, ~5% connected): with 20 targets
+    and 20% connected, N=203 rows of residual updates leave both float32
+    versions ~2e-4 from the float64 result, and their comparison at
+    atol 1e-5 says nothing about the kernel."""
+    parts = [_sweep_inputs(N, K, powers, seed=seed + e, device=device,
+                           H=min(10, max(1, N // 10)), connected=0.05)
+             for e in range(E)]
+    t = {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+    t["powers"] = parts[0]["powers"]
+    rng = np.random.default_rng(seed)
+    t["order"] = torch.from_numpy(
+        np.stack([rng.permutation(N) for _ in range(E)])).to(device)
+    return t
+
+
+def _row(fn, t, gate, msrmp=0.5, sig=0.1):
+    return fn(t["y"], t["stim"], t["mu"], t["beta"], t["lam"], sig, t["m0"],
+              t["m1"], t["lam_mask"], t["powers"], t["power_counts"],
+              t["order"], msrmp, 3.0, gate)
+
+
+def _check_row_kernel(fn, plain_fn, t, msrmp=0.5, sig=0.1):
+    """Gate off: the kernel against the plain version at rtol 1e-4 /
+    atol 1e-5; gate on: at most one gate decision in 200 rows may
+    differ. Returns the gated kernel output."""
+    ker = _row(fn, t, 0.0, msrmp, sig)
+    plain = _row(plain_fn, t, 0.0, msrmp, sig)
+    torch.testing.assert_close(ker, plain, rtol=1e-4, atol=1e-5)
+    ker1 = _row(fn, t, 1.0, msrmp, sig)
+    plain1 = _row(plain_fn, t, 1.0, msrmp, sig)
+    off_k, off_p = ker1.sum(-1) == 0, plain1.sum(-1) == 0
+    assert int((off_k != off_p).sum()) <= max(0, off_k.numel() // 200)
+    return ker1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K,powers", [
+    (29, 300, (45.0, 55.0, 65.0)),
+    (203, 5000, (45.0, 55.0, 65.0)),
+    (64, 1000, (50.0,)),
+    (64, 1000, (30.0, 40.0, 50.0, 60.0, 70.0)),
+    # past the blocked kernel's limit
+    (40, sweep_cuda.MAX_K + 3945, (45.0, 55.0, 65.0)),
+])
+def test_row_kernel_matches_plain(cuda, N, K, powers):
+    t = _stacked(1, N, K, powers, cuda)
+    t = {k: (v if k == "powers" else v[0]) for k, v in t.items()}
+    before = sweep_row_cuda.sweep_spikes_row.launches
+    _check_row_kernel(sweep_row_cuda.sweep_spikes_row,
+                      sweep_row_cuda.sweep_spikes_row_torch, t)
+    torch.cuda.synchronize()
+    assert sweep_row_cuda.sweep_spikes_row.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_batched_row_kernel_matches_plain(cuda):
+    t = _stacked(3, 101, 3000, (45.0, 55.0, 65.0), cuda, seed=4)
+    sig = torch.tensor([0.1, 0.15, 0.08], device=cuda)
+    msrmp = torch.tensor([0.3, 0.5, 0.7], device=cuda)
+    before = sweep_row_cuda.sweep_spikes_row_batched.launches
+    ker1 = _check_row_kernel(sweep_row_cuda.sweep_spikes_row_batched,
+                             sweep_row_cuda.sweep_spikes_row_batched_torch,
+                             t, msrmp, sig)
+    torch.cuda.synchronize()
+    assert sweep_row_cuda.sweep_spikes_row_batched.launches == before + 2
+    # one launch of three equals three single launches
+    for e in range(3):
+        one = sweep_row_cuda.sweep_spikes_row(
+            *(t[k][e] for k in ("y", "stim", "mu", "beta", "lam")), sig[e],
+            t["m0"][e], t["m1"][e], t["lam_mask"][e], t["powers"],
+            t["power_counts"][e], t["order"][e], msrmp[e], 3.0, 1.0)
+        torch.testing.assert_close(one, ker1[e], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_batched_blocked_kernel_matches_plain(cuda):
+    t = _stacked(3, 203, 5000, (45.0, 55.0, 65.0), cuda, seed=7)
+    msrmp = torch.tensor([0.3, 0.5, 0.7], device=cuda)
+    before = sweep_cuda.sweep_spikes_blocked_batched.launches
+    ker = _sweep(sweep_cuda.sweep_spikes_blocked_batched, t, 0.0, msrmp)
+    plain = _sweep(sweep_cuda.sweep_spikes_blocked_batched_torch, t, 0.0,
+                   msrmp)
+    ker1 = _sweep(sweep_cuda.sweep_spikes_blocked_batched, t, 1.0, msrmp)
+    plain1 = _sweep(sweep_cuda.sweep_spikes_blocked_batched_torch, t, 1.0,
+                    msrmp)
+    torch.cuda.synchronize()
+    assert sweep_cuda.sweep_spikes_blocked_batched.launches == before + 2
+    torch.testing.assert_close(ker, plain, rtol=1e-4, atol=1e-5)
+    off_k, off_p = ker1.sum(-1) == 0, plain1.sum(-1) == 0
+    assert int((off_k != off_p).sum()) <= 3
+
+
+def test_cpu_tensors_take_the_plain_row_versions():
+    t = _stacked(2, 29, 300, (45.0, 55.0, 65.0), "cpu")
+    before = sweep_row_cuda.sweep_spikes_row_batched.launches
+    torch.testing.assert_close(
+        _row(sweep_row_cuda.sweep_spikes_row_batched, t, 1.0),
+        _row(sweep_row_cuda.sweep_spikes_row_batched_torch, t, 1.0),
+        rtol=0, atol=0)
+    assert sweep_row_cuda.sweep_spikes_row_batched.launches == before
 
 
 def _laplace_stats(N, P1, seed=0):

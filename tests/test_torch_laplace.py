@@ -161,3 +161,59 @@ def test_laplace_impl_names(impl):
     assert tlap.resolve_laplace_impl("cuda") == "cuda"
     with pytest.raises(ValueError, match="auto.*cuda"):
         tlap.resolve_laplace_impl(impl)
+
+
+def test_batched_refit_matches_the_pallas_vmap_rule():
+    # [B, N] bucket statistics against the Pallas kernel's custom-vmap
+    # rule (B*N lanes in one call), in interpret mode
+    import jax
+
+    from circuitmap_tpu.ops.laplace_pallas import (
+        laplace_from_stats_pallas_interpret_v)
+
+    per = [_stats(4, seed=20 + b) for b in range(3)]
+    stacked = [np.stack(x) for x in zip(*per)]
+    levels = per[0][2]
+    phi, cov = laplace_cuda.laplace_from_stats(
+        *(torch.from_numpy(a) for a in
+          (stacked[0], stacked[1], levels, stacked[3], stacked[4])))
+    jphi, jcov = jax.vmap(laplace_from_stats_pallas_interpret_v,
+                          in_axes=(0, 0, None, 0, 0))(
+        jnp.asarray(stacked[0]), jnp.asarray(stacked[1]), jnp.asarray(levels),
+        jnp.asarray(stacked[3]), jnp.asarray(stacked[4]))
+    assert phi.shape == (3, N, 2) and cov.shape == (3, N, 2, 2)
+    for b in range(3):
+        assert _rel(phi[b], jphi[b]).max() < PHI_RTOL
+        assert _rel(cov[b], jcov[b]).max() < COV_RTOL
+
+
+def test_batched_phi_update_counts_each_experiments_trials():
+    # a ragged stack: experiment b holds K_b real trials padded with
+    # inert columns to the stack's K; bucket 0 counts the real ones
+    from circuitmap_tpu.solvers.batched import _laplace_refit_many_kt
+
+    lams, stims = zip(*(_lam_stim(seed=30 + b) for b in range(3)))
+    lam, stim = np.stack(lams), np.stack(stims)
+    ks = np.array([250, 210, 170])
+    for b, kb in enumerate(ks):
+        lam[b, :, kb:] = 0.0
+        stim[b, :, kb:] = 0.0
+    powers = np.float32([45.0, 55.0, 65.0])
+    pp = np.tile(np.float32([0.1, 5.0]), (N, 1))
+    pc = np.tile(np.float32([[1e-1, 0.0], [0.0, 1e0]]), (N, 1, 1))
+    phi, cov = tlap.laplace_phi_update(
+        *map(torch.from_numpy, (lam, stim, pp, pc)),
+        powers=torch.from_numpy(powers),
+        total_trials=torch.from_numpy(ks.astype(np.float32)))
+    S, C, _ = tlap.powercurve_stats(torch.from_numpy(lam),
+                                    torch.from_numpy(stim),
+                                    torch.from_numpy(powers),
+                                    total_trials=torch.from_numpy(ks))
+    np.testing.assert_array_equal(C.numpy().sum(-1),
+                                  np.broadcast_to(ks[:, None], (3, N)))
+    jphi, jcov = _laplace_refit_many_kt(
+        *map(jnp.asarray, (lam, stim, pp, pc, powers)),
+        jnp.asarray(ks, jnp.float32))
+    for b in range(3):
+        assert _rel(phi[b], jphi[b]).max() < PHI_RTOL
+        assert _rel(cov[b], jcov[b]).max() < COV_RTOL
