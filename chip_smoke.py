@@ -13,10 +13,18 @@ recovers the simulated weights:
   ``Model.fit`` (the blocked 8-row sweep);
 * the strictly sequential fit: the same fit at ``sweep_block_size=1``
   (the row kernel);
-* ``caviar_many`` on 4 cross-validation folds of that map (each holds out
+* an ``"auto"`` fit past the blocked kernel's K limit (N=200, K=60000),
+  which must take the row kernel;
+* ``caviar_many`` on 4 cross-validation folds of the main path's map
+  (each holds out
   one quarter of the trials), batched (the batched row kernel) and
   sequential, and on a ragged stack of 4 folds with 18000..12000 trials
   at block 8 (the batched blocked kernel).
+
+The batched kernels are held against their plain versions at the
+shapes of those paths (E=4 at K=15000 for the row kernel; the ragged
+stack's inert padding and per-experiment scalars for the blocked sweep;
+[4, 1000] lanes for the Laplace kernel).
 
 Every kernel's launch count is set to 0 just before each path and read
 just after it. Phases print ``# ...`` lines; any failure raises and the
@@ -178,66 +186,78 @@ def phase_sweep():
                 bound_by="bytes", library_ms=None), (a, ker1)
 
 
-def phase_laplace(sweep_state):
+def check_laplace(S, C, levels, what):
+    """The Laplace kernel against its plain version run in float64 on the
+    same inputs (the kernel computes in double from float32 inputs,
+    csrc/laplace.cu): at most 0.1% of the neuron lanes beyond rtol 1e-4,
+    relative to each lane's largest entry (the covariance's
+    off-diagonal can sit near zero, where an entrywise ratio is noise).
+    Returns (max abs error, ms, plain ms, bound ms, bound_by)."""
     import torch
     from circuitmap_torch.ops import laplace_cuda as lc
-    from circuitmap_torch.solvers._laplace import powercurve_stats
 
-    log("phase 4: Laplace kernel vs plain version (N=1000, P+1=4)")
-    a, lam = sweep_state
-    S, C, levels = powercurve_stats(lam, a["stim"], a["powers"],
-                                    total_trials=K, counts=a["power_counts"])
-    pp = torch.tensor([0.1, 5.0], device="cuda").expand(N, 2).contiguous()
+    lanes, P1 = S.shape[:-1], S.shape[-1]
+    L = lanes.numel()
+    pp = torch.tensor([0.1, 5.0], device="cuda").expand(*lanes, 2).contiguous()
     pc = torch.tensor([[1e-1, 0.0], [0.0, 1e0]], device="cuda").expand(
-        N, 2, 2).contiguous()
+        *lanes, 2, 2).contiguous()
     phi_k, cov_k = lc.laplace_from_stats(S, C, levels, pp, pc)
-    # the kernel computes in double from float32 inputs (csrc/laplace.cu),
-    # so it is held to the plain version run in float64 on the same inputs
     phi_x, cov_x = lc.laplace_from_stats_torch(
         *(t.double() for t in (S, C, levels, pp, pc)))
     phi_p, cov_p = lc.laplace_from_stats_torch(S, C, levels, pp, pc)
     torch.cuda.synchronize()
 
     def rel(x, y):
-        # per neuron, relative to the largest entry: the covariance's
-        # off-diagonal can sit near zero, where an entrywise ratio is noise
-        d = (x.double() - y.double()).abs().flatten(1).max(1).values
-        return d / y.double().abs().flatten(1).max(1).values.clamp(min=1e-30)
+        d = (x.double() - y.double()).abs().reshape(L, -1).max(1).values
+        return d / y.double().abs().reshape(L, -1).max(1).values.clamp(
+            min=1e-30)
 
     r_phi, r_cov = rel(phi_k, phi_x), rel(cov_k, cov_x)
-    log(f"max relative error vs the float64 plain version: kernel phi "
-        f"{r_phi.max().item():.3e} cov {r_cov.max().item():.3e}; float32 "
-        f"plain phi {rel(phi_p, phi_x).max().item():.3e} cov "
+    log(f"{what}: max relative error vs the float64 plain version: kernel "
+        f"phi {r_phi.max().item():.3e} cov {r_cov.max().item():.3e}; "
+        f"float32 plain phi {rel(phi_p, phi_x).max().item():.3e} cov "
         f"{rel(cov_p, cov_x).max().item():.3e}")
     worst = int(torch.argmax(torch.maximum(r_phi, r_cov)))
     bad_phi, bad_cov = int((r_phi > 1e-4).sum()), int((r_cov > 1e-4).sum())
-    log(f"neurons beyond rtol 1e-4: phi {bad_phi}, cov {bad_cov}; worst "
-        f"neuron {worst}: rel err phi {r_phi[worst].item():.3e} cov "
+    log(f"{what}: lanes beyond rtol 1e-4: phi {bad_phi}, cov {bad_cov}; "
+        f"worst lane {worst}: rel err phi {r_phi[worst].item():.3e} cov "
         f"{r_cov[worst].item():.3e}")
-    if bad_phi > 0.001 * N or bad_cov > 0.001 * N:
-        raise AssertionError("Laplace kernel disagrees with its plain version "
-                             "on more than 0.1% of neurons at rtol 1e-4")
+    if bad_phi > 0.001 * L or bad_cov > 0.001 * L:
+        raise AssertionError(f"{what}: Laplace kernel disagrees with its "
+                             "plain version on more than 0.1% of lanes at "
+                             "rtol 1e-4")
     err = max((phi_k.double() - phi_x).abs().max().item(),
               (cov_k.double() - cov_x).abs().max().item())
     ms = cuda_ms(lambda: lc.laplace_from_stats(S, C, levels, pp, pc))
     plain_ms = cuda_ms(lambda: lc.laplace_from_stats_torch(S, C, levels, pp, pc),
                        reps=5, warmup=1)
-    P1 = S.shape[1]
-    nbytes = 4 * (2 * N * P1 + P1 + 2 * N + 4 * N + 2 * N + 4 * N)
+    nbytes = 4 * (2 * L * P1 + P1 + 2 * L + 4 * L + 2 * L + 4 * L)
     # a lower bound on the work this data needs: per Newton step one
     # direction, and the objective at phi and at (at least) one candidate
     # step, ~30 flops per bucket each
-    flops = N * lc.NEWTON_STEPS * 3 * P1 * 30
+    flops = L * lc.NEWTON_STEPS * 3 * P1 * 30
     bound_ms = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F64_FLOPS) * 1e3
-    log(f"Laplace kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bound_ms:.6f} ms ({nbytes} B, {flops:.2e} flops)")
+    log(f"{what}: Laplace kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.6f} ms ({nbytes} B, {flops:.2e} flops)")
+    bound_by = ("bytes" if nbytes / PEAK_BYTES_PER_S > flops / PEAK_F64_FLOPS
+                else "operations")
+    return err, ms, plain_ms, bound_ms, bound_by
+
+
+def phase_laplace(sweep_state):
+    from circuitmap_torch.solvers._laplace import powercurve_stats
+
+    log("phase 4: Laplace kernel vs plain version (N=1000, P+1=4)")
+    a, lam = sweep_state
+    S, C, levels = powercurve_stats(lam, a["stim"], a["powers"],
+                                    total_trials=K, counts=a["power_counts"])
+    err, ms, plain_ms, bound_ms, bound_by = check_laplace(S, C, levels,
+                                                          "N=1000")
     return dict(name="laplace", route="cuda",
                 source="circuitmap_torch/csrc/laplace.cu",
                 replaces="circuitmap_tpu/ops/laplace_pallas.py:149",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=("bytes" if nbytes / PEAK_BYTES_PER_S
-                          > flops / PEAK_F64_FLOPS else "operations"),
-                library_ms=None)
+                bound_by=bound_by, library_ms=None)
 
 
 def phase_main_path():
@@ -303,23 +323,27 @@ def phase_main_path():
     return by_path, sim, dem
 
 
-def row_call(fn, a, gate, msrmp=0.35, sig=0.1, dtype=None):
+def row_call(fn, a, gate, msrmp=0.35, sig=0.1, dtype=None, rows="order"):
+    """``fn`` on the sweep inputs ``a``; ``rows`` names the visiting
+    order it takes (``order`` for the row kernel, ``border`` for the
+    blocked one)."""
     t = {k: (v.to(dtype) if dtype is not None and v.is_floating_point() else v)
          for k, v in a.items()}
     if dtype is not None and hasattr(msrmp, "to"):
         sig, msrmp = sig.to(dtype), msrmp.to(dtype)
     return fn(t["y"], t["stim"], t["mu"], t["beta"], t["lam"], sig,
               t["m0"], t["m1"], t["lam_mask"], t["powers"], t["power_counts"],
-              t["order"], msrmp, 3.0, float(gate))
+              t[rows], msrmp, 3.0, float(gate))
 
 
-def check_row_kernel(fn, plain_fn, a, what, **kw):
-    """The row kernel against its plain version on the same inputs, as
+def check_sweep_kernel(fn, plain_fn, a, what, **kw):
+    """A sweep kernel against its plain version on the same inputs, as
     phase 3 holds the blocked kernel: rtol 1e-4 / atol 1e-5 with the
     gate off; with it on, at most 0.5% of the gate decisions may differ
     (a borderline iso >= msrmp can flip under another reduction order).
     The distances of both from the plain version run in float64 are
-    printed beside. Returns the largest |kernel - plain|, gate off."""
+    printed beside. Returns (the largest |kernel - plain| with the gate
+    off, the kernel's output with it on)."""
     import torch
 
     ker = row_call(fn, a, 0, **kw)
@@ -331,7 +355,7 @@ def check_row_kernel(fn, plain_fn, a, what, **kw):
     log(f"{what}, gate off: max |kernel - plain| = {err:.3e}; vs float64 "
         f"plain: kernel {err_k:.3e}, f32 plain {err_p:.3e}")
     if not torch.allclose(ker, plain, rtol=1e-4, atol=1e-5):
-        raise AssertionError(f"{what}: row kernel disagrees with its plain "
+        raise AssertionError(f"{what}: kernel disagrees with its plain "
                              "version beyond rtol 1e-4 / atol 1e-5 (gate "
                              "off)")
     ker1 = row_call(fn, a, 1, **kw)
@@ -344,18 +368,42 @@ def check_row_kernel(fn, plain_fn, a, what, **kw):
     if flips > 0.005 * off_k.numel():
         raise AssertionError(f"{what}: {flips} gate decisions differ "
                              "(> 0.5% of rows)")
-    return err
+    return err, ker1
+
+
+def stack_inputs(parts):
+    """Per-experiment sweep inputs stacked on a leading axis, the trial
+    axis padded to the largest K with inert columns (zero charge, stim,
+    spikes and mask), as a ragged ``caviar_many`` pads; powers shared."""
+    import torch
+    import torch.nn.functional as F
+
+    kp = max(p["y"].shape[-1] for p in parts)
+    out = {}
+    for key in parts[0]:
+        if key in ("y", "stim", "lam", "lam_mask"):
+            out[key] = torch.stack([F.pad(p[key], (0, kp - p[key].shape[-1]))
+                                    for p in parts])
+        else:
+            out[key] = torch.stack([p[key] for p in parts])
+    out["powers"] = parts[0]["powers"]
+    return out
+
+
+def per_expt(*values):
+    import torch
+
+    return torch.tensor(values, device="cuda")
 
 
 def phase_row_sweep():
-    import torch
     from circuitmap_torch.ops import sweep_row_cuda as sr
 
     log("phase 6: row kernel vs plain version (block 1, P=3: N=1000 "
         "K=20000; E=4 at K=15000; N=200 at K=100000)")
     a = sweep_inputs(seed=1)
-    err = check_row_kernel(sr.sweep_spikes_row, sr.sweep_spikes_row_torch, a,
-                           "E=1 N=1000 K=20000")
+    err, _ = check_sweep_kernel(sr.sweep_spikes_row, sr.sweep_spikes_row_torch,
+                                a, "E=1 N=1000 K=20000")
     ms = cuda_ms(lambda: row_call(sr.sweep_spikes_row, a, 1))
     plain_ms = cuda_ms(lambda: row_call(sr.sweep_spikes_row_torch, a, 1),
                        reps=3, warmup=1)
@@ -364,14 +412,12 @@ def phase_row_sweep():
         f"{bound_ms:.4f} ms (3*N*K*4 B at 3.35 TB/s)")
 
     E, KE = 4, 15000
-    parts = [sweep_inputs(seed=10 + e, k=KE) for e in range(E)]
-    b = {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
-    b["powers"] = parts[0]["powers"]
-    kw = dict(msrmp=torch.tensor([0.3, 0.35, 0.4, 0.45], device="cuda"),
-              sig=torch.tensor([0.1, 0.12, 0.09, 0.11], device="cuda"))
-    check_row_kernel(sr.sweep_spikes_row_batched,
-                     sr.sweep_spikes_row_batched_torch, b,
-                     f"E={E} N=1000 K={KE}", **kw)
+    b = stack_inputs([sweep_inputs(seed=10 + e, k=KE) for e in range(E)])
+    kw = dict(msrmp=per_expt(0.3, 0.35, 0.4, 0.45),
+              sig=per_expt(0.1, 0.12, 0.09, 0.11))
+    err_e4, _ = check_sweep_kernel(sr.sweep_spikes_row_batched,
+                                   sr.sweep_spikes_row_batched_torch, b,
+                                   f"E={E} N=1000 K={KE}", **kw)
     ms_e4 = cuda_ms(lambda: row_call(sr.sweep_spikes_row_batched, b, 1, **kw))
     plain_ms_e4 = cuda_ms(
         lambda: row_call(sr.sweep_spikes_row_batched_torch, b, 1, **kw),
@@ -379,20 +425,73 @@ def phase_row_sweep():
     bound_ms_e4 = 3 * E * N * KE * 4 / PEAK_BYTES_PER_S * 1e3
     log(f"batched row kernel (E={E}) {ms_e4:.4f} ms, plain "
         f"{plain_ms_e4:.3f} ms, byte bound {bound_ms_e4:.4f} ms")
-    del b, parts
+    del b
 
     big = sweep_inputs(seed=2, n=200, k=100000)
-    check_row_kernel(sr.sweep_spikes_row, sr.sweep_spikes_row_torch, big,
-                     "E=1 N=200 K=100000 (past the blocked kernel's K "
-                     "limit)")
+    check_sweep_kernel(sr.sweep_spikes_row, sr.sweep_spikes_row_torch, big,
+                       "E=1 N=200 K=100000 (past the blocked kernel's K "
+                       "limit)")
     del big
-    torch.cuda.synchronize()
     return dict(name="sweep_row", route="cuda",
                 source="circuitmap_torch/csrc/sweep_row.cu",
                 replaces="circuitmap_tpu/ops/sweep_pallas.py:338, :89, :481",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes", library_ms=None, ms_e4=ms_e4,
-                plain_ms_e4=plain_ms_e4, bound_ms_e4=bound_ms_e4)
+                bound_by="bytes", library_ms=None,
+                batched=dict(E=E, K=KE, max_abs_err=err_e4, ms=ms_e4,
+                             plain_ms=plain_ms_e4, bound_ms=bound_ms_e4))
+
+
+RAGGED = tuple(K * m // 10 for m in (9, 8, 7, 6))  # 18000 .. 12000 trials
+
+
+def phase_batched_kernels():
+    """The batched blocked sweep and the batched Laplace refit at the
+    ragged stack's shapes: E=4 experiments of RAGGED trials padded to
+    the largest, per-experiment sig and msrmp_eff; then the bucket
+    statistics of its output with each experiment's true trial count
+    through the Laplace kernel at [4, 1000] lanes."""
+    import torch
+    from circuitmap_torch.ops import sweep_cuda as sc
+    from circuitmap_torch.solvers._laplace import powercurve_stats
+
+    E, kp = len(RAGGED), max(RAGGED)
+    log(f"phase 7: batched blocked sweep (E={E}, N={N}, {RAGGED} trials "
+        f"padded to {kp}, P=3) and batched Laplace ([{E}, {N}] lanes) vs "
+        "plain versions")
+    b = stack_inputs([sweep_inputs(seed=20 + e, k=k)
+                      for e, k in enumerate(RAGGED)])
+    kw = dict(msrmp=per_expt(0.3, 0.35, 0.4, 0.45),
+              sig=per_expt(0.1, 0.12, 0.09, 0.11), rows="border")
+    what = f"blocked E={E} ragged"
+    err, lam1 = check_sweep_kernel(sc.sweep_spikes_blocked_batched,
+                                   sc.sweep_spikes_blocked_batched_torch, b,
+                                   what, **kw)
+    padded = torch.arange(kp, device="cuda") >= per_expt(*RAGGED)[:, None]
+    pad_max = (lam1.abs() * padded[:, None, :]).max().item()
+    log(f"{what}: largest |lam| in the padded columns {pad_max:.3e}")
+    if pad_max != 0.0:
+        raise AssertionError(f"{what}: padded columns are not inert")
+    ms = cuda_ms(lambda: row_call(sc.sweep_spikes_blocked_batched, b, 1, **kw))
+    plain_ms = cuda_ms(
+        lambda: row_call(sc.sweep_spikes_blocked_batched_torch, b, 1, **kw),
+        reps=3, warmup=1)
+    bound_ms = 3 * E * N * kp * 4 / PEAK_BYTES_PER_S * 1e3
+    log(f"{what}: batched blocked kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, byte bound {bound_ms:.4f} ms (3*E*N*{kp}*4 B "
+        "at 3.35 TB/s)")
+    sweep_batched = dict(E=E, K=list(RAGGED), max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms)
+
+    S, C, levels = powercurve_stats(
+        lam1, b["stim"], b["powers"], total_trials=per_expt(*RAGGED),
+        counts=b["power_counts"])
+    err, ms, plain_ms, bound_ms, _ = check_laplace(S, C, levels,
+                                                   f"[{E}, {N}] lanes")
+    laplace_batched = dict(lanes=[E, N], max_abs_err=err, ms=ms,
+                           plain_ms=plain_ms, bound_ms=bound_ms)
+    del b, lam1
+    torch.cuda.synchronize()
+    return sweep_batched, laplace_batched
 
 
 def timed(fn):
@@ -408,7 +507,7 @@ def phase_block1_fit(sim, dem):
     from circuitmap_torch import Model
     from circuitmap_torch.utils.metrics import r2_score
 
-    log("phase 7: strictly sequential fit (sweep_block_size=1, 50 "
+    log("phase 8: strictly sequential fit (sweep_block_size=1, 50 "
         "iterations) on the demixed traces")
     opts = {"iters": 50, "msrmp": 0.3, "powers": list(POWERS),
             "verbose": False, "sweep_block_size": 1}
@@ -433,10 +532,50 @@ def phase_block1_fit(sim, dem):
     return launches
 
 
-def fold_r2(sim, results, what, floor, mean_floor=None):
-    """Truth-R2 of every fold: each at least ``floor``, and their mean at
-    least ``mean_floor`` where given; no NaN outside beta (NaN there
-    marks a cell reconnected from one event)."""
+def phase_large_k_fit():
+    """An "auto" fit past the blocked kernel's K limit, on the main
+    path's pipeline (int4d2 demix, 50 iterations): it must take the row
+    kernel once an iteration and never the blocked kernel."""
+    import torch
+    from circuitmap_torch import Model, NeuralDemixer, simulate
+    from circuitmap_torch.ops.sweep_cuda import MAX_K
+    from circuitmap_torch.utils.metrics import r2_score
+
+    n, k, iters = 200, 60000, 50
+    log(f"phase 9: sweep_block_size='auto' past the blocked kernel's K "
+        f"limit ({MAX_K}): simulate N={n} K={k}, int4d2 demix, "
+        f"{iters}-iteration fit")
+    np.random.seed(1)
+    sim = simulate(N=n, trials=k, H=H, connection_prob=0.05,
+                   batch_size=1000, verbose=False)
+    dem = NeuralDemixer(str(CHECKPOINT))(
+        sim["psc"], keep_on_device=True, transfer_dtype="int4d2",
+        verbose=False)
+    torch.cuda.synchronize()
+    reset_counts()
+    model, fit_s = timed(lambda: Model(n).fit(
+        dem, sim["stim_matrix"], method="caviar",
+        fit_options={"iters": iters, "msrmp": 0.3, "powers": list(POWERS),
+                     "verbose": False}))
+    launches = kernel_launches(read_counts())
+    w, mu = sim["weights"], model.state["mu"]
+    r2 = r2_score(w, mu)
+    miss = int(np.argmax(np.abs(mu - w)))
+    log(f"fit {fit_s:.3f} s; launches {launches}; truth-R2 {r2:.4f}; "
+        f"largest miss cell {miss}: mu {mu[miss]:.2f} vs w {w[miss]:.2f}")
+    if launches["sweep_row"] != iters or launches["sweep_blocked"] != 0:
+        raise AssertionError(f"'auto' at K={k} must launch the row kernel "
+                             f"{iters} times and the blocked kernel never: "
+                             f"{launches}")
+    if np.isnan(mu).any() or r2 < 0.9:
+        raise AssertionError(f"K={k} fit: truth-R2 {r2:.4f} < 0.9 or NaN")
+    return launches
+
+
+def fold_r2(sim, results, what):
+    """Truth-R2 of every fold and the cell of each fold's largest miss;
+    fails on a NaN outside beta (NaN there marks a cell reconnected from
+    one event)."""
     from circuitmap_torch.utils.metrics import r2_score
 
     w = sim["weights"]
@@ -451,27 +590,75 @@ def fold_r2(sim, results, what, floor, mean_floor=None):
         for key, v in r.items():
             if np.isnan(np.asarray(v)).any() and key != "beta":
                 raise AssertionError(f"{what}: posterior {key} holds a NaN")
-    if min(r2s) < floor:
-        raise AssertionError(f"{what}: a fold's truth-R2 {min(r2s):.4f} < "
-                             f"{floor}")
-    if mean_floor is not None and np.mean(r2s) < mean_floor:
-        raise AssertionError(f"{what}: mean truth-R2 {np.mean(r2s):.4f} < "
-                             f"{mean_floor}")
-    return r2s
+    return r2s, misses
+
+
+FOLD_FLOOR = 0.95
+
+
+def require_floor(r2s, what, excused=()):
+    """Every fold at FOLD_FLOOR or more, but for the folds in
+    ``excused``, whose drop the plain float64 sweep reproduced."""
+    low = [f for f, v in enumerate(r2s) if v < FOLD_FLOOR and f not in excused]
+    if low:
+        raise AssertionError(f"{what}: truth-R2 below {FOLD_FLOOR} on folds "
+                             f"{low}: {[round(r2s[f], 4) for f in low]}")
+
+
+def witness_plain64(sim, ys, stims, args, kw, fold, kernel_fit, cell):
+    """Refit one fold as ``caviar_many`` fits it at block 1 (the single
+    fit's loop, seed = the fold's index), with the row kernel swapped for
+    its plain version run in float64, on the same card and the same
+    random streams (the sweep draws none). The fold's low truth-R2 is
+    the strictly sequential schedule's, not the kernel's reduction
+    order, when that fit leaves the cell of the kernel fit's largest
+    miss connected or not as the kernel fit (``kernel_fit``) did and
+    scores within 0.01 of it. Returns whether it does."""
+    import importlib
+
+    import torch
+    from circuitmap_torch import caviar_many
+    from circuitmap_torch.ops.sweep_row_cuda import sweep_spikes_row_torch
+    from circuitmap_torch.utils.metrics import r2_score
+
+    cav = importlib.import_module("circuitmap_torch.solvers.caviar")
+
+    def plain64(*a):
+        wide = [x.double() if torch.is_tensor(x) and x.is_floating_point()
+                else x for x in a]
+        return sweep_spikes_row_torch(*wide).float()
+
+    key = (True, False)  # the single fit's block-1 sweep
+    kernel_sweep, cav._SWEEPS[key] = cav._SWEEPS[key], plain64
+    try:
+        (res,), fit_s = timed(lambda: caviar_many(
+            ys[fold:fold + 1], stims[fold:fold + 1], *args, seeds=[fold],
+            compile_mode="sequential", sweep_block_size=1, **kw))
+    finally:
+        cav._SWEEPS[key] = kernel_sweep
+    r2 = r2_score(sim["weights"], res["mu"])
+    r2_kernel = r2_score(sim["weights"], kernel_fit["mu"])
+    same = ((res["mu"][cell] == 0.0) == (kernel_fit["mu"][cell] == 0.0)
+            and abs(r2 - r2_kernel) < 0.01)
+    log(f"fold {fold}: the plain row sweep in float64 ({fit_s:.1f} s) "
+        f"scores truth-R2 {r2:.4f} (kernel {r2_kernel:.4f}); cell {cell} at "
+        f"mu {res['mu'][cell]:.2f} (kernel {kernel_fit['mu'][cell]:.2f}) "
+        f"against w {sim['weights'][cell]:.2f}: "
+        f"{'the same drop' if same else 'NOT the same drop'}")
+    return same
 
 
 def phase_many(sim, dem):
     """caviar_many on 4 folds. The batched run (auto: block 1) must equal
     the same folds fit one by one through the single fit's loop at block
-    1 with the same seeds. Recovery floors: the strictly sequential
-    schedule can gate off a strong cell for good at some seeds (on fold
-    3 at seed 3 it drops one with w=33.5 and scores 0.924, alone as in
-    the batch), so block-1 runs need every fold at 0.90 and their
-    mean at 0.95; block-8 runs need every fold at 0.95."""
+    1 with the same seeds. Every fold must reach truth-R2 0.95, but a
+    block-1 fold whose drop the plain row sweep in float64 reproduces
+    (the strictly sequential schedule can gate a strong cell off for
+    good at some seeds)."""
     import torch
     from circuitmap_torch import caviar_many, default_priors
 
-    log("phase 8: caviar_many on 4 cross-validation folds (each holds out "
+    log("phase 10: caviar_many on 4 cross-validation folds (each holds out "
         "one quarter of the trials: [4, 15000, 900] device traces, "
         "[4, 1000, 15000] stims), 50 iterations")
     q = K // 4
@@ -496,7 +683,11 @@ def phase_many(sim, dem):
         raise AssertionError("the batched fit must launch the batched row "
                              "kernel 50 times and the Laplace kernel at "
                              f"least 50 times: {counts}")
-    fold_r2(sim, batched, "batched", 0.90, 0.95)
+    r2s, misses = fold_r2(sim, batched, "batched")
+    excused = [f for f, v in enumerate(r2s) if v < FOLD_FLOOR and
+               witness_plain64(sim, ys, stims, args, kw, f, batched[f],
+                               misses[f])]
+    require_floor(r2s, "batched", excused)
     warm = [many(compile_mode="batched")[1] for _ in range(3)]
     log(f"batched caviar_many, 4 folds, median of 3 warm runs: "
         f"{statistics.median(warm):.4f} s {warm}")
@@ -506,7 +697,8 @@ def phase_many(sim, dem):
     paths["many_sequential_block1"] = kernel_launches(read_counts())
     log(f"sequential at block 1 one run {seq1_s:.3f} s; launches "
         f"{read_counts()}")
-    fold_r2(sim, seq1, "sequential block 1", 0.90, 0.95)
+    require_floor(fold_r2(sim, seq1, "sequential block 1")[0],
+                  "sequential block 1", excused)
     for f, (a, b) in enumerate(zip(batched, seq1)):
         d = float(np.abs(a["mu"] - b["mu"]).max())
         if d > 1e-3 or not np.array_equal(a["mu"] != 0, b["mu"] != 0):
@@ -524,14 +716,14 @@ def phase_many(sim, dem):
     if paths["many_sequential"]["sweep_blocked"] != 200:
         raise AssertionError("the sequential fits must launch the blocked "
                              "kernel 4 x 50 times")
-    fold_r2(sim, res, "sequential block 8", 0.95)
+    require_floor(fold_r2(sim, res, "sequential block 8")[0],
+                  "sequential block 8")
     del ys, res, batched, seq1
 
-    log("phase 9: ragged caviar_many, 4 folds of 18000, 16000, 14000 and "
-        "12000 trials, sweep_block_size=8, batched")
+    log(f"phase 11: ragged caviar_many, 4 folds of {RAGGED} trials, "
+        "sweep_block_size=8, batched")
     host = dem.cpu().numpy()
-    sizes = [K * m // 10 for m in (9, 8, 7, 6)]  # 18000 .. 12000
-    idx = [(np.arange(k) + K // 10 * f) % K for f, k in enumerate(sizes)]
+    idx = [(np.arange(k) + K // 10 * f) % K for f, k in enumerate(RAGGED)]
     reset_counts()
     res, rag_s = timed(lambda: caviar_many(
         [host[i] for i in idx], [sim["stim_matrix"][:, i] for i in idx],
@@ -542,10 +734,10 @@ def phase_many(sim, dem):
     if counts["sweep_spikes_blocked_batched"] != 50:
         raise AssertionError("the ragged batched fit must launch the "
                              f"batched blocked kernel 50 times: {counts}")
-    if [r["lam"].shape[1] for r in res] != sizes:
+    if tuple(r["lam"].shape[1] for r in res) != RAGGED:
         raise AssertionError("ragged results must come back at each "
                              "fold's true width")
-    fold_r2(sim, res, "ragged", 0.95)
+    require_floor(fold_r2(sim, res, "ragged")[0], "ragged")
     return paths
 
 
@@ -582,7 +774,9 @@ def main():
     paths = {}
     paths["main"], sim, dem = phase_main_path()
     row_rec = phase_row_sweep()
+    sweep_rec["batched"], laplace_rec["batched"] = phase_batched_kernels()
     paths["block1_fit"] = phase_block1_fit(sim, dem)
+    paths["auto_large_k"] = phase_large_k_fit()
     paths.update(phase_many(sim, dem))
     records = (sweep_rec, laplace_rec, row_rec)
     for rec in records:

@@ -32,8 +32,8 @@ from ..ops.charge import prepare_observations
 from ._common import (_levels, _powers_dev, _stim_on_device, _upload_plan,
                       prepare_traces)
 from ._laplace import laplace_phi_update, resolve_laplace_impl
-from .caviar import (_as, _resolve_sweep, _run_caviar, power_counts_of,
-                     reconnect_from_spontaneous, seeded_generator)
+from .caviar import (_as, _reconnect_scan_device, _resolve_sweep,
+                     _run_caviar, power_counts_of, seeded_generator)
 
 FIELDS = ("mu", "beta", "lam", "shape", "rate", "phi", "phi_cov", "z")
 
@@ -223,9 +223,9 @@ def caviar_many(
     ``sweep_cuda.MAX_K`` trials, else 1). A pinned block size is the same
     in both modes, and they then agree to float rounding.
 
-    After the fits, ``fn_scan`` runs the host reconnection scan per
-    experiment and one batched Laplace refit over the experiments it
-    changed.
+    After the fits, ``fn_scan`` runs the reconnection scan per
+    experiment on the device and one batched Laplace refit over the
+    experiments it changed.
     """
     dev = resolve_device(device)
     dtype = torch_dtype(dtype)
@@ -235,7 +235,7 @@ def caviar_many(
             f"{dtype} fit runs with device='cpu'")
     if k_trues is not None:
         k_trues = np.asarray(k_trues, dtype=np.int64)
-    stims_true = None  # per-experiment true-width stims of a ragged list
+    from_list = False  # a ragged list, padded here with zero stim
     ragged_in = _ragged_lists(y_pscs, stims, "caviar_many")
     if ragged_in is not None:
         if k_trues is not None:
@@ -255,7 +255,7 @@ def caviar_many(
             s_pad[b, :, :ks[b]] = s
         y_pscs, stims = y_pad, s_pad
         k_trues = np.asarray(ks, np.int64)
-        stims_true = st_list
+        from_list = True
 
     y_pscs, stims_np = _same_shape_stack(y_pscs, stims, trace_wire, dtype)
     B, K, _T = y_pscs.shape
@@ -266,7 +266,7 @@ def caviar_many(
                 f"k_trues must be [B={B}] trial counts in [1, {K}]; got "
                 f"shape {k_trues.shape}, range "
                 f"[{k_trues.min(initial=0)}, {k_trues.max(initial=0)}]")
-        if stims_true is None:
+        if not from_list:
             # padded stim columns must be zero: they enter the level scan
             for b in range(B):
                 if np.any(stims_np[b][:, int(k_trues[b]):]):
@@ -313,37 +313,33 @@ def caviar_many(
     else:
         final, _ = _run_caviar(ys, stim_dev, lam0, lam_masks, powers_t,
                                counts, hyper, gens, k_true=kts, **loop)
-    host = {name: v.cpu().numpy() for name, v in zip(FIELDS, final)}
 
     results, reconnected = [], []
     for b in range(B):
         kb = K if k_trues is None else int(k_trues[b])
-        stim_b = (stims_true[b] if stims_true is not None
-                  else stims_np[b][:, :kb])
-        res = {name: host[name][b] for name in FIELDS}
+        res = {name: v[b] for name, v in zip(FIELDS, final)}
         res["lam"], res["z"] = res["lam"][:, :kb], res["z"][:kb]
         if fn_scan:
-            res["mu"], res["beta"], res["lam"], res["z"], changed = (
-                reconnect_from_spontaneous(
-                    None, stim_b, res["lam"], res["mu"], res["beta"],
-                    res["z"], msrmp=msrmp,
-                    minimum_spike_count=minimum_spike_count,
-                    powers=powers_np))
-            if changed:
+            res["mu"], res["beta"], res["lam"], res["z"], n_rec = (
+                _reconnect_scan_device(
+                    stim_dev[b, :, :kb], res["lam"], res["mu"], res["beta"],
+                    res["z"], powers_t, float(msrmp),
+                    float(minimum_spike_count)))
+            if n_rec:
                 reconnected.append(b)
         results.append(res)
     if reconnected:
         # one refit for every changed experiment; a ragged stack pads lam
         # back to K and counts each experiment's own trials
-        lam_sel = np.zeros((len(reconnected), *host["lam"].shape[1:]),
-                           host["lam"].dtype)
+        lam_sel = torch.zeros((len(reconnected), *final[2].shape[1:]),
+                              dtype=dtype, device=dev)
         for j, b in enumerate(reconnected):
             lam_sel[j, :, :results[b]["lam"].shape[1]] = results[b]["lam"]
         phi, phi_cov = laplace_phi_update(
-            torch.from_numpy(lam_sel).to(dev), stim_dev[reconnected],
-            hyper[4], hyper[5], powers=powers_t,
+            lam_sel, stim_dev[reconnected], hyper[4], hyper[5],
+            powers=powers_t,
             total_trials=None if kts is None else kts[reconnected])
         for j, b in enumerate(reconnected):
-            results[b]["phi"] = phi[j].cpu().numpy()
-            results[b]["phi_cov"] = phi_cov[j].cpu().numpy()
-    return results
+            results[b]["phi"], results[b]["phi_cov"] = phi[j], phi_cov[j]
+    return [{name: v.cpu().numpy() for name, v in res.items()}
+            for res in results]

@@ -41,7 +41,8 @@ from ..ops.charge import prepare_observations
 from ..ops.pava import isotonic_fit_at_max_batched
 from ..ops.sweep_cuda import (MAX_K, _sweep_row_blocks, sweep_spikes_blocked,
                               sweep_spikes_blocked_batched)
-from ..ops.sweep_row_cuda import sweep_spikes_row, sweep_spikes_row_batched
+from ..ops.sweep_row_cuda import (sweep_spikes_row, sweep_spikes_row_batched,
+                                  sweep_spikes_row_torch)
 from ..ops.truncnorm import sample_truncated_normal, truncated_normal_mean
 from ._common import (prepare_stim_and_init, prepare_traces,
                       warn_data_thin_design)
@@ -133,10 +134,19 @@ def power_counts_of(stim, powers, dtype):
 def sweep_spikes(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers, order,
                  msrmp_eff, minimum_spike_count, gate_active, block_size=1):
     """Plain coordinate-ascent sweep over all N spike-posterior rows in
-    the row order ``order``. ``block_size`` > 1 updates that many
-    consecutive entries of ``order`` per step from the shared
-    block-start residual (Jacobi within a block, Gauss-Seidel across);
-    block_size=1 is the reference's update order."""
+    the row order ``order``, with the signature of the JAX package's
+    ``sweep_spikes``. block_size=1 is the reference's update order, the
+    plain row sweep (``sweep_spikes_row_torch``). ``block_size`` > 1
+    updates that many consecutive entries of ``order`` per step from
+    the shared block-start residual (Jacobi within a block,
+    Gauss-Seidel across); the blocked kernel's ``border`` is the case
+    where each block is 8 consecutive rows."""
+    counts = power_counts_of(stim, powers, lam.dtype)
+    if block_size == 1:
+        return sweep_spikes_row_torch(y, stim, mu, beta, lam, sig, m0, m1,
+                                      lam_mask, powers, counts, order,
+                                      msrmp_eff, minimum_spike_count,
+                                      gate_active)
     N = lam.shape[0]
     nb = -(-N // block_size)
     fill = torch.full((nb * block_size - N,), N, dtype=torch.long,
@@ -144,8 +154,7 @@ def sweep_spikes(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers, order,
     blocks = torch.cat([order.to(torch.long), fill]).reshape(nb, block_size)
     return _sweep_row_blocks(
         y[None], stim[None], mu[None], beta[None], lam[None], sig, m0[None],
-        m1[None], lam_mask[None], powers,
-        power_counts_of(stim, powers, lam.dtype)[None], blocks[None],
+        m1[None], lam_mask[None], powers, counts[None], blocks[None],
         msrmp_eff, minimum_spike_count, gate_active)[0]
 
 
@@ -318,80 +327,36 @@ def _reconnect_scan_device(stim, lam, mu, beta, z, powers, msrmp,
     return mu, beta, lam, z, n_rec
 
 
-def _host(a):
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else \
-        np.asarray(a)
-
-
 def reconnect_from_spontaneous(y, stim, lam, mu, beta, z, msrmp=0.3,
                                minimum_spike_count=3, powers=None,
                                power_counts=None, verbose=False):
-    """The greedy reconnection scan in host numpy (reference
-    ``reconnect_spont_cells``; the batched fits run it per experiment).
-
-    Same decisions as :func:`_reconnect_scan_device`: while more than
-    ``minimum_spike_count`` events remain, the candidate (mu == 0) with
-    the most events among those whose isotonic event rate at max power
-    clears ``msrmp`` and whose count clears the minimum is reconnected
-    and absorbs its events. mu, beta and z come back as numpy arrays;
-    lam keeps its kind (a tensor is updated on its device in one
-    scatter). ``y`` is accepted for the reference's signature. Returns
-    (mu, beta, lam, z, reconnected).
+    """The reconnection scan with the signature of the JAX package's
+    ``reconnect_from_spontaneous``: :func:`_reconnect_scan_device` on
+    lam's device (the CPU for a numpy lam). ``powers`` defaults to the
+    nonzero levels of ``stim``; ``y`` and ``power_counts`` are accepted
+    for the signature (the scan counts trials from ``stim``). Results
+    come back as lam came: tensors, or numpy arrays. Returns (mu, beta,
+    lam, z, reconnected).
     """
-    del y
-    mu, beta, z = (_host(a).copy() for a in (mu, beta, z))
-    stim = _host(stim)
+    del y, power_counts
+    as_numpy = not isinstance(lam, torch.Tensor)
+    lam = torch.as_tensor(np.asarray(lam)) if as_numpy else lam
+    stim, mu, beta, z = (_as(a, lam.dtype, lam.device)
+                         for a in (stim, mu, beta, z))
     if powers is None:
-        powers = np.unique(stim)[1:]
+        powers = torch.unique(stim)[1:]
     else:
-        powers = np.sort(np.asarray(powers, dtype=stim.dtype))
-    if power_counts is None:  # [N, P]
-        power_counts = np.stack([(stim == p).sum(1) for p in powers], 1)
-    else:
-        power_counts = np.asarray(power_counts, dtype=float)
-    candidate = mu == 0.0
-    z_nz = z != 0.0
-    suffix_div = np.arange(1, powers.size + 1, dtype=float)
-    # events are only ever removed, so hits update incrementally and a
-    # candidate that fails once never passes later
-    stim_z = stim[:, np.flatnonzero(z_nz)]
-    hits = np.stack([(stim_z == p).sum(1) for p in powers], 1).astype(float)
-    updates = []  # (neuron, trials) reconnections, scattered at the end
-    while z_nz.sum() > minimum_spike_count:
-        with np.errstate(invalid="ignore"):
-            rates = np.where(power_counts > 0, hits / power_counts, 0.0)
-        iso_at_max = (np.cumsum(rates[:, ::-1], axis=1) / suffix_div).max(1)
-        n_events = hits.sum(1)
-        ok = candidate & (iso_at_max >= msrmp) & (
-            n_events >= minimum_spike_count)
-        if not ok.any():
-            break
-        n = int(np.argmax(np.where(ok, n_events, -1.0)))
-        candidate[n] = False
-        locs = np.flatnonzero((stim[n] != 0.0) & z_nz)
-        vals = z[locs]
-        mu[n] = vals.mean()
-        # standard error of the mean (ddof=1), NaN for one event
-        beta[n] = (vals.std(ddof=1) / np.sqrt(vals.size) if vals.size > 1
-                   else np.nan)
-        updates.append((n, locs))
-        z[locs] = 0.0
-        z_nz[locs] = False
-        hits -= np.stack([(stim[:, locs] == p).sum(1) for p in powers], 1)
-        if verbose:
-            print(f"reconnected cell {n} "
-                  f"(iso fit at max power {iso_at_max[n]:.2f})")
-    if updates:
-        rows = np.concatenate([np.full(lc.size, n) for n, lc in updates])
-        cols = np.concatenate([lc for _, lc in updates])
-        if isinstance(lam, torch.Tensor):
-            lam = lam.clone()
-            lam[torch.from_numpy(rows).to(lam.device),
-                torch.from_numpy(cols).to(lam.device)] = 1.0
-        else:
-            lam = np.array(lam)
-            lam[rows, cols] = 1.0
-    return mu, beta, lam, z, bool(updates)
+        powers = torch.sort(_as(powers, lam.dtype, lam.device)).values
+    mu, beta, lam, z, n_rec = _reconnect_scan_device(
+        stim, lam, mu, beta, z, powers, float(msrmp),
+        float(minimum_spike_count))
+    if verbose:
+        print(f"Reconnected {n_rec} neurons previously attributed to "
+              "spontaneous activity.")
+    out = (mu, beta, lam, z)
+    if as_numpy:
+        out = tuple(a.cpu().numpy() for a in out)
+    return (*out, n_rec > 0)
 
 
 def _reconnect_and_refit(stim, lam, mu, beta, z, powers, phi, phi_cov,

@@ -119,28 +119,27 @@ def test_recovery_per_map_with_reconnection(sims):
 def test_reconnected_maps_refit_in_one_call(sims, monkeypatch):
     """Reconnections in experiments 0 and 2 refit both power curves in
     one batched call, equal to each experiment's own refit."""
-    real_scan = tbat.reconnect_from_spontaneous
+    real_scan = tbat._reconnect_scan_device
 
-    def fake_scan(y, stim, lam, mu, beta, z, **kw):
+    def fake_scan(stim, lam, *args):
         b = fake_scan.calls
         fake_scan.calls += 1
-        mu, beta, lam, z, _ = real_scan(y, stim, lam, mu, beta, z, **kw)
+        mu, beta, lam, z, _ = real_scan(stim, lam, *args)
         if b in (0, 2):
-            lam = np.array(lam)
-            row = np.flatnonzero((stim > 0).sum(1) > 3)[0]
+            row = int(torch.nonzero((stim > 0).sum(1) > 3)[0])
             lam[row, stim[row] > 0] = 0.9
-            return mu, beta, lam, z, True
-        return mu, beta, lam, z, False
+            return mu, beta, lam, z, 1
+        return mu, beta, lam, z, 0
 
     fake_scan.calls = 0
     calls = []
     real_refit = tbat.laplace_phi_update
 
     def counting_refit(*args, **kw):
-        calls.append(args[0].shape)
+        calls.append(tuple(args[0].shape))
         return real_refit(*args, **kw)
 
-    monkeypatch.setattr(tbat, "reconnect_from_spontaneous", fake_scan)
+    monkeypatch.setattr(tbat, "_reconnect_scan_device", fake_scan)
     monkeypatch.setattr(tbat, "laplace_phi_update", counting_refit)
     batch = caviar_many(*_stack(sims), *PRIORS, iters=6, analytic_mc=True,
                         seeds=[0, 1, 2], **CPU)
@@ -287,6 +286,9 @@ def test_auto_sweep_falls_back_to_the_row_kernel_above_max_k():
 
 
 def test_host_reconnect_scan_matches_jax():
+    """The port's ``reconnect_from_spontaneous`` (the device scan that
+    the fits run, here on the CPU) against the JAX package's host scan
+    on the same numpy inputs: the same reconnected set, rtol 1e-6."""
     from circuitmap_tpu.solvers.caviar import (
         reconnect_from_spontaneous as jax_scan)
 
