@@ -2,36 +2,48 @@
 """Smoke run of circuitmap_torch on one NVIDIA GPU (written for the H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --turns OLD_CHECKOUT
 
 Builds the CUDA kernels from ``circuitmap_torch/csrc``, holds each
 against its plain PyTorch version at the shapes its path gives it, then
 drives the paths through the user entry points and checks that each fit
-recovers the simulated weights:
+recovers the simulated weights. One kernel, the cluster sweep
+(``csrc/sweep_cluster.cu``), serves both sweep schedules: ``sweep_blocked``
+(8 rows a step) and ``sweep_row`` (one row a step) name its two uses.
 
 * the main path: ``simulate`` (N=1000, K=20000), the int4d2 demixer with
   its QAT checkpoint, and a 50-iteration CAVIaR fit through
-  ``Model.fit`` (the blocked 8-row sweep);
+  ``Model.fit`` (8 rows a step);
 * the strictly sequential fit: the same fit at ``sweep_block_size=1``
-  (the row kernel);
-* an ``"auto"`` fit past the blocked kernel's K limit (N=200, K=60000),
-  which must take the row kernel;
+  (one row a step);
+* an ``"auto"`` fit past the old single-SM kernel's K limit (N=200,
+  K=60000), which must take 8 rows a step;
 * ``caviar_many`` on 4 cross-validation folds of the main path's map
-  (each holds out
-  one quarter of the trials), batched (the batched row kernel) and
-  sequential, and on a ragged stack of 4 folds with 18000..12000 trials
-  at block 8 (the batched blocked kernel).
+  (each holds out one quarter of the trials), batched (one row a step,
+  E=4) and sequential, and on a ragged stack of 4 folds with
+  18000..12000 trials at block 8 (8 rows a step, E=4).
 
-The batched kernels are held against their plain versions at the
-shapes of those paths (E=4 at K=15000 for the row kernel; the ragged
-stack's inert padding and per-experiment scalars for the blocked sweep;
-[4, 1000] lanes for the Laplace kernel).
+The sweep is held against its plain version at both schedules at
+N=1000/K=20000 and N=200/K=100000, at E=4 (K=15000, one row a step; the
+ragged stack's inert padding and per-experiment scalars at 8 rows a
+step), with the gate on also for agreement between the CTAs of each
+cluster; the Laplace kernel at [1000] and [4, 1000] lanes.
 
 Every kernel's launch count is set to 0 just before each path and read
 just after it. Phases print ``# ...`` lines; any failure raises and the
 exit code is non-zero. The line before the last is a JSON record of
 every kernel (launches on each path, error against the plain version,
-times and bound); the last line is ``{"ok": true, "device": {...}}``.
-Without CUDA it exits 1 and prints no result.
+times, bound and the share of it, cluster shape); the last line is
+``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
+result.
+
+``--turns OLD_CHECKOUT`` first times the single-SM sweep kernels of an
+earlier checkout of this repository (its ``circuitmap_torch/csrc/
+sweep_blocked.cu`` and ``sweep_row.cu``, built here) against the cluster
+sweep in turns (old, new, new, old) on the same inputs: 8 rows a step at
+N=1000/K=20000, one row a step at E=1/K=20000 and E=4/K=15000; then
+times the cluster sweep at K = 5,000, 20,000 and 80,000 to split a step
+into a fixed part and a part per column.
 """
 
 import json
@@ -143,11 +155,57 @@ def kernel_launches(counts):
             for kernel, fns in counters().items()}
 
 
+def cluster_fields(E, K, rows, P=len(POWERS)):
+    """The launch plan's shape for the ``kernels`` line."""
+    from circuitmap_torch.ops import sweep_cuda as sc
+
+    plan = sc.launch_plan(E, K, rows, P)
+    return dict(cluster_size=plan.cluster, ctas_per_experiment=plan.cluster,
+                cols_per_cta=plan.cols, on_chip=plan.on_chip,
+                ring_depth=plan.depth)
+
+
+def check_cta_agreement(out, plain, a, rows, what):
+    """The gates agree between the CTAs of a cluster: with the gate on,
+    no row of the kernel's output ``out`` may be all zero over one CTA's
+    column slice but nonzero over another's. A slice counts where the
+    plain version's output ``plain`` (same inputs, gate on) is nonzero
+    in it: a column with stim > 0 and mask > 0 can still hold an est of
+    exactly 0 where the sigmoid underflows, so the rows that stim and
+    mask alone would flag are printed beside. The gate-off comparison
+    cannot see a disagreement: every gate is 1 there."""
+    import torch.nn.functional as F
+    from circuitmap_torch.ops import sweep_cuda as sc
+
+    *lead, n, k = out.shape
+    E = lead[0] if lead else 1
+    plan = sc.launch_plan(E, k, rows, a["powers"].shape[0])
+    pad = plan.cluster * plan.cols - k
+
+    def slices(x):
+        return F.pad(x, (0, pad)).reshape(*x.shape[:-1], plan.cluster,
+                                          plan.cols).any(-1)
+
+    live = slices(out != 0)
+    targeted = slices((a["stim"] > 0) & (a["lam_mask"] > 0).unsqueeze(-2))
+    by_stim = live.any(-1) & (targeted & ~live).any(-1)
+    split = live.any(-1) & (slices(plain != 0) & ~live).any(-1)
+    log(f"{what}: {int(split.sum())} rows zero on a CTA slice where the "
+        f"plain version is not, and nonzero on another ({plan.cluster} "
+        f"CTAs of {plan.cols} columns); {int(by_stim.sum())} rows zero on "
+        "a slice with stim > 0 and mask > 0 (est underflows to 0 there "
+        "in the plain version too)")
+    if split.any():
+        raise AssertionError(f"{what}: the CTAs of a cluster disagree on "
+                             f"{int(split.sum())} gates")
+
+
 def phase_sweep():
     import torch
     from circuitmap_torch.ops import sweep_cuda as sc
 
-    log("phase 3: sweep kernel vs plain version (N=1000, K=20000, P=3, block 8)")
+    log("phase 3: cluster sweep at 8 rows a step vs plain version (N=1000, "
+        "K=20000, P=3)")
     a = sweep_inputs()
     ker = sweep_call(sc.sweep_spikes_blocked, a, 0)
     plain = sweep_call(sc.sweep_spikes_blocked_torch, a, 0)
@@ -173,17 +231,21 @@ def phase_sweep():
         f"decisions differ from the plain version")
     if flips > 0.005 * N:
         raise AssertionError(f"{flips} gate decisions differ (> 0.5% of rows)")
+    check_cta_agreement(ker1, plain1, a, 8, "8 rows a step, gate on")
     ms = cuda_ms(lambda: sweep_call(sc.sweep_spikes_blocked, a, 1))
     plain_ms = cuda_ms(lambda: sweep_call(sc.sweep_spikes_blocked_torch, a, 1),
                        reps=5, warmup=1)
     bound_ms = 3 * N * K * 4 / PEAK_BYTES_PER_S * 1e3
     log(f"sweep kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, byte bound "
-        f"{bound_ms:.4f} ms (3*N*K*4 B at 3.35 TB/s)")
+        f"{bound_ms:.4f} ms (3*N*K*4 B at 3.35 TB/s), "
+        f"{bound_ms / ms:.1%} of the bound")
     return dict(name="sweep_blocked", route="cuda",
-                source="circuitmap_torch/csrc/sweep_blocked.cu",
+                source="circuitmap_torch/csrc/sweep_cluster.cu",
                 replaces="circuitmap_tpu/ops/sweep_pallas.py:658",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes", library_ms=None), (a, ker1)
+                bound_by="bytes", library_ms=None,
+                bound_share=bound_ms / ms, rows_per_step=8,
+                **cluster_fields(1, K, 8)), (a, ker1)
 
 
 def check_laplace(S, C, levels, what):
@@ -368,6 +430,9 @@ def check_sweep_kernel(fn, plain_fn, a, what, **kw):
     if flips > 0.005 * off_k.numel():
         raise AssertionError(f"{what}: {flips} gate decisions differ "
                              "(> 0.5% of rows)")
+    check_cta_agreement(ker1, plain1, a,
+                        8 if kw.get("rows") == "border" else 1,
+                        f"{what}, gate on")
     return err, ker1
 
 
@@ -397,10 +462,12 @@ def per_expt(*values):
 
 
 def phase_row_sweep():
+    from circuitmap_torch.ops import sweep_cuda as sc
     from circuitmap_torch.ops import sweep_row_cuda as sr
 
-    log("phase 6: row kernel vs plain version (block 1, P=3: N=1000 "
-        "K=20000; E=4 at K=15000; N=200 at K=100000)")
+    log("phase 6: cluster sweep at one row a step vs plain version (P=3: "
+        "N=1000 K=20000; E=4 at K=15000; N=200 at K=100000 at 1 and 8 rows "
+        "a step)")
     a = sweep_inputs(seed=1)
     err, _ = check_sweep_kernel(sr.sweep_spikes_row, sr.sweep_spikes_row_torch,
                                 a, "E=1 N=1000 K=20000")
@@ -409,7 +476,8 @@ def phase_row_sweep():
                        reps=3, warmup=1)
     bound_ms = 3 * N * K * 4 / PEAK_BYTES_PER_S * 1e3
     log(f"row kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, byte bound "
-        f"{bound_ms:.4f} ms (3*N*K*4 B at 3.35 TB/s)")
+        f"{bound_ms:.4f} ms (3*N*K*4 B at 3.35 TB/s), "
+        f"{bound_ms / ms:.1%} of the bound")
 
     E, KE = 4, 15000
     b = stack_inputs([sweep_inputs(seed=10 + e, k=KE) for e in range(E)])
@@ -424,21 +492,31 @@ def phase_row_sweep():
         reps=3, warmup=1)
     bound_ms_e4 = 3 * E * N * KE * 4 / PEAK_BYTES_PER_S * 1e3
     log(f"batched row kernel (E={E}) {ms_e4:.4f} ms, plain "
-        f"{plain_ms_e4:.3f} ms, byte bound {bound_ms_e4:.4f} ms")
+        f"{plain_ms_e4:.3f} ms, byte bound {bound_ms_e4:.4f} ms, "
+        f"{bound_ms_e4 / ms_e4:.1%} of the bound")
     del b
 
     big = sweep_inputs(seed=2, n=200, k=100000)
-    check_sweep_kernel(sr.sweep_spikes_row, sr.sweep_spikes_row_torch, big,
-                       "E=1 N=200 K=100000 (past the blocked kernel's K "
-                       "limit)")
+    for fn, plain_fn, rows in (
+            (sr.sweep_spikes_row, sr.sweep_spikes_row_torch, "order"),
+            (sc.sweep_spikes_blocked, sc.sweep_spikes_blocked_torch,
+             "border")):
+        check_sweep_kernel(fn, plain_fn, big,
+                           f"{'1 row' if rows == 'order' else '8 rows'} a "
+                           "step, E=1 N=200 K=100000 (past the old kernels' "
+                           "K limit)", rows=rows)
     del big
     return dict(name="sweep_row", route="cuda",
-                source="circuitmap_torch/csrc/sweep_row.cu",
+                source="circuitmap_torch/csrc/sweep_cluster.cu",
                 replaces="circuitmap_tpu/ops/sweep_pallas.py:338, :89, :481",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes", library_ms=None,
+                bound_share=bound_ms / ms, rows_per_step=1,
+                **cluster_fields(1, K, 1),
                 batched=dict(E=E, K=KE, max_abs_err=err_e4, ms=ms_e4,
-                             plain_ms=plain_ms_e4, bound_ms=bound_ms_e4))
+                             plain_ms=plain_ms_e4, bound_ms=bound_ms_e4,
+                             bound_share=bound_ms_e4 / ms_e4,
+                             **cluster_fields(E, KE, 1)))
 
 
 RAGGED = tuple(K * m // 10 for m in (9, 8, 7, 6))  # 18000 .. 12000 trials
@@ -455,7 +533,7 @@ def phase_batched_kernels():
     from circuitmap_torch.solvers._laplace import powercurve_stats
 
     E, kp = len(RAGGED), max(RAGGED)
-    log(f"phase 7: batched blocked sweep (E={E}, N={N}, {RAGGED} trials "
+    log(f"phase 7: batched cluster sweep at 8 rows a step (E={E}, N={N}, {RAGGED} trials "
         f"padded to {kp}, P=3) and batched Laplace ([{E}, {N}] lanes) vs "
         "plain versions")
     b = stack_inputs([sweep_inputs(seed=20 + e, k=k)
@@ -478,9 +556,11 @@ def phase_batched_kernels():
     bound_ms = 3 * E * N * kp * 4 / PEAK_BYTES_PER_S * 1e3
     log(f"{what}: batched blocked kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, byte bound {bound_ms:.4f} ms (3*E*N*{kp}*4 B "
-        "at 3.35 TB/s)")
+        f"at 3.35 TB/s), {bound_ms / ms:.1%} of the bound")
     sweep_batched = dict(E=E, K=list(RAGGED), max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bound_ms)
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_share=bound_ms / ms,
+                         **cluster_fields(E, kp, 8))
 
     S, C, levels = powercurve_stats(
         lam1, b["stim"], b["powers"], total_trials=per_expt(*RAGGED),
@@ -533,17 +613,17 @@ def phase_block1_fit(sim, dem):
 
 
 def phase_large_k_fit():
-    """An "auto" fit past the blocked kernel's K limit, on the main
-    path's pipeline (int4d2 demix, 50 iterations): it must take the row
-    kernel once an iteration and never the blocked kernel."""
+    """An "auto" fit past the old blocked kernel's shared-memory limit
+    (K = 56,064), on the main path's pipeline (int4d2 demix, 50
+    iterations): the cluster kernel takes any K, so "auto" must launch it
+    at 8 rows a step once an iteration and never at one row."""
     import torch
     from circuitmap_torch import Model, NeuralDemixer, simulate
-    from circuitmap_torch.ops.sweep_cuda import MAX_K
     from circuitmap_torch.utils.metrics import r2_score
 
     n, k, iters = 200, 60000, 50
-    log(f"phase 9: sweep_block_size='auto' past the blocked kernel's K "
-        f"limit ({MAX_K}): simulate N={n} K={k}, int4d2 demix, "
+    log(f"phase 9: sweep_block_size='auto' at K={k} (past the old blocked "
+        f"kernel's limit of 56064): simulate N={n} K={k}, int4d2 demix, "
         f"{iters}-iteration fit")
     np.random.seed(1)
     sim = simulate(N=n, trials=k, H=H, connection_prob=0.05,
@@ -563,12 +643,12 @@ def phase_large_k_fit():
     miss = int(np.argmax(np.abs(mu - w)))
     log(f"fit {fit_s:.3f} s; launches {launches}; truth-R2 {r2:.4f}; "
         f"largest miss cell {miss}: mu {mu[miss]:.2f} vs w {w[miss]:.2f}")
-    if launches["sweep_row"] != iters or launches["sweep_blocked"] != 0:
-        raise AssertionError(f"'auto' at K={k} must launch the row kernel "
-                             f"{iters} times and the blocked kernel never: "
+    if launches["sweep_blocked"] != iters or launches["sweep_row"] != 0:
+        raise AssertionError(f"'auto' at K={k} must launch the blocked "
+                             f"sweep {iters} times and the row sweep never: "
                              f"{launches}")
-    if np.isnan(mu).any() or r2 < 0.9:
-        raise AssertionError(f"K={k} fit: truth-R2 {r2:.4f} < 0.9 or NaN")
+    if np.isnan(mu).any() or r2 < 0.95:
+        raise AssertionError(f"K={k} fit: truth-R2 {r2:.4f} < 0.95 or NaN")
     return launches
 
 
@@ -741,7 +821,141 @@ def phase_many(sim, dem):
     return paths
 
 
+def old_sweeps(old_dir):
+    """The single-SM sweep kernels of an earlier checkout of this
+    repository (``csrc/sweep_blocked.cu``, ``csrc/sweep_row.cu``), built
+    with the port's nvcc flags into a library of their own."""
+    import ctypes
+
+    from circuitmap_torch.ops import _build
+
+    csrc = Path(old_dir).resolve() / "circuitmap_torch" / "csrc"
+    sources = [str(csrc / "sweep_blocked.cu"), str(csrc / "sweep_row.cu")]
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    target = _build.BUILD_DIR / "libold_sweeps.so"
+    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                      *sources, "-o", str(target)]])
+    lib = ctypes.CDLL(str(target))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.cm_sweep_blocked_f32.argtypes = [p] * 14 + [i] * 5 + [p]
+    lib.cm_sweep_row_f32.argtypes = [p] * 14 + [i] * 4 + [p]
+    return lib
+
+
+def phase_turns(old_dir):
+    """The old single-SM kernels and the cluster sweep in turns (old,
+    new, new, old) on the same inputs, each launch with its host work
+    (r = mu @ lam, the int32 visiting order) as the wrappers do it."""
+    import torch
+    from circuitmap_torch.ops import sweep_cuda as sc
+    from circuitmap_torch.ops import sweep_row_cuda as sr
+
+    log(f"phase 2b: old single-SM sweep kernels of {old_dir} against the "
+        "cluster sweep, in turns (old, new, new, old)")
+    lib = old_sweeps(old_dir)
+
+    def old_call(rows, b, kw, gate):
+        E, n, k = b["lam"].shape
+        arrays, scalars, r = sc._kernel_args(
+            b["y"], b["stim"], b["mu"], b["beta"], b["lam"], kw["sig"],
+            b["m0"], b["m1"], b["lam_mask"], b["powers"], b["power_counts"],
+            kw["msrmp"], 3.0, float(gate), "sweep")
+        steps = b["border" if rows == 8 else "order"].to(
+            torch.int32).contiguous()
+        out = torch.empty_like(arrays[3])
+        ptrs = [x.data_ptr() for x in arrays] + [
+            steps.data_ptr(), scalars.data_ptr(), r.data_ptr(),
+            out.data_ptr()]
+        stream = torch.cuda.current_stream().cuda_stream
+        P = b["powers"].shape[0]
+        err = (lib.cm_sweep_blocked_f32(*ptrs, E, n, k, P, steps.shape[1],
+                                        stream) if rows == 8 else
+               lib.cm_sweep_row_f32(*ptrs, E, n, k, P, stream))
+        if err:
+            raise RuntimeError(f"old sweep kernel launch failed: {err}")
+        return out
+
+    cases = [
+        ("sweep_blocked", 8, [sweep_inputs(seed=0)],
+         dict(sig=0.1, msrmp=0.35)),
+        ("sweep_row", 1, [sweep_inputs(seed=1)], dict(sig=0.1, msrmp=0.35)),
+        ("sweep_row", 1, [sweep_inputs(seed=10 + e, k=15000)
+                          for e in range(4)],
+         dict(sig=per_expt(0.1, 0.12, 0.09, 0.11),
+              msrmp=per_expt(0.3, 0.35, 0.4, 0.45))),
+    ]
+    turns = {"sweep_blocked": [], "sweep_row": []}
+    for name, rows, parts, kw in cases:
+        b = stack_inputs(parts)
+        E, n, k = b["lam"].shape
+        new_fn = (sc.sweep_spikes_blocked_batched if rows == 8
+                  else sr.sweep_spikes_row_batched)
+
+        def new_call(gate):
+            return row_call(new_fn, b, gate,
+                            rows="border" if rows == 8 else "order", **kw)
+
+        d = (old_call(rows, b, kw, 0) - new_call(0)).abs().max().item()
+        times = [cuda_ms(lambda: old_call(rows, b, kw, 1)),
+                 cuda_ms(lambda: new_call(1)), cuda_ms(lambda: new_call(1)),
+                 cuda_ms(lambda: old_call(rows, b, kw, 1))]
+        old_ms, new_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+        bound_ms = 3 * E * n * k * 4 / PEAK_BYTES_PER_S * 1e3
+        log(f"{rows} row(s) a step, E={E} N={n} K={k}: old "
+            f"{times[0]:.4f} / {times[3]:.4f} ms, cluster {times[1]:.4f} / "
+            f"{times[2]:.4f} ms ({old_ms / new_ms:.2f}x); byte bound "
+            f"{bound_ms:.4f} ms: old {bound_ms / old_ms:.2%}, cluster "
+            f"{bound_ms / new_ms:.2%} of it; gate off max |old - new| "
+            f"{d:.3e}")
+        turns[name].append(dict(E=E, N=n, K=k, rows_per_step=rows,
+                                ms_in_turns=times, old_ms=old_ms,
+                                new_ms=new_ms, bound_ms=bound_ms,
+                                max_abs_old_vs_new=d))
+        del b
+    torch.cuda.synchronize()
+    turns["k_scan"] = k_scan()
+    return turns
+
+
+def k_scan(ks=(5000, 20000, 80000)):
+    """The cluster sweep at N=1000 and several K, at both schedules: a
+    least-squares line through (columns per CTA, us per step) splits a
+    step into a fixed part (the barrier, the reductions, the gates) and
+    a part that grows with the CTA's slice (the two passes)."""
+    from circuitmap_torch.ops import sweep_cuda as sc
+    from circuitmap_torch.ops import sweep_row_cuda as sr
+
+    out = {}
+    for rows, fn, order in ((8, sc.sweep_spikes_blocked, "border"),
+                            (1, sr.sweep_spikes_row, "order")):
+        pts = []
+        for k in ks:
+            a = sweep_inputs(seed=3, k=k)
+            ms = cuda_ms(lambda: row_call(fn, a, 1, rows=order), reps=10)
+            cols = sc.launch_plan(1, k, rows, len(POWERS)).cols
+            pts.append((cols, ms * 1e3 / -(-N // rows)))
+            del a
+        x, y = np.array(pts).T
+        per_col, fixed = np.polyfit(x, y, 1)
+        log(f"{rows} row(s) a step, N={N}: us per step at K={list(ks)} "
+            f"(columns per CTA {x.astype(int).tolist()}): "
+            f"{np.round(y, 3).tolist()}; fit: {fixed:.3f} us fixed + "
+            f"{per_col * 1e3:.3f} us per 1000 columns of the CTA's slice")
+        out[f"rows_{rows}"] = dict(K=list(ks), cols=x.tolist(),
+                                   us_per_step=y.tolist(),
+                                   fixed_us=fixed,
+                                   us_per_1000_cols=per_col * 1e3)
+    return out
+
+
 def main():
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--turns", metavar="OLD_CHECKOUT",
+                        help="time the single-SM sweep kernels of this "
+                             "earlier checkout against the cluster sweep")
+    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -767,6 +981,7 @@ def main():
     _build.library()
     log(f"kernels ready in {time.time() - t0:.2f} s (nvcc build "
         f"{_build.build_seconds if _build.build_seconds is not None else 'cached'})")
+    turns = phase_turns(args.turns) if args.turns else None
 
     sweep_rec, sweep_state = phase_sweep()
     laplace_rec = phase_laplace(sweep_state)
@@ -779,6 +994,11 @@ def main():
     paths["auto_large_k"] = phase_large_k_fit()
     paths.update(phase_many(sim, dem))
     records = (sweep_rec, laplace_rec, row_rec)
+    if turns:
+        sweep_rec["turns"], row_rec["turns"] = (turns["sweep_blocked"],
+                                                turns["sweep_row"])
+        sweep_rec["k_scan"] = turns["k_scan"]["rows_8"]
+        row_rec["k_scan"] = turns["k_scan"]["rows_1"]
     for rec in records:
         # launches: the sum over the paths driven, each counted from 0
         rec["launches_by_path"] = {path: c[rec["name"]]

@@ -101,10 +101,12 @@ def library():
 
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cm_sweep_blocked_f32.argtypes = [p] * 14 + [i] * 5 + [p]
-    lib.cm_sweep_blocked_f32.restype = i
-    lib.cm_sweep_row_f32.argtypes = [p] * 14 + [i] * 4 + [p]
-    lib.cm_sweep_row_f32.restype = i
+    # E, N, K, P, nsteps, rows_per_step, then cluster_plan's cluster,
+    # cols, on_chip, depth, smem_bytes
+    lib.cm_sweep_cluster_f32.argtypes = [p] * 14 + [i] * 11 + [p]
+    lib.cm_sweep_cluster_f32.restype = i
+    lib.cm_sweep_cluster_active.argtypes = [i] * 5
+    lib.cm_sweep_cluster_active.restype = i
     lib.cm_laplace_f32.argtypes = [p] * 7 + [i, i, p]
     lib.cm_laplace_f32.restype = i
     lib.cm_error_string.argtypes = [i]

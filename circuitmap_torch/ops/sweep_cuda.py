@@ -17,10 +17,15 @@ form). ``_sweep_row_blocks`` is the plain per-row algebra that every
 plain sweep of the port runs, blocked or strictly sequential.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA float32 tensor
-launches ``csrc/sweep_blocked.cu``; anything else raises.
+launches ``csrc/sweep_cluster.cu`` (8 rows a step); anything else raises.
+The same kernel runs the strictly sequential sweep (1 row a step,
+``ops/sweep_row_cuda.py``). :func:`cluster_plan` lays out its launch.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -28,10 +33,11 @@ from .._device import highest_matmul
 from .pava import isotonic_fit_at_max_batched
 
 BLOCK = 8
-# dynamic shared memory holds r [K] f32 beside ~8 KB of static arrays
-# (232,448 bytes per block on sm_90)
-MAX_K = (232448 - 8192) // 4
 MAX_POWERS = 8
+CLUSTER_THREADS = 512     # threads per CTA (csrc/sweep_cluster.cu THREADS)
+CLUSTER_SIZES = (16, 8)   # CTAs per experiment: 16 where the card admits it
+SMEM_PER_CTA = 232448     # dynamic shared memory one CTA may take on sm_90
+RING_MAX = 4              # steps of rows prefetched at most
 
 
 def _per_expt(v, E, dtype, device):
@@ -174,7 +180,7 @@ def sweep_spikes_blocked_batched(y, stim, mu, beta, lam, sig, m0, m1,
                                  lam_mask, powers, power_counts, border,
                                  msrmp_eff, minimum_spike_count, gate_active,
                                  block_size=BLOCK):
-    """E independent blocked sweeps in one launch (one thread block per
+    """E independent blocked sweeps in one launch (one cluster per
     experiment); returns the new lam [E, N, K].
 
     y, lam_mask: [E, K]; stim, lam: [E, N, K]; mu, beta, m0, m1:
@@ -230,36 +236,114 @@ def _kernel_args(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
     return arrays, scalars, _residual(arrays[4], arrays[3])
 
 
+class ClusterPlan(NamedTuple):
+    """How one cluster sweep launches: ``cluster`` CTAs per experiment
+    (E clusters), each owning ``cols`` columns (a multiple of 4, the
+    last CTA's slice cut at K); ``on_chip``: r, y, mask and the step's
+    est rows live in shared memory (else in device memory); ``depth``
+    steps of stim and lam rows prefetched into a shared-memory ring;
+    ``smem_bytes`` of dynamic shared memory per CTA."""
+    experiments: int
+    cluster: int
+    cols: int
+    on_chip: bool
+    depth: int
+    smem_bytes: int
+
+
+def cluster_plan(E, K, rows, P=MAX_POWERS, cluster=CLUSTER_SIZES[0]):
+    """The launch of ``E`` sweeps over ``K`` trials at ``rows`` rows a
+    step (1 or 8) and ``P`` power levels, as ``csrc/sweep_cluster.cu``
+    lays out its shared memory (in floats, each part a multiple of 4):
+    the exchanged partials [2, cluster, rows*(P+1)], the CTA's reduction
+    [warps, rows*(P+1)], the gates (8), the row parameters
+    [2, rows, 4+P], the step's first row (4) and the exchange's two
+    mbarriers (4); then, on chip, r, y and mask [cols] and est
+    [rows, cols]; then the ring, ``depth`` slots of [rows, 2, cols]."""
+    if rows not in (1, BLOCK) or cluster not in CLUSTER_SIZES:
+        raise ValueError(f"no cluster sweep at rows={rows}, "
+                         f"cluster={cluster}")
+    cols = 4 * -(-K // (4 * cluster))
+    ns = rows * (P + 1)
+    fixed = (2 * cluster * ns + CLUSTER_THREADS // 32 * ns + 8
+             + 4 * -(-2 * rows * (4 + P) // 4) + 8)
+    resident = (3 + rows) * cols
+    slot = 2 * rows * cols
+    limit = SMEM_PER_CTA // 4
+    on_chip = fixed + resident <= limit
+    base = fixed + (resident if on_chip else 0)
+    depth = min(RING_MAX, (limit - base) // slot)
+    return ClusterPlan(E, cluster, cols, on_chip, depth,
+                       4 * (base + depth * slot))
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_admitted(rows, P, cluster, on_chip, smem_bytes):
+    """Whether the card can hold one such cluster at a time."""
+    from . import _build
+
+    n = _build.library().cm_sweep_cluster_active(rows, P, cluster,
+                                                 int(on_chip), smem_bytes)
+    if n < 0:
+        _build.check(_build.library(), -n, "sweep cluster occupancy query")
+    return n > 0
+
+
+def launch_plan(E, K, rows, P):
+    """The plan a launch takes: 16 CTAs per experiment where the card
+    admits such a cluster, else 8 (the portable size)."""
+    for cluster in CLUSTER_SIZES:
+        plan = cluster_plan(E, K, rows, P, cluster)
+        if _cluster_admitted(rows, P, cluster, plan.on_chip,
+                             plan.smem_bytes):
+            return plan
+    raise RuntimeError(f"the card admits no sweep cluster of "
+                       f"{CLUSTER_SIZES} CTAs at K={K}, rows={rows}")
+
+
+def launch_cluster_sweep(rows, y, stim, mu, beta, lam, sig, m0, m1,
+                         lam_mask, powers, power_counts, steps, msrmp_eff,
+                         minimum_spike_count, gate_active):
+    """One launch of the cluster sweep over E experiments ([E, ...]
+    arrays) at ``rows`` rows a step; ``steps``: [E, ceil(N/8)] block
+    indices (8) or [E, N] rows (1). Returns the new lam [E, N, K]."""
+    from . import _build
+
+    what = "sweep" if rows == BLOCK else "row-sweep"
+    arrays, scalars, r = _kernel_args(
+        y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers, power_counts,
+        msrmp_eff, minimum_spike_count, gate_active, what)
+    E, N, K = lam.shape
+    nsteps = -(-N // rows)
+    if steps.shape != (E, nsteps):
+        raise ValueError(
+            f"{'border' if rows == BLOCK else 'order'} must hold {nsteps} "
+            f"{'block' if rows == BLOCK else 'row'} indices per "
+            f"experiment, got {tuple(steps.shape)}")
+    dev = lam.device
+    P = powers.shape[0]
+    plan = launch_plan(E, K, rows, P)
+    steps32 = steps.to(device=dev, dtype=torch.int32).contiguous()
+    out = torch.empty_like(arrays[3])
+    lib = _build.library()
+    # r holds mu @ lam and is the kernel's scratch residual off chip
+    err = lib.cm_sweep_cluster_f32(
+        *(a.data_ptr() for a in arrays), steps32.data_ptr(),
+        scalars.data_ptr(), r.data_ptr(), out.data_ptr(), E, N, K, P,
+        nsteps, rows, plan.cluster, plan.cols, int(plan.on_chip),
+        plan.depth, plan.smem_bytes,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "sweep_cluster")
+    return out
+
+
 def _launch(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
             power_counts, border, msrmp_eff, minimum_spike_count,
             gate_active, block_size):
-    from . import _build
-
     if block_size != BLOCK:
         raise ValueError(
             f"the CUDA sweep kernel takes block_size={BLOCK}, got "
             f"{block_size}")
-    arrays, scalars, r_init = _kernel_args(
-        y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers, power_counts,
-        msrmp_eff, minimum_spike_count, gate_active, "sweep")
-    E, N, K = lam.shape
-    if K > MAX_K:
-        raise ValueError(
-            f"K={K} trials: the residual r [K] must fit in one block's "
-            f"shared memory (K <= {MAX_K}); larger K runs the row kernel "
-            "(sweep_block_size=1, ops/sweep_row_cuda.py)")
-    nb = -(-N // BLOCK)
-    if border.shape != (E, nb):
-        raise ValueError(f"border must hold {nb} block indices per "
-                         f"experiment, got {tuple(border.shape)}")
-    dev = lam.device
-    border32 = border.to(device=dev, dtype=torch.int32).contiguous()
-    out = torch.empty_like(arrays[3])
-    lib = _build.library()
-    err = lib.cm_sweep_blocked_f32(
-        *(a.data_ptr() for a in arrays), border32.data_ptr(),
-        scalars.data_ptr(), r_init.data_ptr(), out.data_ptr(),
-        E, N, K, powers.shape[0], nb,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "sweep_blocked")
-    return out
+    return launch_cluster_sweep(
+        BLOCK, y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
+        power_counts, border, msrmp_eff, minimum_spike_count, gate_active)

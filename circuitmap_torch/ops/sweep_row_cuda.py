@@ -13,10 +13,10 @@ maximum) and the connection gate, writes the gated row and updates
 ``r = r_excl + new_mu * new_lam``. This is the reference's own update
 order.
 
-One kernel, ``csrc/sweep_row.cu``, serves all three: the single wrapper
-launches it with one experiment, the batched wrapper with E. Its
-residual lives in device memory, so unlike the blocked kernel
-(``sweep_cuda.MAX_K``) it takes any K.
+One kernel serves all three, the cluster sweep of the blocked sweep
+(``csrc/sweep_cluster.cu``) at one row a step: the single wrapper
+launches it with one experiment, the batched wrapper with E (one
+cluster each). It takes any K.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA float32 tensor
 launches the kernel; anything else raises.
@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from .sweep_cuda import _expt_axis, _kernel_args, _sweep_row_blocks
+from .sweep_cuda import _expt_axis, _sweep_row_blocks, launch_cluster_sweep
 
 
 def sweep_spikes_row_batched_torch(y, stim, mu, beta, lam, sig, m0, m1,
@@ -111,23 +111,6 @@ sweep_spikes_row_batched.launches = 0
 
 def _launch(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
             power_counts, order, msrmp_eff, minimum_spike_count, gate_active):
-    from . import _build
-
-    arrays, scalars, r = _kernel_args(
-        y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers, power_counts,
-        msrmp_eff, minimum_spike_count, gate_active, "row-sweep")
-    E, N, K = lam.shape
-    if order.shape != (E, N):
-        raise ValueError(f"order must hold {N} row indices per experiment, "
-                         f"got {tuple(order.shape)}")
-    dev = lam.device
-    order32 = order.to(device=dev, dtype=torch.int32).contiguous()
-    out = torch.empty_like(arrays[3])
-    lib = _build.library()
-    # r is the kernel's running residual, updated in place
-    err = lib.cm_sweep_row_f32(
-        *(a.data_ptr() for a in arrays), order32.data_ptr(),
-        scalars.data_ptr(), r.data_ptr(), out.data_ptr(), E, N, K,
-        powers.shape[0], torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "sweep_row")
-    return out
+    return launch_cluster_sweep(
+        1, y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
+        power_counts, order, msrmp_eff, minimum_spike_count, gate_active)

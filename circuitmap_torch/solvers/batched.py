@@ -219,8 +219,8 @@ def caviar_many(
     loop per experiment, "batched" one loop over the stack. Under
     ``sweep_block_size="auto"`` the batched loop runs the strictly
     sequential sweep (block 1, the batched row kernel on CUDA) and the
-    sequential mode resolves as ``caviar()`` does (block 8 on CUDA up to
-    ``sweep_cuda.MAX_K`` trials, else 1). A pinned block size is the same
+    sequential mode resolves as ``caviar()`` does (block 8 on CUDA at any
+    K, 1 on the CPU). A pinned block size is the same
     in both modes, and they then agree to float rounding.
 
     After the fits, ``fn_scan`` runs the reconnection scan per

@@ -11,8 +11,8 @@ Each of the ``iters`` iterations runs, on the fit's device: the Gaussian
 weight update (Cholesky plus one triangular solve), the truncated-normal
 power-curve means, one spike sweep, the noise update, the bucket
 statistics with the Laplace refit of phi, and the soft-threshold
-spontaneous update. On CUDA the sweep is the blocked 8-row kernel
-(ops/sweep_cuda.py) or, at block 1, the row kernel
+spontaneous update. On CUDA the sweep is the cluster kernel at 8 rows
+a step (ops/sweep_cuda.py) or, at block 1, at one row a step
 (ops/sweep_row_cuda.py), and the refit the Laplace kernel
 (ops/laplace_cuda.py); on the CPU their plain versions run, with the
 reference's strictly sequential sweep (block 1) by default. The loop
@@ -39,7 +39,7 @@ import torch
 from .._device import highest_matmul, resolve_device, torch_dtype
 from ..ops.charge import prepare_observations
 from ..ops.pava import isotonic_fit_at_max_batched
-from ..ops.sweep_cuda import (MAX_K, _sweep_row_blocks, sweep_spikes_blocked,
+from ..ops.sweep_cuda import (_sweep_row_blocks, sweep_spikes_blocked,
                               sweep_spikes_blocked_batched)
 from ..ops.sweep_row_cuda import (sweep_spikes_row, sweep_spikes_row_batched,
                                   sweep_spikes_row_torch)
@@ -385,15 +385,14 @@ def _validate_update_order(update_order):
 
 
 def _resolve_sweep(sweep_impl, sweep_block_size, device, k=None):
-    """The sweep's block size for ``k`` trials on ``device`` (only its
-    type is read).
+    """The sweep's block size on ``device`` (only its type is read) for
+    ``k`` trials, which no longer matters: the cluster kernel takes any
+    K at either block size.
 
-    'auto' is 1 on the CPU (the reference's strictly sequential
-    schedule). On CUDA it is 8, the blocked kernel, while its residual
-    fits in shared memory (K <= ``sweep_cuda.MAX_K``), and 1 above that:
-    the row kernel takes any K. A pinned size is honoured verbatim: on
-    CUDA 1 runs the row kernel, 8 the blocked kernel (raising above
-    MAX_K), and no other size has a kernel.
+    'auto' is 8 on CUDA (the cluster kernel at 8 rows a step) and 1 on
+    the CPU (the reference's strictly sequential schedule). A pinned size
+    is honoured verbatim: on CUDA 1 runs the kernel at one row a step, 8
+    at eight, and no other size has a kernel.
     """
     if sweep_impl not in SWEEP_IMPLS:
         raise ValueError(
@@ -401,19 +400,13 @@ def _resolve_sweep(sweep_impl, sweep_block_size, device, k=None):
             "(the JAX package's 'xla' and 'pallas*' implementations do "
             "not exist in the port; both values dispatch by device)")
     on_cuda = device.type == "cuda"
-    fits = k is None or k <= MAX_K
     if sweep_block_size == "auto":
-        return CUDA_BLOCK_SIZE if on_cuda and fits else 1
+        return CUDA_BLOCK_SIZE if on_cuda else 1
     block = int(sweep_block_size)
     if on_cuda and block not in (1, CUDA_BLOCK_SIZE):
         raise NotImplementedError(
-            f"the CUDA sweep kernels run single rows or 8-row blocks; "
+            f"the CUDA sweep kernel runs single rows or 8-row blocks; "
             f"sweep_block_size={block} is not available on the GPU")
-    if on_cuda and block == CUDA_BLOCK_SIZE and not fits:
-        raise ValueError(
-            f"sweep_block_size=8 on CUDA holds the residual of K={k} "
-            f"trials in one block's shared memory, which takes K <= "
-            f"{MAX_K}; use sweep_block_size=1 or 'auto' (the row kernel)")
     return block
 
 
@@ -455,9 +448,8 @@ def caviar(
     by device: the kernels on CUDA float32, the plain versions on the
     CPU). CUDA fits are float32; a float64 fit runs on the CPU.
 
-    ``sweep_block_size="auto"`` is 8 on CUDA (the blocked kernel) up to
-    ``sweep_cuda.MAX_K`` trials and 1 above (the row kernel), and 1 on
-    the CPU; a pinned 1 or 8 is honoured (``_resolve_sweep``).
+    ``sweep_block_size="auto"`` is 8 on CUDA at any K and 1 on the CPU;
+    a pinned 1 or 8 is honoured (``_resolve_sweep``).
     """
     if track_elbo or elbo_tol is not None:
         raise NotImplementedError(

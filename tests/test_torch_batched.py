@@ -26,7 +26,6 @@ import torch
 from circuitmap_tpu.model import default_priors
 from circuitmap_tpu.simulation import simulate
 from circuitmap_torch import caviar_many
-from circuitmap_torch.ops.sweep_cuda import MAX_K
 from circuitmap_torch.utils.metrics import r2_score
 
 tcav = importlib.import_module("circuitmap_torch.solvers.caviar")
@@ -272,17 +271,17 @@ def test_signature_is_the_jax_one_plus_device():
 
 
 def test_auto_sweep_falls_back_to_the_row_kernel_above_max_k():
-    """ROADMAP C: on CUDA, 'auto' resolved to the blocked kernel at any K
-    and the blocked kernel refused K > MAX_K; above MAX_K it is now the
-    row kernel. The resolver reads only the device's type."""
-    gpu = torch.device("cuda")
-    assert tcav._resolve_sweep("auto", "auto", gpu, k=MAX_K) == 8
-    assert tcav._resolve_sweep("auto", "auto", gpu, k=60000) == 1
-    assert tcav._resolve_sweep("cuda", 1, gpu, k=60000) == 1
-    with pytest.raises(ValueError, match="K <= "):
-        tcav._resolve_sweep("auto", 8, gpu, k=60000)
-    assert tcav._resolve_sweep("auto", "auto", torch.device("cpu"),
-                               k=60000) == 1
+    """The rule that replaced ROADMAP C's fallback: the cluster kernel
+    takes any K, so 'auto' on CUDA is 8 at every K (the old blocked
+    kernel stopped at K = 56,064 and 'auto' fell back to the row kernel
+    above it); the CPU stays at 1 and a pinned 1 or 8 is honoured at any
+    K. The resolver reads only the device's type."""
+    gpu, cpu = torch.device("cuda"), torch.device("cpu")
+    for k in (56064, 60000, 1_000_000):
+        assert tcav._resolve_sweep("auto", "auto", gpu, k=k) == 8
+        assert tcav._resolve_sweep("auto", "auto", cpu, k=k) == 1
+        assert tcav._resolve_sweep("cuda", 1, gpu, k=k) == 1
+        assert tcav._resolve_sweep("auto", 8, gpu, k=k) == 8
 
 
 def test_host_reconnect_scan_matches_jax():

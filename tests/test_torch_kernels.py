@@ -70,6 +70,7 @@ def _sweep(fn, t, gate, msrmp=0.5):
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,K,powers", [
     (29, 300, (45.0, 55.0, 65.0)),        # a partial padding block
+    (29, 301, (45.0, 55.0, 65.0)),        # K % 4 != 0: rows unaligned
     (203, 5000, (45.0, 55.0, 65.0)),
     (64, 1000, (50.0,)),
     (64, 1000, (30.0, 40.0, 50.0, 60.0, 70.0)),
@@ -134,8 +135,9 @@ def _check_row_kernel(fn, plain_fn, t, msrmp=0.5, sig=0.1):
     (203, 5000, (45.0, 55.0, 65.0)),
     (64, 1000, (50.0,)),
     (64, 1000, (30.0, 40.0, 50.0, 60.0, 70.0)),
-    # past the blocked kernel's limit
-    (40, sweep_cuda.MAX_K + 3945, (45.0, 55.0, 65.0)),
+    (29, 301, (45.0, 55.0, 65.0)),
+    # past the old single-block kernels' shared-memory limit
+    (40, 60000, (45.0, 55.0, 65.0)),
 ])
 def test_row_kernel_matches_plain(cuda, N, K, powers):
     t = _stacked(1, N, K, powers, cuda)
@@ -255,13 +257,17 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
             t["y"], t["stim"], t["mu"], t["beta"], t["lam"], 0.1, t["m0"],
             t["m1"], t["lam_mask"], t["powers"], t["power_counts"],
             t["border"], 0.3, 3.0, 1.0, block_size=16)
-    big = torch.zeros(8, sweep_cuda.MAX_K + 1, device=cuda)
-    vec = torch.zeros(8, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        sweep_cuda.sweep_spikes_blocked(
-            big[0], big, vec, vec, big, 0.1, vec, vec, big[0],
-            torch.tensor([45.0], device=cuda), torch.zeros(8, 1, device=cuda),
-            torch.zeros(1, dtype=torch.long, device=cuda), 0.3, 3.0, 1.0)
+    # both wrappers take K past the old kernels' shared-memory limit
+    wide = _stacked(1, 16, 56065, (45.0, 55.0), cuda)
+    wide = {k: (v if k == "powers" else v[0]) for k, v in wide.items()}
+    for fn, plain_fn, call in (
+            (sweep_cuda.sweep_spikes_blocked,
+             sweep_cuda.sweep_spikes_blocked_torch, _sweep),
+            (sweep_row_cuda.sweep_spikes_row,
+             sweep_row_cuda.sweep_spikes_row_torch, _row)):
+        torch.testing.assert_close(call(fn, wide, 0.0),
+                                   call(plain_fn, wide, 0.0),
+                                   rtol=1e-4, atol=1e-5)
     args = [a.to(cuda).double() for a in _laplace_stats(8, 4)]
     with pytest.raises(TypeError, match="float32"):
         laplace_cuda.laplace_from_stats(*args)
