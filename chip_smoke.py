@@ -2,7 +2,6 @@
 """Smoke run of circuitmap_torch on one NVIDIA GPU (written for the H100).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --turns OLD_CHECKOUT
 
 Builds the CUDA kernels from ``circuitmap_torch/csrc``, holds each
 against its plain PyTorch version at the shapes its path gives it, then
@@ -24,7 +23,8 @@ recovers the simulated weights. One kernel, the cluster sweep
   18000..12000 trials at block 8 (8 rows a step, E=4).
 
 The sweep is held against its plain version at both schedules at
-N=1000/K=20000 and N=200/K=100000, at E=4 (K=15000, one row a step; the
+N=1000/K=20000 and N=200/K=100000, at one row a step at N=16/K=300000
+(r in device memory), at E=4 (K=15000, one row a step; the
 ragged stack's inert padding and per-experiment scalars at 8 rows a
 step), with the gate on also for agreement between the CTAs of each
 cluster; the Laplace kernel at [1000] and [4, 1000] lanes.
@@ -36,14 +36,6 @@ every kernel (launches on each path, error against the plain version,
 times, bound and the share of it, cluster shape); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
 result.
-
-``--turns OLD_CHECKOUT`` first times the single-SM sweep kernels of an
-earlier checkout of this repository (its ``circuitmap_torch/csrc/
-sweep_blocked.cu`` and ``sweep_row.cu``, built here) against the cluster
-sweep in turns (old, new, new, old) on the same inputs: 8 rows a step at
-N=1000/K=20000, one row a step at E=1/K=20000 and E=4/K=15000; then
-times the cluster sweep at K = 5,000, 20,000 and 80,000 to split a step
-into a fixed part and a part per column.
 """
 
 import json
@@ -160,9 +152,8 @@ def cluster_fields(E, K, rows, P=len(POWERS)):
     from circuitmap_torch.ops import sweep_cuda as sc
 
     plan = sc.launch_plan(E, K, rows, P)
-    return dict(cluster_size=plan.cluster, ctas_per_experiment=plan.cluster,
-                cols_per_cta=plan.cols, on_chip=plan.on_chip,
-                ring_depth=plan.depth)
+    return dict(cluster_size=plan.cluster, cols_per_cta=plan.cols,
+                on_chip=plan.on_chip, ring_depth=plan.depth)
 
 
 def check_cta_agreement(out, plain, a, rows, what):
@@ -467,7 +458,7 @@ def phase_row_sweep():
 
     log("phase 6: cluster sweep at one row a step vs plain version (P=3: "
         "N=1000 K=20000; E=4 at K=15000; N=200 at K=100000 at 1 and 8 rows "
-        "a step)")
+        "a step; N=16 at K=300000, r off chip)")
     a = sweep_inputs(seed=1)
     err, _ = check_sweep_kernel(sr.sweep_spikes_row, sr.sweep_spikes_row_torch,
                                 a, "E=1 N=1000 K=20000")
@@ -506,6 +497,19 @@ def phase_row_sweep():
                            "step, E=1 N=200 K=100000 (past the old kernels' "
                            "K limit)", rows=rows)
     del big
+
+    # one row a step past the widest slice r, y, mask and est keep on
+    # chip: r in device memory, the ring one step deep
+    n, k = 16, 300000
+    plan = sc.launch_plan(1, k, 1, len(POWERS))
+    log(f"one row a step at N={n} K={k}: {plan}")
+    if plan.on_chip or plan.depth < 1:
+        raise AssertionError(f"K={k} at one row a step must keep r off chip "
+                             f"with a ring of at least one step: {plan}")
+    wide = sweep_inputs(seed=3, n=n, k=k)
+    check_sweep_kernel(sr.sweep_spikes_row, sr.sweep_spikes_row_torch, wide,
+                       f"1 row a step, E=1 N={n} K={k} (r off chip)")
+    del wide
     return dict(name="sweep_row", route="cuda",
                 source="circuitmap_torch/csrc/sweep_cluster.cu",
                 replaces="circuitmap_tpu/ops/sweep_pallas.py:338, :89, :481",
@@ -821,141 +825,7 @@ def phase_many(sim, dem):
     return paths
 
 
-def old_sweeps(old_dir):
-    """The single-SM sweep kernels of an earlier checkout of this
-    repository (``csrc/sweep_blocked.cu``, ``csrc/sweep_row.cu``), built
-    with the port's nvcc flags into a library of their own."""
-    import ctypes
-
-    from circuitmap_torch.ops import _build
-
-    csrc = Path(old_dir).resolve() / "circuitmap_torch" / "csrc"
-    sources = [str(csrc / "sweep_blocked.cu"), str(csrc / "sweep_row.cu")]
-    _build.BUILD_DIR.mkdir(exist_ok=True)
-    target = _build.BUILD_DIR / "libold_sweeps.so"
-    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                      *sources, "-o", str(target)]])
-    lib = ctypes.CDLL(str(target))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cm_sweep_blocked_f32.argtypes = [p] * 14 + [i] * 5 + [p]
-    lib.cm_sweep_row_f32.argtypes = [p] * 14 + [i] * 4 + [p]
-    return lib
-
-
-def phase_turns(old_dir):
-    """The old single-SM kernels and the cluster sweep in turns (old,
-    new, new, old) on the same inputs, each launch with its host work
-    (r = mu @ lam, the int32 visiting order) as the wrappers do it."""
-    import torch
-    from circuitmap_torch.ops import sweep_cuda as sc
-    from circuitmap_torch.ops import sweep_row_cuda as sr
-
-    log(f"phase 2b: old single-SM sweep kernels of {old_dir} against the "
-        "cluster sweep, in turns (old, new, new, old)")
-    lib = old_sweeps(old_dir)
-
-    def old_call(rows, b, kw, gate):
-        E, n, k = b["lam"].shape
-        arrays, scalars, r = sc._kernel_args(
-            b["y"], b["stim"], b["mu"], b["beta"], b["lam"], kw["sig"],
-            b["m0"], b["m1"], b["lam_mask"], b["powers"], b["power_counts"],
-            kw["msrmp"], 3.0, float(gate), "sweep")
-        steps = b["border" if rows == 8 else "order"].to(
-            torch.int32).contiguous()
-        out = torch.empty_like(arrays[3])
-        ptrs = [x.data_ptr() for x in arrays] + [
-            steps.data_ptr(), scalars.data_ptr(), r.data_ptr(),
-            out.data_ptr()]
-        stream = torch.cuda.current_stream().cuda_stream
-        P = b["powers"].shape[0]
-        err = (lib.cm_sweep_blocked_f32(*ptrs, E, n, k, P, steps.shape[1],
-                                        stream) if rows == 8 else
-               lib.cm_sweep_row_f32(*ptrs, E, n, k, P, stream))
-        if err:
-            raise RuntimeError(f"old sweep kernel launch failed: {err}")
-        return out
-
-    cases = [
-        ("sweep_blocked", 8, [sweep_inputs(seed=0)],
-         dict(sig=0.1, msrmp=0.35)),
-        ("sweep_row", 1, [sweep_inputs(seed=1)], dict(sig=0.1, msrmp=0.35)),
-        ("sweep_row", 1, [sweep_inputs(seed=10 + e, k=15000)
-                          for e in range(4)],
-         dict(sig=per_expt(0.1, 0.12, 0.09, 0.11),
-              msrmp=per_expt(0.3, 0.35, 0.4, 0.45))),
-    ]
-    turns = {"sweep_blocked": [], "sweep_row": []}
-    for name, rows, parts, kw in cases:
-        b = stack_inputs(parts)
-        E, n, k = b["lam"].shape
-        new_fn = (sc.sweep_spikes_blocked_batched if rows == 8
-                  else sr.sweep_spikes_row_batched)
-
-        def new_call(gate):
-            return row_call(new_fn, b, gate,
-                            rows="border" if rows == 8 else "order", **kw)
-
-        d = (old_call(rows, b, kw, 0) - new_call(0)).abs().max().item()
-        times = [cuda_ms(lambda: old_call(rows, b, kw, 1)),
-                 cuda_ms(lambda: new_call(1)), cuda_ms(lambda: new_call(1)),
-                 cuda_ms(lambda: old_call(rows, b, kw, 1))]
-        old_ms, new_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
-        bound_ms = 3 * E * n * k * 4 / PEAK_BYTES_PER_S * 1e3
-        log(f"{rows} row(s) a step, E={E} N={n} K={k}: old "
-            f"{times[0]:.4f} / {times[3]:.4f} ms, cluster {times[1]:.4f} / "
-            f"{times[2]:.4f} ms ({old_ms / new_ms:.2f}x); byte bound "
-            f"{bound_ms:.4f} ms: old {bound_ms / old_ms:.2%}, cluster "
-            f"{bound_ms / new_ms:.2%} of it; gate off max |old - new| "
-            f"{d:.3e}")
-        turns[name].append(dict(E=E, N=n, K=k, rows_per_step=rows,
-                                ms_in_turns=times, old_ms=old_ms,
-                                new_ms=new_ms, bound_ms=bound_ms,
-                                max_abs_old_vs_new=d))
-        del b
-    torch.cuda.synchronize()
-    turns["k_scan"] = k_scan()
-    return turns
-
-
-def k_scan(ks=(5000, 20000, 80000)):
-    """The cluster sweep at N=1000 and several K, at both schedules: a
-    least-squares line through (columns per CTA, us per step) splits a
-    step into a fixed part (the barrier, the reductions, the gates) and
-    a part that grows with the CTA's slice (the two passes)."""
-    from circuitmap_torch.ops import sweep_cuda as sc
-    from circuitmap_torch.ops import sweep_row_cuda as sr
-
-    out = {}
-    for rows, fn, order in ((8, sc.sweep_spikes_blocked, "border"),
-                            (1, sr.sweep_spikes_row, "order")):
-        pts = []
-        for k in ks:
-            a = sweep_inputs(seed=3, k=k)
-            ms = cuda_ms(lambda: row_call(fn, a, 1, rows=order), reps=10)
-            cols = sc.launch_plan(1, k, rows, len(POWERS)).cols
-            pts.append((cols, ms * 1e3 / -(-N // rows)))
-            del a
-        x, y = np.array(pts).T
-        per_col, fixed = np.polyfit(x, y, 1)
-        log(f"{rows} row(s) a step, N={N}: us per step at K={list(ks)} "
-            f"(columns per CTA {x.astype(int).tolist()}): "
-            f"{np.round(y, 3).tolist()}; fit: {fixed:.3f} us fixed + "
-            f"{per_col * 1e3:.3f} us per 1000 columns of the CTA's slice")
-        out[f"rows_{rows}"] = dict(K=list(ks), cols=x.tolist(),
-                                   us_per_step=y.tolist(),
-                                   fixed_us=fixed,
-                                   us_per_1000_cols=per_col * 1e3)
-    return out
-
-
 def main():
-    import argparse
-
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--turns", metavar="OLD_CHECKOUT",
-                        help="time the single-SM sweep kernels of this "
-                             "earlier checkout against the cluster sweep")
-    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -981,7 +851,6 @@ def main():
     _build.library()
     log(f"kernels ready in {time.time() - t0:.2f} s (nvcc build "
         f"{_build.build_seconds if _build.build_seconds is not None else 'cached'})")
-    turns = phase_turns(args.turns) if args.turns else None
 
     sweep_rec, sweep_state = phase_sweep()
     laplace_rec = phase_laplace(sweep_state)
@@ -994,11 +863,6 @@ def main():
     paths["auto_large_k"] = phase_large_k_fit()
     paths.update(phase_many(sim, dem))
     records = (sweep_rec, laplace_rec, row_rec)
-    if turns:
-        sweep_rec["turns"], row_rec["turns"] = (turns["sweep_blocked"],
-                                                turns["sweep_row"])
-        sweep_rec["k_scan"] = turns["k_scan"]["rows_8"]
-        row_rec["k_scan"] = turns["k_scan"]["rows_1"]
     for rec in records:
         # launches: the sum over the paths driven, each counted from 0
         rec["launches_by_path"] = {path: c[rec["name"]]

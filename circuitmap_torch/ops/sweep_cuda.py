@@ -238,12 +238,12 @@ def _kernel_args(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
 
 class ClusterPlan(NamedTuple):
     """How one cluster sweep launches: ``cluster`` CTAs per experiment
-    (E clusters), each owning ``cols`` columns (a multiple of 4, the
-    last CTA's slice cut at K); ``on_chip``: r, y, mask and the step's
-    est rows live in shared memory (else in device memory); ``depth``
-    steps of stim and lam rows prefetched into a shared-memory ring;
-    ``smem_bytes`` of dynamic shared memory per CTA."""
-    experiments: int
+    (one cluster per experiment), each owning ``cols`` columns (a
+    multiple of 4, the last CTA's slice cut at K); ``on_chip``: r, y,
+    mask and the step's est rows live in shared memory (else in device
+    memory); ``depth`` steps of stim and lam rows prefetched into a
+    shared-memory ring; ``smem_bytes`` of dynamic shared memory per
+    CTA."""
     cluster: int
     cols: int
     on_chip: bool
@@ -253,7 +253,8 @@ class ClusterPlan(NamedTuple):
 
 def cluster_plan(E, K, rows, P=MAX_POWERS, cluster=CLUSTER_SIZES[0]):
     """The launch of ``E`` sweeps over ``K`` trials at ``rows`` rows a
-    step (1 or 8) and ``P`` power levels, as ``csrc/sweep_cluster.cu``
+    step (1 or 8) and ``P`` power levels (one cluster per experiment, so
+    the layout is the same for every E), as ``csrc/sweep_cluster.cu``
     lays out its shared memory (in floats, each part a multiple of 4):
     the exchanged partials [2, cluster, rows*(P+1)], the CTA's reduction
     [warps, rows*(P+1)], the gates (8), the row parameters
@@ -273,7 +274,7 @@ def cluster_plan(E, K, rows, P=MAX_POWERS, cluster=CLUSTER_SIZES[0]):
     on_chip = fixed + resident <= limit
     base = fixed + (resident if on_chip else 0)
     depth = min(RING_MAX, (limit - base) // slot)
-    return ClusterPlan(E, cluster, cols, on_chip, depth,
+    return ClusterPlan(cluster, cols, on_chip, depth,
                        4 * (base + depth * slot))
 
 

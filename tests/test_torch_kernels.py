@@ -130,16 +130,20 @@ def _check_row_kernel(fn, plain_fn, t, msrmp=0.5, sig=0.1):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,K,powers", [
-    (29, 300, (45.0, 55.0, 65.0)),
-    (203, 5000, (45.0, 55.0, 65.0)),
-    (64, 1000, (50.0,)),
-    (64, 1000, (30.0, 40.0, 50.0, 60.0, 70.0)),
-    (29, 301, (45.0, 55.0, 65.0)),
+@pytest.mark.parametrize("N,K,powers,on_chip", [
+    (29, 300, (45.0, 55.0, 65.0), True),
+    (203, 5000, (45.0, 55.0, 65.0), True),
+    (64, 1000, (50.0,), True),
+    (64, 1000, (30.0, 40.0, 50.0, 60.0, 70.0), True),
+    (29, 301, (45.0, 55.0, 65.0), True),
     # past the old single-block kernels' shared-memory limit
-    (40, 60000, (45.0, 55.0, 65.0)),
+    (40, 60000, (45.0, 55.0, 65.0), True),
+    # past the widest slice kept on chip: r in device memory
+    (24, 300000, (45.0, 55.0, 65.0), False),
 ])
-def test_row_kernel_matches_plain(cuda, N, K, powers):
+def test_row_kernel_matches_plain(cuda, N, K, powers, on_chip):
+    plan = sweep_cuda.launch_plan(1, K, 1, len(powers))
+    assert plan.on_chip == on_chip and plan.depth >= 1
     t = _stacked(1, N, K, powers, cuda)
     t = {k: (v if k == "powers" else v[0]) for k, v in t.items()}
     before = sweep_row_cuda.sweep_spikes_row.launches
