@@ -77,6 +77,53 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def graph_ms(enqueue, launches=20, replays=10):
+    """Device milliseconds of one launch: ``launches`` calls of
+    ``enqueue`` (a kernel's C entry on prepared tensors) captured in a
+    CUDA graph, each replay timed by CUDA events; the median over
+    ``replays`` divided by ``launches``. No host work is inside."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            enqueue()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            enqueue()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def call_ms(fn, reps=20, warmup=3):
+    """Median wall milliseconds of ``fn`` and a synchronise (host
+    clock): what a caller pays when the host sets the pace."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def sweep_inputs(seed=0, n=N, k=K):
     """Bench-like sweep inputs at the main-path shape (or n x k): H
     targets per trial at one of three powers, ~5% connected neurons,
@@ -239,21 +286,51 @@ def phase_sweep():
                 **cluster_fields(1, K, 8)), (a, ker1)
 
 
+OPS_PER_BUCKET = 30  # one bucket's share of a direction or an objective
+
+
+def laplace_trips(S, C, levels, pp, pc, what):
+    """The first accepted Armijo index j of every lane at each Newton
+    step, from the plain version in float64 on the card, printed as a
+    distribution. Returns the candidate objectives that a search
+    stopping at the first acceptance evaluates: min(j, 40) + 1 a step."""
+    from circuitmap_torch.ops import laplace_cuda as lc
+
+    j = lc.accepted_steps(*(t.double() for t in (S, C, levels, pp, pc)))
+    none = lc.MAX_BACKTRACK + 1
+    classes = {"0": (0, 0), "1-7": (1, 7), "8-15": (8, 15),
+               "16-31": (16, 31), "32-40": (32, 40), "none": (none, none)}
+    hist = {name: int(((j >= lo) & (j <= hi)).sum())
+            for name, (lo, hi) in classes.items()}
+    evals = j.clamp(max=lc.MAX_BACKTRACK) + 1
+    per_lane = evals.sum(-1).double()
+    log(f"{what}: accepted Armijo j over {j.numel()} Newton steps "
+        f"(plain version, float64): {hist}; largest j "
+        f"{int(j.clamp(max=lc.MAX_BACKTRACK).max())}; candidate objectives a "
+        f"lane needs over the {lc.NEWTON_STEPS} steps: mean "
+        f"{per_lane.mean().item():.3f}, max {int(per_lane.max())}")
+    return int(evals.sum()), hist
+
+
 def check_laplace(S, C, levels, what):
     """The Laplace kernel against its plain version run in float64 on the
     same inputs (the kernel computes in double from float32 inputs,
     csrc/laplace.cu): at most 0.1% of the neuron lanes beyond rtol 1e-4,
     relative to each lane's largest entry (the covariance's
     off-diagonal can sit near zero, where an entrywise ratio is noise).
-    Returns (max abs error, ms, plain ms, bound ms, bound_by)."""
+    The priors are the default ones, shared by every lane as a fit
+    passes them. Times: ``ms`` the kernel's device time (20 launches
+    of the C entry on prepared tensors captured in a CUDA graph, the
+    replay timed by events), ``call_ms`` the wrapper's wall time per
+    call (host clock, synchronised, median of 20)."""
     import torch
     from circuitmap_torch.ops import laplace_cuda as lc
 
     lanes, P1 = S.shape[:-1], S.shape[-1]
     L = lanes.numel()
-    pp = torch.tensor([0.1, 5.0], device="cuda").expand(*lanes, 2).contiguous()
+    pp = torch.tensor([0.1, 5.0], device="cuda").expand(*lanes, 2)
     pc = torch.tensor([[1e-1, 0.0], [0.0, 1e0]], device="cuda").expand(
-        *lanes, 2, 2).contiguous()
+        *lanes, 2, 2)
     phi_k, cov_k = lc.laplace_from_stats(S, C, levels, pp, pc)
     phi_x, cov_x = lc.laplace_from_stats_torch(
         *(t.double() for t in (S, C, levels, pp, pc)))
@@ -281,20 +358,29 @@ def check_laplace(S, C, levels, what):
                              "rtol 1e-4")
     err = max((phi_k.double() - phi_x).abs().max().item(),
               (cov_k.double() - cov_x).abs().max().item())
-    ms = cuda_ms(lambda: lc.laplace_from_stats(S, C, levels, pp, pc))
+    args, _, _ = lc._prepare(S, C, levels, pp, pc)
+    ms = graph_ms(lambda: lc._enqueue(args))
+    call = call_ms(lambda: lc.laplace_from_stats(S, C, levels, pp, pc))
     plain_ms = cuda_ms(lambda: lc.laplace_from_stats_torch(S, C, levels, pp, pc),
                        reps=5, warmup=1)
-    nbytes = 4 * (2 * L * P1 + P1 + 2 * L + 4 * L + 2 * L + 4 * L)
-    # a lower bound on the work this data needs: per Newton step one
-    # direction, and the objective at phi and at (at least) one candidate
-    # step, ~30 flops per bucket each
-    flops = L * lc.NEWTON_STEPS * 3 * P1 * 30
-    bound_ms = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F64_FLOPS) * 1e3
-    log(f"{what}: Laplace kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.6f} ms ({nbytes} B, {flops:.2e} flops)")
-    bound_by = ("bytes" if nbytes / PEAK_BYTES_PER_S > flops / PEAK_F64_FLOPS
+    candidates, hist = laplace_trips(S, C, levels, pp, pc, what)
+    n_pp, n_pc = args[-2:]
+    nbytes = 4 * (2 * L * P1 + P1 + 2 * n_pp + 4 * n_pc + 2 * L + 4 * L)
+    # the work these inputs need: per lane one direction a Newton step,
+    # the objective at the prior, and the candidate objectives up to the
+    # first acceptance of each step
+    ops = OPS_PER_BUCKET * P1 * (L * lc.NEWTON_STEPS + L + candidates)
+    bound_ms = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F64_FLOPS) * 1e3
+    bound_by = ("bytes" if nbytes / PEAK_BYTES_PER_S > ops / PEAK_F64_FLOPS
                 else "operations")
-    return err, ms, plain_ms, bound_ms, bound_by
+    log(f"{what}: Laplace kernel {ms:.5f} ms device (CUDA graph), "
+        f"{call:.5f} ms a wrapper call, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.6f} ms ({nbytes} B, {ops:.3e} FP64 operations: "
+        f"{candidates} candidate objectives), {bound_ms / ms:.2%} of the "
+        "bound")
+    return dict(max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms, armijo_j=hist)
 
 
 def phase_laplace(sweep_state):
@@ -304,13 +390,10 @@ def phase_laplace(sweep_state):
     a, lam = sweep_state
     S, C, levels = powercurve_stats(lam, a["stim"], a["powers"],
                                     total_trials=K, counts=a["power_counts"])
-    err, ms, plain_ms, bound_ms, bound_by = check_laplace(S, C, levels,
-                                                          "N=1000")
     return dict(name="laplace", route="cuda",
                 source="circuitmap_torch/csrc/laplace.cu",
                 replaces="circuitmap_tpu/ops/laplace_pallas.py:149",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                library_ms=None, **check_laplace(S, C, levels, "N=1000"))
 
 
 def phase_main_path():
@@ -374,6 +457,85 @@ def phase_main_path():
         f"{fit_only}")
     log(f"truth-R2 {r2:.6f} (JAX package on this data: 0.9968)")
     return by_path, sim, dem
+
+
+def device_time(entry):
+    """A profiler entry's own device microseconds, under this torch's
+    name for them."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(entry, name):
+            return getattr(entry, name)
+    raise AttributeError(f"no device time on {type(entry).__name__}")
+
+
+def phase_profile(sim, dem):
+    """One warm main-path fit under torch.profiler (CPU and CUDA
+    activities): the 10 device operations with the most total time, the
+    Laplace kernel's total and the device's idle share over the fit
+    (1 - the union of device intervals / the fit's wall span). Then the
+    Laplace trip counts on the statistics of the fit's last refit (its
+    final lam through ``powercurve_stats``). Returns the Laplace total
+    in ms, None where the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from circuitmap_torch import Model, default_priors
+    from circuitmap_torch.solvers._laplace import powercurve_stats
+
+    log("phase 5b: one warm main-path fit under torch.profiler; the "
+        "Laplace kernel's Armijo trips on the fit's own statistics")
+    opts = {"iters": 50, "msrmp": 0.3, "powers": list(POWERS),
+            "verbose": False}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("main_path_fit"):
+            model = Model(N).fit(dem, sim["stim_matrix"], method="caviar",
+                                 fit_options=dict(opts))
+            torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    # the annotation shows on the device's timeline too: not device work
+    span = next(e.time_range for e in events
+                if e.name == "main_path_fit" and e.device_type != cuda)
+    on_device = sorted((e.time_range.start, e.time_range.end) for e in events
+                       if e.device_type == cuda and e.name != "main_path_fit")
+    laplace_ms = None
+    if not on_device:
+        log("profiled fit: the profiler recorded no device time: top "
+            "operations, Laplace total and idle share not measured")
+    else:
+        busy, cur_s, cur_e = 0.0, *on_device[0]
+        for s, e in on_device[1:]:
+            if s > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        busy += cur_e - cur_s
+        fit_us = span.end - span.start
+        rows = [a for a in prof.key_averages()
+                if a.device_type == cuda and a.key != "main_path_fit"]
+        rows.sort(key=device_time, reverse=True)
+        top = [(a.key[:90], a.count, device_time(a) / 1e3) for a in rows[:10]]
+        laplace_ms = sum(device_time(a) for a in rows
+                         if "laplace_kernel" in a.key) / 1e3
+        log(f"profiled fit: {fit_us / 1e3:.3f} ms wall, device busy "
+            f"{busy / 1e3:.3f} ms, idle share {1 - busy / fit_us:.4f}; "
+            f"device total {sum(device_time(a) for a in rows) / 1e3:.3f} ms")
+        for name, calls, total in top:
+            log(f"  {total:10.3f} ms {calls:6d} calls  {name}")
+        log(f"profiled fit: Laplace kernel total {laplace_ms:.4f} ms")
+    lam = torch.from_numpy(np.asarray(model.state["lam"])).cuda()
+    stim = torch.from_numpy(np.asarray(sim["stim_matrix"], np.float32)).cuda()
+    powers = torch.tensor(POWERS, device="cuda")
+    counts = torch.stack([(stim == p).sum(1) for p in POWERS], 1).float()
+    S, C, levels = powercurve_stats(lam, stim, powers, total_trials=K,
+                                    counts=counts)
+    p = default_priors(N)
+    laplace_trips(S, C, levels, torch.from_numpy(p["phi"]).float().cuda(),
+                  torch.from_numpy(p["phi_cov"]).float().cuda(),
+                  "main-path statistics (the fit's last refit)")
+    return laplace_ms
 
 
 def row_call(fn, a, gate, msrmp=0.35, sig=0.1, dtype=None, rows="order"):
@@ -569,10 +731,8 @@ def phase_batched_kernels():
     S, C, levels = powercurve_stats(
         lam1, b["stim"], b["powers"], total_trials=per_expt(*RAGGED),
         counts=b["power_counts"])
-    err, ms, plain_ms, bound_ms, _ = check_laplace(S, C, levels,
-                                                   f"[{E}, {N}] lanes")
-    laplace_batched = dict(lanes=[E, N], max_abs_err=err, ms=ms,
-                           plain_ms=plain_ms, bound_ms=bound_ms)
+    laplace_batched = dict(lanes=[E, N], **check_laplace(
+        S, C, levels, f"[{E}, {N}] lanes"))
     del b, lam1
     torch.cuda.synchronize()
     return sweep_batched, laplace_batched
@@ -857,11 +1017,13 @@ def main():
     del sweep_state
     paths = {}
     paths["main"], sim, dem = phase_main_path()
+    laplace_profiled_ms = phase_profile(sim, dem)
     row_rec = phase_row_sweep()
     sweep_rec["batched"], laplace_rec["batched"] = phase_batched_kernels()
     paths["block1_fit"] = phase_block1_fit(sim, dem)
     paths["auto_large_k"] = phase_large_k_fit()
     paths.update(phase_many(sim, dem))
+    laplace_rec["main_path_profiled_ms"] = laplace_profiled_ms
     records = (sweep_rec, laplace_rec, row_rec)
     for rec in records:
         # launches: the sum over the paths driven, each counted from 0

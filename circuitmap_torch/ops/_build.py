@@ -107,7 +107,7 @@ def _declare(lib):
     lib.cm_sweep_cluster_f32.restype = i
     lib.cm_sweep_cluster_active.argtypes = [i] * 5
     lib.cm_sweep_cluster_active.restype = i
-    lib.cm_laplace_f32.argtypes = [p] * 7 + [i, i, p]
+    lib.cm_laplace_f32.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.cm_laplace_f32.restype = i
     lib.cm_error_string.argtypes = [i]
     lib.cm_error_string.restype = ctypes.c_char_p

@@ -46,6 +46,25 @@ def laplace_from_stats_torch(S, C, levels, phi_prior, phi_cov_prior,
     """Plain PyTorch version, vectorised over neurons (and any leading
     batch dims). S, C: [..., P+1]; levels: [P+1]; phi_prior: [..., 2];
     phi_cov_prior: [..., 2, 2]. Returns (phi [..., 2], cov [..., 2, 2])."""
+    for phi, cov, _ in _newton(S, C, levels, phi_prior, phi_cov_prior, t):
+        pass
+    return phi, cov
+
+
+def accepted_steps(S, C, levels, phi_prior, phi_cov_prior):
+    """The first accepted Armijo index j (step 0.5^j) of every lane at
+    each Newton step of the plain version, [..., NEWTON_STEPS] int64;
+    ``MAX_BACKTRACK + 1`` where no candidate was accepted (the step is
+    then 0.5^MAX_BACKTRACK). A search that stops at the first acceptance
+    evaluates min(j, MAX_BACKTRACK) + 1 candidates."""
+    return torch.stack([j for _, _, j in _newton(S, C, levels, phi_prior,
+                                                  phi_cov_prior, BARRIER_T)],
+                       -1)
+
+
+def _newton(S, C, levels, phi_prior, phi_cov_prior, t):
+    """The plain recursion, one Newton step at a time: yields (phi, cov,
+    j) after each step, as ``accepted_steps`` defines j."""
     prec = _inv2x2(phi_cov_prior)
     steps = BACKTRACK_BETA ** torch.arange(MAX_BACKTRACK + 1, dtype=S.dtype,
                                            device=S.device)
@@ -65,7 +84,6 @@ def laplace_from_stats_torch(S, C, levels, phi_prior, phi_cov_prior,
                 - torch.sum(torch.log(phi), -1) / t + 0.5 * quad)
 
     phi = phi_prior
-    cov = torch.zeros_like(phi_cov_prior)
     for _ in range(NEWTON_STEPS):
         f = torch.sigmoid(phi[..., 0:1] * levels - phi[..., 1:2])
         resid = S - C * f
@@ -86,9 +104,10 @@ def laplace_from_stats_torch(S, C, levels, phi_prior, phi_cov_prior,
             g * v, -1)[..., None]
         ok = ~torch.isnan(lhs) & (lhs <= rhs)
         first = torch.argmax(ok.to(torch.int8), dim=-1)
-        j = torch.where(ok.any(-1), first, torch.full_like(first, MAX_BACKTRACK))
-        phi = phi + steps[j][..., None] * v
-    return phi, cov
+        j = torch.where(ok.any(-1), first,
+                        torch.full_like(first, MAX_BACKTRACK + 1))
+        phi = phi + steps[j.clamp(max=MAX_BACKTRACK)][..., None] * v
+        yield phi, cov, j
 
 
 def laplace_from_stats(S, C, levels, phi_prior, phi_cov_prior):
@@ -110,8 +129,15 @@ laplace_from_stats.launches = 0
 
 
 def _launch(S, C, levels, phi_prior, phi_cov_prior):
-    from . import _build
+    args, phi, cov = _prepare(S, C, levels, phi_prior, phi_cov_prior)
+    _enqueue(args)
+    laplace_from_stats.launches += 1
+    return phi, cov
 
+
+def _prepare(S, C, levels, phi_prior, phi_cov_prior):
+    """The kernel's arguments for ``_enqueue`` and its outputs (phi,
+    cov) in the prior shapes; raises on what the kernel does not take."""
     if S.dtype != torch.float32:
         raise TypeError(
             f"the CUDA Laplace kernel takes float32 only, got {S.dtype}; "
@@ -122,22 +148,40 @@ def _launch(S, C, levels, phi_prior, phi_cov_prior):
                          f"buckets, got {P1}")
     lead = S.shape[:-1]
     dev = S.device
-
-    def flat(a, tail):
-        a = torch.as_tensor(a, dtype=torch.float32, device=dev)
-        return a.expand(*lead, *tail).reshape(-1, *tail).contiguous()
-
-    Sf, Cf = flat(S, (P1,)), flat(C, (P1,))
-    pp, pc = flat(phi_prior, (2,)), flat(phi_cov_prior, (2, 2))
+    Sf = S.reshape(-1, P1).contiguous()
+    Cf = torch.as_tensor(C, dtype=torch.float32, device=dev).expand(
+        *lead, P1).reshape(-1, P1).contiguous()
+    pp, n_pp = _rows(phi_prior, lead, (2,), dev)
+    pc, n_pc = _rows(phi_cov_prior, lead, (2, 2), dev)
     lev = torch.as_tensor(levels, dtype=torch.float32, device=dev).contiguous()
     n = Sf.shape[0]
-    phi = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    cov = torch.empty((n, 2, 2), dtype=torch.float32, device=dev)
+    phi = torch.empty((*lead, 2), dtype=torch.float32, device=dev)
+    cov = torch.empty((*lead, 2, 2), dtype=torch.float32, device=dev)
+    return (Sf, Cf, lev, pp, pc, phi, cov, n, P1, n_pp, n_pc), phi, cov
+
+
+def _rows(a, lead, tail, dev):
+    """``a`` broadcast to lead + tail, as a contiguous block of its last
+    rows [rows, *tail] and their count. The leading dims along which it
+    does not vary (stride 0: a prior shared by the experiments of a
+    batch) are not copied; the kernel reads lane n at row n mod rows."""
+    a = torch.as_tensor(a, dtype=torch.float32, device=dev).expand(
+        *lead, *tail)
+    k = 0
+    while k < len(lead) and a.stride(k) == 0:
+        k += 1
+    block = a[(0,) * k].reshape(-1, *tail).contiguous()
+    return block, block.shape[0]
+
+
+def _enqueue(args):
+    """Launch the kernel on the current stream with ``_prepare``'s
+    arguments, uncounted (``laplace_from_stats`` counts its launches)."""
+    from . import _build
+
     lib = _build.library()
+    tensors, sizes = args[:7], args[7:]
     err = lib.cm_laplace_f32(
-        Sf.data_ptr(), Cf.data_ptr(), lev.data_ptr(), pp.data_ptr(),
-        pc.data_ptr(), phi.data_ptr(), cov.data_ptr(), n, P1,
-        torch.cuda.current_stream(dev).cuda_stream)
+        *(t.data_ptr() for t in tensors), *sizes,
+        torch.cuda.current_stream(tensors[0].device).cuda_stream)
     _build.check(lib, err, "laplace")
-    laplace_from_stats.launches += 1
-    return phi.reshape(*lead, 2), cov.reshape(*lead, 2, 2)

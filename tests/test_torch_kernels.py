@@ -233,6 +233,127 @@ def test_laplace_kernel_matches_plain_float64(cuda, P1):
     assert per.max() < 1e-5
 
 
+# the classes of the first accepted Armijo index j that the kernel's
+# lane-parallel search takes apart at 8 lanes a neuron (and at 16 or
+# 32): the first round, a later lane of it, later rounds, the last
+# round, and no acceptance (the 0.5^40 fallback, j = 41 here)
+ARMIJO_CLASSES = {"0": (0, 0), "1-7": (1, 7), "8-15": (8, 15),
+                  "16-31": (16, 31), "32-40": (32, 40), "none": (41, 41)}
+
+
+def armijo_lanes():
+    """Never-spiking neurons (S = 0) with 10^2..10^9 trials in each
+    bucket, prior means phi0 from 0.2 to 50 (far above the data) and a
+    prior covariance of 1e10: the saturated likelihood's gradient makes
+    the Newton step so long that the first accepted j spans every class
+    of ARMIJO_CLASSES, and at 10^8..10^9 trials even 0.5^40 leaves phi0
+    negative, so nothing is accepted."""
+    c, q = np.meshgrid(10.0 ** np.arange(2, 10), [0.2, 1.0, 5.0, 20.0, 50.0],
+                       indexing="ij")
+    n = c.size
+    C = np.repeat(c.reshape(n, 1), 4, 1)
+    pp = np.stack([q.ravel(), np.full(n, 5.0)], 1)
+    pc = np.tile(np.diag([1e10, 1e10]), (n, 1, 1))
+    return [torch.from_numpy(a.astype(np.float32)) for a in
+            (np.zeros_like(C), C, np.array([0.0, 45.0, 55.0, 65.0]), pp, pc)]
+
+
+def armijo_classes_present(args):
+    j = laplace_cuda.accepted_steps(*(a.double() for a in args))
+    return {name: bool(((j >= lo) & (j <= hi)).any())
+            for name, (lo, hi) in ARMIJO_CLASSES.items()}
+
+
+def _first_acceptance(S, C, lev, pp, pc):
+    """One lane's first accepted Armijo j at each Newton step, by the
+    sequential rule (try 0.5^j for j = 0, 1, ... and stop at the first
+    acceptance), in float64 numpy scalars: MAX_BACKTRACK + 1 where none
+    is accepted."""
+    q = np.linalg.inv(pc)
+
+    def objective(c):
+        x = c[0] * lev - c[1]
+        with np.errstate(all="ignore"):
+            ll = S * -np.logaddexp(0, -x) + (C - S) * -np.logaddexp(0, x)
+            return (-np.nan_to_num(ll).sum() - np.log(c).sum() / 10.0
+                    + 0.5 * (c - pp) @ q @ (c - pp))
+
+    phi, js = pp.copy(), []
+    for _ in range(laplace_cuda.NEWTON_STEPS):
+        f = 1 / (1 + np.exp(-(phi[0] * lev - phi[1])))
+        r, w = S - C * f, C * f * (1 - f)
+        g = np.array([-(lev * r).sum(), r.sum()]) + q @ (phi - pp) \
+            - 1 / (10.0 * phi)
+        H = np.array([[(lev * lev * w).sum(), -(lev * w).sum()],
+                      [-(lev * w).sum(), w.sum()]]) + q \
+            + np.diag(1 / (10.0 * phi * phi))
+        v = -np.linalg.solve(H, g)
+        f0, j = objective(phi), laplace_cuda.MAX_BACKTRACK + 1
+        for k in range(laplace_cuda.MAX_BACKTRACK + 1):
+            lhs = objective(phi + 0.5 ** k * v)
+            if not np.isnan(lhs) and lhs <= f0 + 0.25 * 0.5 ** k * (g @ v):
+                j = k
+                break
+        js.append(j)
+        phi = phi + 0.5 ** min(j, laplace_cuda.MAX_BACKTRACK) * v
+    return js
+
+
+def test_accepted_steps_are_the_sequential_first_acceptance():
+    # the trip counts behind chip_smoke's Laplace bound, against the
+    # sequential rule on lanes of every class
+    args = [a.double() for a in armijo_lanes()]
+    j = laplace_cuda.accepted_steps(*args)
+    assert int(j.max()) == laplace_cuda.MAX_BACKTRACK + 1
+    for n in range(0, args[0].shape[0], 3):
+        want = _first_acceptance(args[0][n].numpy(), args[1][n].numpy(),
+                                 args[2].numpy(), args[3][n].numpy(),
+                                 args[4][n].numpy())
+        assert j[n].tolist() == want, n
+
+
+def test_shared_prior_is_read_in_place():
+    # a prior shared by the experiments of a batch reaches the kernel
+    # uncopied, as [N] rows that lane n reads at n mod N
+    E, N = 3, 7
+    S = torch.rand(E, N, 4)
+    pp, pc = torch.rand(N, 2), torch.rand(N, 2, 2)
+    args, phi, cov = laplace_cuda._prepare(
+        S, S, torch.rand(4), pp.expand(E, N, 2), pc.expand(E, N, 2, 2))
+    Sf, _, _, pp_k, pc_k, *_, n, P1, n_pp, n_pc = args
+    assert (n, P1, n_pp, n_pc) == (E * N, 4, N, N)
+    assert pp_k.data_ptr() == pp.data_ptr()
+    assert pc_k.data_ptr() == pc.data_ptr()
+    assert phi.shape == (E, N, 2) and cov.shape == (E, N, 2, 2)
+    lanes = torch.arange(E * N)
+    torch.testing.assert_close(pc_k[lanes % n_pc],
+                               pc.expand(E, N, 2, 2).reshape(-1, 2, 2),
+                               rtol=0, atol=0)
+    # one prior for every lane: one row; a prior that varies along the
+    # experiments but not the neurons: materialised per lane
+    pc_e = torch.rand(E, 1, 2, 2)
+    args, *_ = laplace_cuda._prepare(
+        S, S, torch.rand(4), torch.tensor([0.1, 5.0]).expand(E, N, 2),
+        pc_e.expand(E, N, 2, 2))
+    assert args[-2:] == (1, E * N)
+    torch.testing.assert_close(args[4],
+                               pc_e.expand(E, N, 2, 2).reshape(-1, 2, 2),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_laplace_kernel_armijo_edge_cases(cuda):
+    args = armijo_lanes()
+    assert all(armijo_classes_present(args).values())
+    phi, cov = laplace_cuda.laplace_from_stats(*(a.to(cuda) for a in args))
+    phi64, cov64 = laplace_cuda.laplace_from_stats_torch(
+        *(a.to(cuda).double() for a in args))
+    for got, want in ((phi, phi64), (cov, cov64)):
+        per = (got.double() - want).abs().flatten(1).amax(1) \
+            / want.abs().flatten(1).amax(1)
+        assert per.max() < 1e-5
+
+
 @pytest.mark.cuda
 def test_laplace_kernel_flattens_batch_dims(cuda):
     a = _laplace_stats(50, 4, seed=1)

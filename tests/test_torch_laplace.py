@@ -46,10 +46,10 @@ def _stats(P1, seed=0):
     return [a.astype(np.float32) for a in (S, C, levels, pp, pc)]
 
 
-def _rel(got, want):
+def _rel(got, want, n=N):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    d = np.abs(got - want).reshape(N, -1).max(1)
-    return d / np.abs(want).reshape(N, -1).max(1)
+    d = np.abs(got - want).reshape(n, -1).max(1)
+    return d / np.abs(want).reshape(n, -1).max(1)
 
 
 @pytest.mark.parametrize("P1", [2, 4, 6])
@@ -79,6 +79,21 @@ def test_plain_float64_matches_xla(P1):
     jphi, jcov = jlap.laplace_from_stats(*map(jnp.asarray, args))
     assert _rel(phi64, jphi).max() < PHI_RTOL
     assert _rel(cov64, jcov).max() < COV_RTOL
+
+
+def test_plain_matches_pallas_kernel_on_armijo_edge_cases():
+    # lanes whose first accepted Armijo step spans every class the CUDA
+    # kernel's lane-parallel search takes apart, up to no acceptance
+    from test_torch_kernels import armijo_classes_present, armijo_lanes
+
+    args = armijo_lanes()
+    assert all(armijo_classes_present(args).values())
+    phi, cov = laplace_cuda.laplace_from_stats_torch(*args)
+    jphi, jcov = laplace_from_stats_pallas(
+        *(jnp.asarray(a.numpy()) for a in args), interpret=True)
+    n = args[0].shape[0]
+    assert _rel(phi, jphi, n).max() < PHI_RTOL
+    assert _rel(cov, jcov, n).max() < COV_RTOL
 
 
 def test_batch_dims_flatten_like_the_custom_vmap_rule():
