@@ -27,7 +27,11 @@ N=1000/K=20000 and N=200/K=100000, at one row a step at N=16/K=300000
 (r in device memory), at E=4 (K=15000, one row a step; the
 ragged stack's inert padding and per-experiment scalars at 8 rows a
 step), with the gate on also for agreement between the CTAs of each
-cluster; the Laplace kernel at [1000] and [4, 1000] lanes.
+cluster; the Laplace kernel at [1000] and [4, 1000] lanes, timed on the
+device (a CUDA graph of 20 launches) and per wrapper call, its bound
+counting the Armijo candidates those inputs need. One warm main-path fit
+runs under torch.profiler (phase 5b: the top device operations, the
+Laplace total, the device's idle share).
 
 Every kernel's launch count is set to 0 just before each path and read
 just after it. Phases print ``# ...`` lines; any failure raises and the
@@ -459,15 +463,6 @@ def phase_main_path():
     return by_path, sim, dem
 
 
-def device_time(entry):
-    """A profiler entry's own device microseconds, under this torch's
-    name for them."""
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(entry, name):
-            return getattr(entry, name)
-    raise AttributeError(f"no device time on {type(entry).__name__}")
-
-
 def phase_profile(sim, dem):
     """One warm main-path fit under torch.profiler (CPU and CUDA
     activities): the 10 device operations with the most total time, the
@@ -515,13 +510,15 @@ def phase_profile(sim, dem):
         fit_us = span.end - span.start
         rows = [a for a in prof.key_averages()
                 if a.device_type == cuda and a.key != "main_path_fit"]
-        rows.sort(key=device_time, reverse=True)
-        top = [(a.key[:90], a.count, device_time(a) / 1e3) for a in rows[:10]]
-        laplace_ms = sum(device_time(a) for a in rows
+        rows.sort(key=lambda a: a.self_device_time_total, reverse=True)
+        top = [(a.key[:90], a.count, a.self_device_time_total / 1e3)
+               for a in rows[:10]]
+        laplace_ms = sum(a.self_device_time_total for a in rows
                          if "laplace_kernel" in a.key) / 1e3
         log(f"profiled fit: {fit_us / 1e3:.3f} ms wall, device busy "
             f"{busy / 1e3:.3f} ms, idle share {1 - busy / fit_us:.4f}; "
-            f"device total {sum(device_time(a) for a in rows) / 1e3:.3f} ms")
+            f"device total "
+            f"{sum(a.self_device_time_total for a in rows) / 1e3:.3f} ms")
         for name, calls, total in top:
             log(f"  {total:10.3f} ms {calls:6d} calls  {name}")
         log(f"profiled fit: Laplace kernel total {laplace_ms:.4f} ms")

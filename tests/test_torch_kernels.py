@@ -320,7 +320,7 @@ def test_shared_prior_is_read_in_place():
     pp, pc = torch.rand(N, 2), torch.rand(N, 2, 2)
     args, phi, cov = laplace_cuda._prepare(
         S, S, torch.rand(4), pp.expand(E, N, 2), pc.expand(E, N, 2, 2))
-    Sf, _, _, pp_k, pc_k, *_, n, P1, n_pp, n_pc = args
+    _, _, _, pp_k, pc_k, *_, n, P1, n_pp, n_pc = args
     assert (n, P1, n_pp, n_pc) == (E * N, 4, N, N)
     assert pp_k.data_ptr() == pp.data_ptr()
     assert pc_k.data_ptr() == pc.data_ptr()
