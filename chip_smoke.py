@@ -20,18 +20,27 @@ recovers the simulated weights. One kernel, the cluster sweep
 * ``caviar_many`` on 4 cross-validation folds of the main path's map
   (each holds out one quarter of the trials), batched (one row a step,
   E=4) and sequential, and on a ragged stack of 4 folds with
-  18000..12000 trials at block 8 (8 rows a step, E=4).
+  18000..12000 trials at block 8 (8 rows a step, E=4);
+* the other solvers on the main path's demixed traces: CAVI-SnS through
+  ``Model.fit`` (50 iterations; its lam sweep is the row kernel, its
+  refit the Laplace kernel; a float64 witness with the plain lam sweep),
+  MBCS (50 iterations, Monte Carlo and exact noise model; plain PyTorch)
+  and MBCS-ARD (30 iterations; its sweep is the row kernel);
+* the main-path fit with ``track_elbo`` (equal to the untracked fit)
+  and with ``elbo_tol=1e-4`` (the sweep launches once a live iteration).
 
 The sweep is held against its plain version at both schedules at
 N=1000/K=20000 and N=200/K=100000, at one row a step at N=16/K=300000
 (r in device memory), at E=4 (K=15000, one row a step; the
 ragged stack's inert padding and per-experiment scalars at 8 rows a
 step), with the gate on also for agreement between the CTAs of each
-cluster; the Laplace kernel at [1000] and [4, 1000] lanes, timed on the
-device (a CUDA graph of 20 launches) and per wrapper call, its bound
-counting the Armijo candidates those inputs need. One warm main-path fit
-runs under torch.profiler (phase 5b: the top device operations, the
-Laplace total, the device's idle share).
+cluster, and at one row a step at the arguments CAVI-SnS and MBCS-ARD
+give it (phase 12); the Laplace kernel at [1000] and [4, 1000] lanes,
+timed on the device (a CUDA graph of 20 launches) and per wrapper call,
+its bound counting the Armijo candidates those inputs need. One warm
+main-path fit runs under torch.profiler (phase 5b: the top device
+operations, the Laplace total, the device's idle share), and one warm
+10-iteration CAVI-SnS fit (phase 13).
 
 Every kernel's launch count is set to 0 just before each path and read
 just after it. Phases print ``# ...`` lines; any failure raises and the
@@ -463,16 +472,63 @@ def phase_main_path():
     return by_path, sim, dem
 
 
-def phase_profile(sim, dem):
-    """One warm main-path fit under torch.profiler (CPU and CUDA
-    activities): the 10 device operations with the most total time, the
-    Laplace kernel's total and the device's idle share over the fit
-    (1 - the union of device intervals / the fit's wall span). Then the
-    Laplace trip counts on the statistics of the fit's last refit (its
-    final lam through ``powercurve_stats``). Returns the Laplace total
-    in ms, None where the profiler saw no device time."""
+def profiled(fn, label):
+    """``fn()`` under torch.profiler (CPU and CUDA activities), inside a
+    ``label`` annotation, synchronised: logs the wall span, the device's
+    busy time and idle share (1 - the union of device intervals / the
+    span) and the 10 device operations with the most total time. Returns
+    the device rows of ``key_averages()``, None where the profiler saw
+    no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(label):
+            fn()
+            torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    # the annotation shows on the device's timeline too: not device work
+    span = next(e.time_range for e in events
+                if e.name == label and e.device_type != cuda)
+    on_device = sorted((e.time_range.start, e.time_range.end) for e in events
+                       if e.device_type == cuda and e.name != label)
+    if not on_device:
+        log(f"{label}: the profiler recorded no device time: top operations "
+            "and idle share not measured")
+        return None
+    busy, cur_s, cur_e = 0.0, *on_device[0]
+    for s, e in on_device[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    fit_us = span.end - span.start
+    rows = [a for a in prof.key_averages()
+            if a.device_type == cuda and a.key != label]
+    rows.sort(key=lambda a: a.self_device_time_total, reverse=True)
+    log(f"{label}: {fit_us / 1e3:.3f} ms wall, device busy "
+        f"{busy / 1e3:.3f} ms, idle share {1 - busy / fit_us:.4f}; device "
+        f"total {sum(a.self_device_time_total for a in rows) / 1e3:.3f} ms; "
+        f"{sum(a.count for a in rows)} device operations")
+    for a in rows[:10]:
+        log(f"  {a.self_device_time_total / 1e3:10.3f} ms {a.count:7d} calls  "
+            f"{a.key[:90]}")
+    return rows
+
+
+def phase_profile(sim, dem):
+    """One warm main-path fit under torch.profiler (``profiled``): the
+    top device operations, the Laplace kernel's total and the device's
+    idle share. Then the Laplace trip counts on the statistics of the
+    fit's last refit (its final lam through ``powercurve_stats``).
+    Returns the Laplace total in ms, None where the profiler saw no
+    device time."""
+    import torch
     from circuitmap_torch import Model, default_priors
     from circuitmap_torch.solvers._laplace import powercurve_stats
 
@@ -480,49 +536,16 @@ def phase_profile(sim, dem):
         "Laplace kernel's Armijo trips on the fit's own statistics")
     opts = {"iters": 50, "msrmp": 0.3, "powers": list(POWERS),
             "verbose": False}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with record_function("main_path_fit"):
-            model = Model(N).fit(dem, sim["stim_matrix"], method="caviar",
-                                 fit_options=dict(opts))
-            torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    events = prof.events()
-    # the annotation shows on the device's timeline too: not device work
-    span = next(e.time_range for e in events
-                if e.name == "main_path_fit" and e.device_type != cuda)
-    on_device = sorted((e.time_range.start, e.time_range.end) for e in events
-                       if e.device_type == cuda and e.name != "main_path_fit")
+    fitted = []
+    rows = profiled(lambda: fitted.append(Model(N).fit(
+        dem, sim["stim_matrix"], method="caviar", fit_options=dict(opts))),
+        "main_path_fit")
     laplace_ms = None
-    if not on_device:
-        log("profiled fit: the profiler recorded no device time: top "
-            "operations, Laplace total and idle share not measured")
-    else:
-        busy, cur_s, cur_e = 0.0, *on_device[0]
-        for s, e in on_device[1:]:
-            if s > cur_e:
-                busy += cur_e - cur_s
-                cur_s, cur_e = s, e
-            else:
-                cur_e = max(cur_e, e)
-        busy += cur_e - cur_s
-        fit_us = span.end - span.start
-        rows = [a for a in prof.key_averages()
-                if a.device_type == cuda and a.key != "main_path_fit"]
-        rows.sort(key=lambda a: a.self_device_time_total, reverse=True)
-        top = [(a.key[:90], a.count, a.self_device_time_total / 1e3)
-               for a in rows[:10]]
+    if rows is not None:
         laplace_ms = sum(a.self_device_time_total for a in rows
                          if "laplace_kernel" in a.key) / 1e3
-        log(f"profiled fit: {fit_us / 1e3:.3f} ms wall, device busy "
-            f"{busy / 1e3:.3f} ms, idle share {1 - busy / fit_us:.4f}; "
-            f"device total "
-            f"{sum(a.self_device_time_total for a in rows) / 1e3:.3f} ms")
-        for name, calls, total in top:
-            log(f"  {total:10.3f} ms {calls:6d} calls  {name}")
         log(f"profiled fit: Laplace kernel total {laplace_ms:.4f} ms")
-    lam = torch.from_numpy(np.asarray(model.state["lam"])).cuda()
+    lam = torch.from_numpy(np.asarray(fitted[0].state["lam"])).cuda()
     stim = torch.from_numpy(np.asarray(sim["stim_matrix"], np.float32)).cuda()
     powers = torch.tensor(POWERS, device="cuda")
     counts = torch.stack([(stim == p).sum(1) for p in POWERS], 1).float()
@@ -982,6 +1005,225 @@ def phase_many(sim, dem):
     return paths
 
 
+def phase_solver_mappings():
+    """B3 (the cluster kernel at one row a step) at the arguments the
+    CAVI-SnS and MBCS-ARD sweeps give it, held against its plain version
+    as phase 6 holds it (``check_sweep_kernel``: gate off, gate on, the
+    gates of a cluster's CTAs) on the main path's sweep inputs: SnS
+    with the weights mu*alpha and the slab scale beta_eff of
+    ``cavi_sns.row_sweep_weights`` and the threshold -1 (its gate-on
+    case is the solver's); ARD with the power-curve means (0, -logit)
+    and one power level (its gate-off case is the solver's)."""
+    import torch
+    from circuitmap_torch.ops import sweep_row_cuda as sr
+    from circuitmap_torch.solvers.cavi_sns import row_sweep_weights
+
+    log("phase 12: the row kernel at the CAVI-SnS and MBCS-ARD arguments "
+        f"vs plain version (N={N}, K={K})")
+    a = sweep_inputs(seed=5)
+    alpha = torch.from_numpy(np.random.default_rng(5).uniform(
+        0.05, 1.0, N).astype(np.float32)).cuda()
+    w, beta_eff = row_sweep_weights(a["mu"], a["beta"], alpha)
+    sns = dict(a, mu=w, beta=beta_eff)
+    logit = float(np.log(0.75 / 0.25))
+    ard = dict(a, m0=torch.zeros_like(a["m0"]),
+               m1=torch.full_like(a["m1"], -logit), powers=a["powers"][-1:],
+               power_counts=a["power_counts"][:, -1:])
+    out = {}
+    for name, inputs, kw in (("sns", sns, dict(msrmp=-1.0)),
+                             ("ard", ard, {})):
+        err, _ = check_sweep_kernel(sr.sweep_spikes_row,
+                                    sr.sweep_spikes_row_torch, inputs,
+                                    f"{name} arguments", **kw)
+        gate = 1 if name == "sns" else 0
+        ms = cuda_ms(lambda: row_call(sr.sweep_spikes_row, inputs, gate, **kw))
+        log(f"{name} arguments: row kernel {ms:.4f} ms (gate "
+            f"{'on' if gate else 'off'})")
+        out[name] = dict(max_abs_err=err, ms=ms)
+    return out
+
+
+def phase_sns(sim, dem):
+    """CAVI-SnS through ``Model.fit`` with its defaults (random order,
+    100 Monte Carlo samples, histories kept), 50 iterations: B3 and B2
+    once an iteration each; truth-R2 of mu*alpha and of mu; a warm
+    10-iteration fit profiled; then the float64 witness: the same fit
+    with the lam sweep swapped for its plain version in float64, on the
+    same card and random streams (the sweep draws none), must score
+    within 0.01 of the kernel fit."""
+    import importlib
+
+    import torch
+    from circuitmap_torch import Model
+    from circuitmap_torch.ops.sweep_row_cuda import sweep_spikes_row_torch
+    from circuitmap_torch.utils.metrics import r2_score
+
+    sns_mod = importlib.import_module("circuitmap_torch.solvers.cavi_sns")
+    log("phase 13: CAVI-SnS, 50 iterations, Model.fit defaults, on the "
+        "demixed traces")
+    w = sim["weights"]
+
+    def fit(**extra):
+        return Model(N).fit(dem, sim["stim_matrix"], method="cavi_sns",
+                            fit_options={"iters": 50, "verbose": False,
+                                         **extra})
+
+    reset_counts()
+    model, cold_s = timed(fit)
+    launches = kernel_launches(read_counts())
+    mu, alpha = model.state["mu"], model.state["alpha"]
+    r2_w, r2_mu = r2_score(w, mu * alpha), r2_score(w, mu)
+    log(f"cold fit {cold_s:.3f} s (histories pulled); launches {launches}; "
+        f"truth-R2 of mu*alpha {r2_w:.4f}, of mu {r2_mu:.4f}")
+    if launches != {"sweep_blocked": 0, "laplace": 50, "sweep_row": 50}:
+        raise AssertionError("a 50-iteration SnS fit must launch the row "
+                             f"kernel and the Laplace kernel 50 times each: "
+                             f"{launches}")
+    for key in ("mu", "beta", "alpha", "lam", "shape", "rate", "phi",
+                "phi_cov"):
+        if np.isnan(np.asarray(model.state[key])).any():
+            raise AssertionError(f"SnS posterior {key} holds a NaN")
+    del model
+    _, warm_s = timed(fit)
+    log(f"warm fit {warm_s:.3f} s (histories pulled)")
+    _, warm_nohist_s = timed(lambda: fit(save_histories=False))
+    log(f"warm fit without histories {warm_nohist_s:.3f} s")
+    profiled(lambda: fit(iters=10, save_histories=False),
+             "sns_fit_10_iterations")
+
+    def plain64(*args):
+        wide = [x.double() if torch.is_tensor(x) and x.is_floating_point()
+                else x for x in args]
+        return sweep_spikes_row_torch(*wide).float()
+
+    kernel_sweep, sns_mod.sweep_spikes_row = sns_mod.sweep_spikes_row, plain64
+    try:
+        witness, wit_s = timed(lambda: fit(save_histories=False))
+    finally:
+        sns_mod.sweep_spikes_row = kernel_sweep
+    r2_wit = r2_score(w, witness.state["mu"] * witness.state["alpha"])
+    log(f"float64 plain lam sweep ({wit_s:.1f} s): truth-R2 of mu*alpha "
+        f"{r2_wit:.4f} (kernel {r2_w:.4f}), of mu "
+        f"{r2_score(w, witness.state['mu']):.4f}")
+    if abs(r2_wit - r2_w) > 0.01:
+        raise AssertionError(f"SnS: the kernel fit's truth-R2 {r2_w:.4f} is "
+                             f"not within 0.01 of the float64 plain sweep's "
+                             f"{r2_wit:.4f}")
+    return launches, dict(cold_s=cold_s, warm_s=warm_s,
+                          warm_no_histories_s=warm_nohist_s, r2_mu_alpha=r2_w,
+                          r2_mu=r2_mu, witness_r2_mu_alpha=r2_wit)
+
+
+def phase_mbcs(sim, dem):
+    """MBCS through ``Model.fit``, 50 iterations on the demixed traces,
+    with the Monte Carlo noise model and then its exact moments: plain
+    PyTorch on the card (no kernel of the port runs), truth-R2 at least
+    0.9, no NaN."""
+    from circuitmap_torch import Model
+    from circuitmap_torch.utils.metrics import r2_score
+
+    log("phase 14: MBCS, 50 iterations, on the demixed traces")
+    paths, out = {}, {}
+    for analytic in (False, True):
+        name = "mbcs_analytic" if analytic else "mbcs"
+        reset_counts()
+        model, fit_s = timed(lambda: Model(N).fit(
+            dem, sim["stim_matrix"], method="mbcs",
+            fit_options={"iters": 50, "analytic_noise": analytic}))
+        paths[name] = kernel_launches(read_counts())
+        r2 = r2_score(sim["weights"], model.state["mu"])
+        log(f"analytic_noise={analytic}: {fit_s:.3f} s (histories pulled); "
+            f"truth-R2 {r2:.4f} (the JAX package's docstring, TPU era: "
+            f"0.976); {int((model.state['mu'] != 0).sum())} connected; "
+            f"launches {paths[name]}")
+        for key in ("mu", "beta", "lam", "shape", "rate", "z",
+                    "receptive_fields"):
+            if np.isnan(np.asarray(model.state[key])).any():
+                raise AssertionError(f"MBCS posterior {key} holds a NaN")
+        if r2 < 0.9:
+            raise AssertionError(f"MBCS (analytic_noise={analytic}): "
+                                 f"truth-R2 {r2:.4f} < 0.9")
+        out[name] = dict(s=fit_s, r2=r2)
+    return paths, out
+
+
+def phase_ard(sim, dem):
+    """``mbcs_ard`` for 30 iterations on the demixed traces: B3 once an
+    iteration, no NaN; the truth-R2 of mu*(|mu| > 0.5) is recorded."""
+    import torch
+    from circuitmap_torch import mbcs_ard
+    from circuitmap_torch.utils.metrics import r2_score
+
+    log("phase 15: MBCS-ARD, 30 iterations, on the demixed traces")
+    reset_counts()
+    out, fit_s = timed(lambda: mbcs_ard(dem, sim["stim_matrix"], iters=30,
+                                        verbose=False))
+    launches = kernel_launches(read_counts())
+    for name, v in zip(("mu", "beta", "relevance", "lam", "sigma2", "z"),
+                       out):
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"ARD output {name} is not finite")
+    mu = out[0].cpu().numpy()
+    r2 = r2_score(sim["weights"], mu * (np.abs(mu) > 0.5))
+    log(f"fit {fit_s:.3f} s; launches {launches}; truth-R2 of "
+        f"mu*(|mu|>0.5) {r2:.4f}; {int((np.abs(mu) > 0.5).sum())} kept")
+    if launches != {"sweep_blocked": 0, "laplace": 0, "sweep_row": 30}:
+        raise AssertionError(f"a 30-iteration ARD fit must launch the row "
+                             f"kernel 30 times and nothing else: {launches}")
+    return launches, dict(s=fit_s, r2=r2)
+
+
+def phase_elbo(sim, dem):
+    """The main-path fit with ``track_elbo=True`` equals the untracked
+    fit on the same seed (the bound changes no state) to 1e-6 relative,
+    with every bound finite; with ``elbo_tol=1e-4`` B1 launches once a
+    live iteration (up to and including the stopping one)."""
+    from circuitmap_torch import Model
+
+    log("phase 16: the main-path fit with track_elbo, and with "
+        "elbo_tol=1e-4")
+    opts = {"iters": 50, "msrmp": 0.3, "powers": list(POWERS),
+            "verbose": False}
+
+    def fit(**extra):
+        return Model(N).fit(dem, sim["stim_matrix"], method="caviar",
+                            fit_options={**opts, **extra})
+
+    plain = fit()
+    reset_counts()
+    tracked, fit_s = timed(lambda: fit(track_elbo=True))
+    paths = {"elbo": kernel_launches(read_counts())}
+    worst = 0.0
+    for key in ("mu", "beta", "lam", "shape", "rate", "phi", "phi_cov", "z"):
+        a, b = np.asarray(tracked.state[key]), np.asarray(plain.state[key])
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise AssertionError(f"track_elbo changed the NaNs of {key}")
+        scale = max(float(np.nanmax(np.abs(b))), 1e-30) if b.size else 1.0
+        rel = float(np.nanmax(np.abs(a - b))) / scale if b.size else 0.0
+        worst = max(worst, rel)
+    elbos = tracked.elbo
+    log(f"tracked fit {fit_s:.3f} s; launches {paths['elbo']}; largest "
+        f"relative difference from the untracked fit {worst:.3e}; bound "
+        f"{elbos[0]:.6g} -> {elbos[-1]:.6g}")
+    if worst > 1e-6:
+        raise AssertionError(f"track_elbo changed the fit by {worst:.3e} "
+                             "relative (> 1e-6)")
+    if elbos.shape != (50,) or not np.isfinite(elbos).all():
+        raise AssertionError("the tracked bounds are not 50 finite values")
+    reset_counts()
+    stopped, stop_s = timed(lambda: fit(track_elbo=True, elbo_tol=1e-4))
+    paths["elbo_tol"] = kernel_launches(read_counts())
+    stop_at = stopped.elbo_converged_at
+    live = min(stop_at + 1, 50)
+    log(f"elbo_tol=1e-4: stop_at {stop_at}, {stop_s:.3f} s; launches "
+        f"{paths['elbo_tol']}")
+    if paths["elbo_tol"]["sweep_blocked"] != live:
+        raise AssertionError(f"B1 must launch once a live iteration "
+                             f"({live}): {paths['elbo_tol']}")
+    return paths, dict(tracked_s=fit_s, max_rel_diff=worst, stop_at=stop_at,
+                       stopped_s=stop_s)
+
+
 def main():
     try:
         import torch
@@ -1020,6 +1262,15 @@ def main():
     paths["block1_fit"] = phase_block1_fit(sim, dem)
     paths["auto_large_k"] = phase_large_k_fit()
     paths.update(phase_many(sim, dem))
+    row_rec["solver_arguments"] = phase_solver_mappings()
+    solvers = {}
+    paths["sns"], solvers["cavi_sns"] = phase_sns(sim, dem)
+    mbcs_paths, solvers["mbcs"] = phase_mbcs(sim, dem)
+    paths.update(mbcs_paths)
+    paths["ard"], solvers["mbcs_ard"] = phase_ard(sim, dem)
+    elbo_paths, solvers["elbo"] = phase_elbo(sim, dem)
+    paths.update(elbo_paths)
+    log(f"solvers: {json.dumps(solvers)}")
     laplace_rec["main_path_profiled_ms"] = laplace_profiled_ms
     records = (sweep_rec, laplace_rec, row_rec)
     for rec in records:

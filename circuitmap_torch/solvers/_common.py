@@ -43,10 +43,24 @@ def warn_data_thin_design(power_counts_np, k, what="this fit"):
     if power_counts_np is None:
         return
     per_neuron = np.asarray(power_counts_np).sum(axis=1)
-    n = per_neuron.size
+    if per_neuron.size < _DATA_THIN_MIN_N:
+        return
+    _warn_data_thin(float(per_neuron.mean()), per_neuron.size, k, what)
+
+
+def warn_data_thin_design_dense(stim_np, k_true=None, what="this fit"):
+    """The same preflight for the solvers that keep no per-neuron counts
+    (CAVI-SnS, MBCS): one host ``count_nonzero`` pass, paid only from
+    N >= 2000."""
+    stim_np = np.asarray(stim_np)
+    n = stim_np.shape[0]
     if n < _DATA_THIN_MIN_N:
         return
-    mean_stims = float(per_neuron.mean())
+    k = int(stim_np.shape[1] if k_true is None else k_true)
+    _warn_data_thin(float(np.count_nonzero(stim_np)) / n, n, k, what)
+
+
+def _warn_data_thin(mean_stims, n, k, what):
     if mean_stims < _DATA_THIN_STIMS_PER_NEURON:
         warnings.warn(
             f"{what}: the design stimulates each neuron ~{mean_stims:.0f} "
@@ -54,7 +68,7 @@ def warn_data_thin_design(power_counts_np, k, what="this fit"):
             f"the ~{int(_DATA_THIN_STIMS_PER_NEURON)}-stim identifiability "
             "floor (SCALING.md). Recovery will be bounded by the design, "
             "not the solver: raise the trial count K and/or the "
-            "targets-per-trial H.", DataThinDesignWarning, stacklevel=3)
+            "targets-per-trial H.", DataThinDesignWarning, stacklevel=4)
 
 
 def prepare_traces(y_psc, dtype, device, trace_wire=None):
@@ -210,6 +224,18 @@ def _stim_on_device(stim_np, levels_np, kind, payload, dtype, device):
     stim = torch.zeros((N, K), dtype=dtype, device=device)
     stim[t[keep], cols[keep]] = vals[keep]
     return stim
+
+
+def prepare_stim(stim, dtype, device, powers=None):
+    """The stim upload without CAVIaR's mask and lam init. Returns
+    (stim_dev, stim_np, powers_np, powers_dev_np), as
+    :func:`prepare_stim_and_init` does."""
+    stim_np = np.asarray(stim)
+    powers_np, levels_np, kind, payload = _upload_plan(stim_np, powers)
+    stim_dev = _stim_on_device(stim_np, levels_np, kind, payload, dtype,
+                               device)
+    return (stim_dev, stim_np, powers_np,
+            _powers_dev(powers_np, levels_np, kind))
 
 
 def prepare_stim_and_init(stim, active, dtype, device, powers=None):

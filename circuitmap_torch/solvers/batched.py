@@ -311,8 +311,8 @@ def caviar_many(
             **loop)[0] for b in range(B)]
         final = [torch.stack(xs) for xs in zip(*finals)]
     else:
-        final, _ = _run_caviar(ys, stim_dev, lam0, lam_masks, powers_t,
-                               counts, hyper, gens, k_true=kts, **loop)
+        final = _run_caviar(ys, stim_dev, lam0, lam_masks, powers_t,
+                            counts, hyper, gens, k_true=kts, **loop)[0]
 
     results, reconnected = [], []
     for b in range(B):

@@ -47,6 +47,7 @@ from ..ops.truncnorm import sample_truncated_normal, truncated_normal_mean
 from ._common import (prepare_stim_and_init, prepare_traces,
                       warn_data_thin_design)
 from ._laplace import laplace_phi_update, resolve_laplace_impl
+from .diagnostics import elbo_device
 
 SWEEP_IMPLS = ("auto", "cuda")
 CUDA_BLOCK_SIZE = 8
@@ -212,12 +213,22 @@ def _run_caviar(y, stim, lam0, lam_mask, powers, power_counts, hyper,
                 generators, *, iters, num_mc_samples, minimum_spike_count,
                 delay_spont_est, msrmp, scale_factor, penalty,
                 max_backtrack_iters, tol, spont_orthogonality, analytic_mc,
-                save_histories, sweep_block_size, update_order, k_true=None):
+                save_histories, sweep_block_size, update_order, k_true=None,
+                track_elbo=False, elbo_tol=None):
     """The fit loop over one experiment (y [K], stim [N, K], one
     generator) or E of them (y [E, K], stim [E, N, K], E generators,
     the batched sweep kernels). ``k_true``: None, or the real trial
     counts [E] of a ragged stack whose padded columns are inert (zero
-    traces, stim and mask); the places that count trials use it."""
+    traces, stim and mask); the places that count trials use it.
+
+    ``track_elbo`` (one experiment): the bound after each iteration
+    (``diagnostics.elbo_device``), returned third as ``(elbos [iters],
+    stop_at)``, else None. With ``elbo_tol``, ``stop_at`` is the first
+    iteration but iteration 0 whose bound moved by less than
+    ``elbo_tol`` relative to the one before (one host read an
+    iteration): the state freezes there, and the remaining history and
+    bound slots repeat the frozen values. It is ``iters`` when that
+    never happens."""
     mu_prior, beta_prior, shape_prior, rate_prior, phi_prior, phi_cov_prior = hyper
     N, K = stim.shape[-2:]
     lead = y.shape[:-1]  # () for one experiment, (E,) for a stack
@@ -234,7 +245,7 @@ def _run_caviar(y, stim, lam0, lam_mask, powers, power_counts, hyper,
     phi_cov = phi_cov_prior.expand(*lead, N, 2, 2)
     z = torch.zeros(*lead, K, dtype=y.dtype, device=dev)
     spont_rate = torch.zeros(lead, dtype=y.dtype, device=dev)
-    snaps = []
+    snaps, elbos, stop_at = [], [], iters
     for it in range(iters):
         mu, beta = update_weights(y, lam, shape, rate, mu_prior, beta_prior)
         if update_order == "identity":
@@ -263,7 +274,24 @@ def _run_caviar(y, stim, lam0, lam_mask, powers, power_counts, hyper,
         spont_rate = torch.sum((z != 0.0).to(y.dtype), dim=-1) / k_count
         if save_histories:
             snaps.append((mu, beta, lam, shape, rate, phi, phi_cov, z))
-    return (mu, beta, lam, shape, rate, phi, phi_cov, z), snaps
+        if track_elbo:
+            elbos.append(elbo_device(y, stim, dict(
+                mu=mu, beta=beta, lam=lam, shape=shape, rate=rate, phi=phi,
+                z=z), hyper, k_count))
+            if elbo_tol is not None and it > 0:
+                prev = elbos[-2]
+                rel = torch.abs(elbos[-1] - prev) / torch.clamp(
+                    torch.abs(prev), min=1e-12)
+                if bool(rel < elbo_tol):
+                    stop_at = it
+                    break
+    if stop_at < iters:  # the frozen iterations repeat the state
+        frozen = iters - 1 - stop_at
+        snaps += snaps[-1:] * frozen
+        elbos += elbos[-1:] * frozen
+    elbo_out = ((torch.stack(elbos).cpu().numpy(), stop_at) if track_elbo
+                else None)
+    return (mu, beta, lam, shape, rate, phi, phi_cov, z), snaps, elbo_out
 
 
 # ---------------------------------------------------------------------------
@@ -450,11 +478,15 @@ def caviar(
 
     ``sweep_block_size="auto"`` is 8 on CUDA at any K and 1 on the CPU;
     a pinned 1 or 8 is honoured (``_resolve_sweep``).
+
+    ``track_elbo=True`` appends an 18th element ``(elbos [iters],
+    converged_at)``: the evidence lower bound after each iteration
+    (``diagnostics.elbo_device``). With ``elbo_tol`` the updates stop
+    once the bound's relative change drops below it (``converged_at``
+    is that iteration, else ``iters``); the remaining history and bound
+    slots hold the frozen state, as the JAX package's frozen scan steps
+    do. Each iteration then reads one flag on the host.
     """
-    if track_elbo or elbo_tol is not None:
-        raise NotImplementedError(
-            "track_elbo/elbo_tol (the ELBO diagnostics) are ROADMAP item A5 "
-            "and not ported yet")
     dev = resolve_device(device)
     dtype = torch_dtype(dtype)
     if dev.type == "cuda" and dtype != torch.float32:
@@ -477,7 +509,7 @@ def caviar(
     hyper = tuple(_as(a, dtype, dev) for a in (
         mu_prior, beta_prior, shape_prior, rate_prior, phi_prior,
         phi_cov_prior))
-    final, snaps = _run_caviar(
+    final, snaps, elbo_out = _run_caviar(
         y, stim_t, lam0, lam_mask, powers_t,
         power_counts_of(stim_t, powers_t, dtype), hyper,
         [seeded_generator(seed, dev)],
@@ -488,7 +520,9 @@ def caviar(
         max_backtrack_iters=int(max_backtrack_iters), tol=float(tol),
         spont_orthogonality=float(spont_orthogonality),
         analytic_mc=bool(analytic_mc), save_histories=bool(save_histories),
-        sweep_block_size=block_size, update_order=update_order)
+        sweep_block_size=block_size, update_order=update_order,
+        track_elbo=bool(track_elbo),
+        elbo_tol=None if elbo_tol is None else float(elbo_tol))
     mu, beta, lam, shape, rate, phi, phi_cov, z = final
 
     if fn_scan:
@@ -507,4 +541,7 @@ def caviar(
             hist_arrs[i] = np.repeat(hist_arrs[i][:, None], k_hist, axis=1)
     else:
         hist_arrs = [None] * 8
-    return (mu, beta, lam, shape, rate, phi, phi_cov, z, None, *hist_arrs)
+    out = (mu, beta, lam, shape, rate, phi, phi_cov, z, None, *hist_arrs)
+    if track_elbo:
+        out = out + (elbo_out,)
+    return out

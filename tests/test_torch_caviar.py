@@ -234,11 +234,60 @@ def test_fit_options_accept_every_jax_caviar_keyword():
     assert port_params - jax_params == {"device"}
 
 
-@pytest.mark.parametrize("method", ["cavi_sns", "mbcs", "cosamp"])
-def test_other_solvers_wait_for_a5(method):
+@pytest.mark.parametrize("module,name,extra", [
+    ("cavi_sns", "cavi_sns", {"device"}),
+    ("mbcs", "mbcs", {"device"}),
+    ("experimental", "mbcs_ard", {"device"}),
+    ("cosamp", "cosamp", set()),
+    ("diagnostics", "elbo_components", set()),
+    ("diagnostics", "elbo_trajectory", set()),
+])
+def test_solver_signatures_are_the_jax_packages(module, name, extra):
+    """The same keywords in the same order, plus ``device`` where the
+    solver runs on the GPU."""
+    want = list(inspect.signature(getattr(importlib.import_module(
+        f"circuitmap_tpu.solvers.{module}"), name)).parameters)
+    got = list(inspect.signature(getattr(importlib.import_module(
+        f"circuitmap_torch.solvers.{module}"), name)).parameters)
+    assert [p for p in got if p not in extra] == want
+    assert set(got) - set(want) == extra
+
+
+METHODS = ["caviar", "cavi_sns", "mbcs", "cosamp"]
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_model_fit_runs_every_method_as_the_jax_facade(method):
+    """State keys, types, shapes and the history layout of each method
+    are the JAX facade's on the same inputs."""
+    from circuitmap_tpu.model import Model as JaxModel
+
     N, psc, stim = _tiny()
-    with pytest.raises(NotImplementedError, match="A5"):
-        Model(N).fit(psc, stim, method=method, device="cpu")
+    opts = {} if method == "cosamp" else {"iters": 3, "verbose": False,
+                                          "save_histories": True}
+    port = Model(N).fit(psc, stim, method=method, device="cpu",
+                        fit_options=dict(opts))
+    ref = JaxModel(N).fit(psc, stim, method=method, fit_options=dict(opts))
+    assert port.fit_method == method and port.time is not None
+    assert port.state.keys() == ref.state.keys()
+    for key, want in ref.state.items():
+        got = port.state[key]
+        assert np.shape(got) == np.shape(want), key
+        if isinstance(want, np.ndarray):
+            assert isinstance(got, np.ndarray), key
+            assert np.isfinite(got).all() or key == "beta", key
+    assert port.history.keys() == ref.history.keys()
+    for key, want in ref.history.items():
+        assert np.shape(port.history[key]) == np.shape(want), key
+    assert port.trial_count == ref.trial_count == stim.shape[1]
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_mesh_waits_for_a9_for_every_method(method):
+    N, psc, stim = _tiny()
+    with pytest.raises(NotImplementedError, match="A9"):
+        Model(N).fit(psc, stim, method=method, device="cpu",
+                     fit_options={"mesh": object()})
 
 
 def test_unknown_method_raises():
@@ -249,8 +298,8 @@ def test_unknown_method_raises():
 
 @pytest.mark.parametrize("opts,exc,match", [
     ({"mesh": object()}, NotImplementedError, "A9"),
-    ({"track_elbo": True}, NotImplementedError, "A5"),
-    ({"elbo_tol": 1e-4}, NotImplementedError, "A5"),
+    ({"sweep_impl": "pallas_interpret"}, ValueError, "auto.*cuda"),
+    ({"laplace_impl": "pallas_interpret"}, ValueError, "auto.*cuda"),
     ({"sweep_impl": "pallas"}, ValueError, "auto.*cuda"),
     ({"sweep_impl": "pallas_blocked"}, ValueError, "auto.*cuda"),
     ({"sweep_impl": "xla"}, ValueError, "auto.*cuda"),

@@ -100,16 +100,30 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda):
         cm.caviar_many(np.stack([psc, psc]), np.stack([stim, stim]),
                        p["mu"], p["beta"], p["shape"], p["rate"], p["phi"],
                        p["phi_cov"], verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cm.cavi_sns(psc, stim, p["mu"], p["beta"], p["alpha"], p["shape"],
+                    p["rate"], p["phi"], p["phi_cov"], verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cm.mbcs(psc, stim, p["mu"], p["beta"], p["shape"], p["rate"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cm.mbcs_ard(psc, stim, verbose=False)
+    for method in ("cavi_sns", "mbcs", "cosamp"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cm.Model(4).fit(psc, stim, method=method)
 
 
 def test_lazy_exports():
     import circuitmap_torch as cm
 
     assert set(cm.__all__) == {"Model", "default_priors", "NeuralDemixer",
-                               "caviar", "caviar_many", "simulate"}
-    from circuitmap_torch.solvers import caviar_many
+                               "caviar", "caviar_many", "simulate",
+                               "cavi_sns", "mbcs", "cosamp", "mbcs_ard"}
+    from circuitmap_torch import solvers
+    from circuitmap_torch.solvers.experimental import mbcs_ard
 
-    assert cm.caviar_many is caviar_many
+    for name in ("caviar", "caviar_many", "cavi_sns", "mbcs", "cosamp"):
+        assert getattr(cm, name) is getattr(solvers, name)
+    assert cm.mbcs_ard is mbcs_ard
     with pytest.raises(AttributeError):
         cm.not_a_name  # noqa: B018
 

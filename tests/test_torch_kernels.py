@@ -191,6 +191,48 @@ def test_batched_blocked_kernel_matches_plain(cuda):
     assert int((off_k != off_p).sum()) <= 3
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mapping", ["sns", "ard"])
+def test_row_kernel_at_the_solver_mappings(cuda, mapping):
+    """B3 at the arguments CAVI-SnS and MBCS-ARD give it, through the
+    solvers' own sweeps (``cavi_sns.sweep_spikes_sns``: weights mu*alpha,
+    the slab scale beta_eff, the gate on at threshold -1;
+    ``experimental.sweep_spikes_ard``: means (0, -logit), the gate off),
+    against their plain versions on the same inputs on the CPU. ARD at
+    rtol 1e-4 / atol 1e-5; SnS's count gate may flip one decision in 200
+    rows, and with none flipped is held as ARD."""
+    from circuitmap_torch.solvers import cavi_sns, experimental
+
+    N = 203
+    t = _stacked(1, N, 5000, (45.0, 55.0, 65.0), cuda, seed=9)
+    t = {k: (v if k == "powers" else v[0]) for k, v in t.items()}
+    t["alpha"] = torch.from_numpy(np.random.default_rng(9).uniform(
+        0.05, 1.0, N).astype(np.float32)).to(cuda)
+
+    def run(d):
+        if mapping == "sns":
+            return cavi_sns.sweep_spikes_sns(
+                d["y"], d["stim"], d["mu"], d["beta"], d["alpha"], d["lam"],
+                0.1, d["m0"], d["m1"], d["lam_mask"], d["order"], 3.0,
+                d["powers"], d["power_counts"])
+        return experimental.sweep_spikes_ard(
+            d["y"], d["stim"], d["mu"], d["beta"], d["lam"], 10.0,
+            d["lam_mask"], d["powers"][:1], d["power_counts"][:, :1],
+            d["order"], float(np.log(3.0)))
+
+    before = sweep_row_cuda.sweep_spikes_row.launches
+    ker = run(t)
+    torch.cuda.synchronize()
+    assert sweep_row_cuda.sweep_spikes_row.launches == before + 1
+    plain = run({k: v.cpu() for k, v in t.items()})
+    ker = ker.cpu()
+    off_k, off_p = ker.sum(-1) == 0, plain.sum(-1) == 0
+    flips = int((off_k != off_p).sum())
+    assert flips <= (N // 200 if mapping == "sns" else 0)
+    if flips == 0:
+        torch.testing.assert_close(ker, plain, rtol=1e-4, atol=1e-5)
+
+
 def test_cpu_tensors_take_the_plain_row_versions():
     t = _stacked(2, 29, 300, (45.0, 55.0, 65.0), "cpu")
     before = sweep_row_cuda.sweep_spikes_row_batched.launches

@@ -9,6 +9,7 @@ float64 oracle.
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 from scipy.special import ndtr
 
@@ -18,7 +19,9 @@ from circuitmap_tpu.ops import pava as jpava
 from circuitmap_tpu.ops import spike_rates as jrates
 from circuitmap_tpu.ops import truncnorm as jtn
 from circuitmap_tpu.utils.metrics import r2_score as jax_r2_score
-from circuitmap_torch.ops import charge, monotone, pava, spike_rates, truncnorm
+from circuitmap_tpu.ops import masks as jmasks
+from circuitmap_torch.ops import (charge, masks, monotone, pava, spike_rates,
+                                  truncnorm)
 from circuitmap_torch.utils.metrics import r2_score
 
 DTYPES = [torch.float32, torch.float64]
@@ -72,6 +75,51 @@ def test_isotonic_fit_at_max(dtype):
     full = np.asarray(jpava.isotonic_regression_batched(
         jnp.asarray(y, jnp.float32), 1.0))[:, -1]
     np.testing.assert_allclose(got, full, rtol=1e-5, atol=1e-6)
+
+
+def _pava_rows(seed, T=5):
+    """Random rows plus the hard cases: decreasing, constant, ties and
+    one long violation at the end."""
+    rng = np.random.default_rng(seed)
+    y = rng.uniform(0, 1, (120, T))
+    y[0] = np.linspace(1, 0, T)
+    y[1] = 0.5
+    y[2, :5] = [0.2, 0.2, 0.1, 0.1, 0.9]
+    y[3, -1] = -5.0
+    return y
+
+
+@pytest.mark.parametrize("gamma", [1.0, 0.9])
+def test_isotonic_regression_matches_jax_in_float64(gamma):
+    y = _pava_rows(int(gamma * 10))
+    with jax.enable_x64(True):
+        want = np.asarray(jpava.isotonic_regression_batched(jnp.asarray(y),
+                                                            gamma))
+        want0 = np.asarray(jpava.isotonic_regression(jnp.asarray(y[0]),
+                                                     gamma))
+    got = pava.isotonic_regression_batched(_t(y, torch.float64), gamma)
+    assert got.dtype == torch.float64 and got.shape == y.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+    one = pava.isotonic_regression(_t(y[0], torch.float64), gamma).numpy()
+    np.testing.assert_allclose(one, want0, rtol=0, atol=1e-12)
+    if gamma == 1.0:  # a non-decreasing fit that keeps the sum
+        assert (np.diff(got.numpy(), axis=1) >= -1e-12).all()
+        np.testing.assert_allclose(got.numpy().sum(1), y.sum(1), atol=1e-12)
+
+
+@pytest.mark.parametrize("T", [1, 2, 4, 8])
+def test_isotonic_regression_float32_matches_jax(T):
+    y = np.random.default_rng(T).uniform(0, 1, (60, T))
+    y[0] = np.linspace(1, 0, T)
+    want = np.asarray(jpava.isotonic_regression_batched(
+        jnp.asarray(y, jnp.float32), 1.0))
+    got = pava.isotonic_regression_batched(_t(y, torch.float32), 1.0)
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+
+
+def test_get_mask_matches_jax():
+    np.testing.assert_array_equal(masks.get_mask(5).numpy(),
+                                  np.asarray(jmasks.get_mask(5)))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
