@@ -362,11 +362,12 @@ powers_np = tbat._validate_shared_levels(st, None)
 ys, stim, masks, lam0, powers, kts = tbat._device_stack(
     y, st, ks if ragged else None, powers_np, 1e-2, torch.float64, None, cpu)
 hyper = tuple(torch.as_tensor(np.asarray(a, np.float64)) for a in priors)
-final, _ = tcav._run_caviar(
+final = tcav._run_caviar(
     ys, stim, lam0, masks, powers,
     tcav.power_counts_of(stim, powers, torch.float64), hyper,
     [tcav.seeded_generator(b, cpu) for b in range(3)], k_true=kts,
-    save_histories=False, sweep_block_size=1, update_order="identity", **kw)
+    save_histories=False, sweep_block_size=1, update_order="identity",
+    **kw)[0]
 out = {}
 for b, s in enumerate(sims):
     a = jax_caviar(s["psc"], s["stim_matrix"], *priors, dtype=jnp.float64,
