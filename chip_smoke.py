@@ -23,7 +23,8 @@ recovers the simulated weights. One kernel, the cluster sweep
   18000..12000 trials at block 8 (8 rows a step, E=4);
 * the other solvers on the main path's demixed traces: CAVI-SnS through
   ``Model.fit`` (50 iterations; its lam sweep is the row kernel, its
-  refit the Laplace kernel; a float64 witness with the plain lam sweep),
+  refit the Laplace kernel; a float64 witness with the plain lam sweep,
+  the kernel held against it on each of its sweeps),
   MBCS (50 iterations, Monte Carlo and exact noise model; plain PyTorch)
   and MBCS-ARD (30 iterations; its sweep is the row kernel);
 * the main-path fit with ``track_elbo`` (equal to the untracked fit)
@@ -1047,10 +1048,15 @@ def phase_sns(sim, dem):
     """CAVI-SnS through ``Model.fit`` with its defaults (random order,
     100 Monte Carlo samples, histories kept), 50 iterations: B3 and B2
     once an iteration each; truth-R2 of mu*alpha and of mu; a warm
-    10-iteration fit profiled; then the float64 witness: the same fit
+    10-iteration fit profiled. Then the float64 witness: the same fit
     with the lam sweep swapped for its plain version in float64, on the
-    same card and random streams (the sweep draws none), must score
-    within 0.01 of the kernel fit."""
+    same card and random streams (the sweep draws none), and on each of
+    its 50 sweeps the kernel held against that plain version on the same
+    inputs: at most 0.5% of the gate decisions may differ, and a sweep
+    with none differing must agree to 1e-4. The two fits' truth-R2 are
+    printed, not compared: the SnS gate is absorbing (a row it zeroes
+    stays zero), so one decision at the spike-count threshold that falls
+    the other way under a rounding sends the two fits apart for good."""
     import importlib
 
     import torch
@@ -1074,7 +1080,9 @@ def phase_sns(sim, dem):
     mu, alpha = model.state["mu"], model.state["alpha"]
     r2_w, r2_mu = r2_score(w, mu * alpha), r2_score(w, mu)
     log(f"cold fit {cold_s:.3f} s (histories pulled); launches {launches}; "
-        f"truth-R2 of mu*alpha {r2_w:.4f}, of mu {r2_mu:.4f}")
+        f"truth-R2 of mu*alpha {r2_w:.4f}, of mu {r2_mu:.4f}; "
+        f"{int((alpha > 0.5).sum())} cells at alpha > 0.5 "
+        f"({int((w != 0).sum())} connected)")
     if launches != {"sweep_blocked": 0, "laplace": 50, "sweep_row": 50}:
         raise AssertionError("a 50-iteration SnS fit must launch the row "
                              f"kernel and the Laplace kernel 50 times each: "
@@ -1086,32 +1094,49 @@ def phase_sns(sim, dem):
     del model
     _, warm_s = timed(fit)
     log(f"warm fit {warm_s:.3f} s (histories pulled)")
-    _, warm_nohist_s = timed(lambda: fit(save_histories=False))
-    log(f"warm fit without histories {warm_nohist_s:.3f} s")
     profiled(lambda: fit(iters=10, save_histories=False),
              "sns_fit_10_iterations")
+
+    kernel_sweep = sns_mod.sweep_spikes_row
+    held = []
 
     def plain64(*args):
         wide = [x.double() if torch.is_tensor(x) and x.is_floating_point()
                 else x for x in args]
-        return sweep_spikes_row_torch(*wide).float()
+        plain = sweep_spikes_row_torch(*wide)
+        ker = kernel_sweep(*args)
+        off_k, off_p = ker.sum(-1) == 0, plain.sum(-1) == 0
+        flips = int((off_k != off_p).sum())
+        err = (ker.double() - plain).abs().max().item()
+        held.append((flips, err, int(off_p.sum())))
+        return plain.float()
 
-    kernel_sweep, sns_mod.sweep_spikes_row = sns_mod.sweep_spikes_row, plain64
+    sns_mod.sweep_spikes_row = plain64
     try:
         witness, wit_s = timed(lambda: fit(save_histories=False))
     finally:
         sns_mod.sweep_spikes_row = kernel_sweep
     r2_wit = r2_score(w, witness.state["mu"] * witness.state["alpha"])
+    flips = [h[0] for h in held]
+    clean = [h[1] for h in held if h[0] == 0]
     log(f"float64 plain lam sweep ({wit_s:.1f} s): truth-R2 of mu*alpha "
-        f"{r2_wit:.4f} (kernel {r2_w:.4f}), of mu "
+        f"{r2_wit:.4f} (kernel fit {r2_w:.4f}), of mu "
         f"{r2_score(w, witness.state['mu']):.4f}")
-    if abs(r2_wit - r2_w) > 0.01:
-        raise AssertionError(f"SnS: the kernel fit's truth-R2 {r2_w:.4f} is "
-                             f"not within 0.01 of the float64 plain sweep's "
-                             f"{r2_wit:.4f}")
-    return launches, dict(cold_s=cold_s, warm_s=warm_s,
-                          warm_no_histories_s=warm_nohist_s, r2_mu_alpha=r2_w,
-                          r2_mu=r2_mu, witness_r2_mu_alpha=r2_wit)
+    log(f"the kernel on the witness's {len(held)} sweep inputs: gate "
+        f"decisions differing per sweep {flips}; largest |kernel - float64 "
+        f"plain| in the {len(clean)} sweeps with none differing "
+        f"{max(clean, default=0.0):.3e}; rows gated off in the last sweep "
+        f"{held[-1][2]}")
+    if len(held) != 50 or max(flips) > 0.005 * N:
+        raise AssertionError(f"SnS: the kernel's gate decisions differ from "
+                             f"the float64 plain sweep's beyond 0.5%: {flips}")
+    if max(clean, default=0.0) > 1e-4:
+        raise AssertionError(f"SnS: the kernel differs from the float64 "
+                             f"plain sweep by {max(clean):.3e} (> 1e-4)")
+    return launches, dict(cold_s=cold_s, warm_s=warm_s, r2_mu_alpha=r2_w,
+                          r2_mu=r2_mu, witness_r2_mu_alpha=r2_wit,
+                          witness_flips=flips,
+                          witness_max_err=max(clean, default=0.0))
 
 
 def phase_mbcs(sim, dem):

@@ -201,8 +201,11 @@ def test_row_kernel_at_the_solver_mappings(cuda, mapping):
     against their plain versions on the same inputs on the CPU. ARD at
     rtol 1e-4 / atol 1e-5; SnS's count gate may flip one decision in 200
     rows, and with none flipped is held as ARD."""
-    from circuitmap_torch.solvers import cavi_sns, experimental
+    import importlib
 
+    cavi_sns = importlib.import_module("circuitmap_torch.solvers.cavi_sns")
+    experimental = importlib.import_module(
+        "circuitmap_torch.solvers.experimental")
     N = 203
     t = _stacked(1, N, 5000, (45.0, 55.0, 65.0), cuda, seed=9)
     t = {k: (v if k == "powers" else v[0]) for k, v in t.items()}
