@@ -48,7 +48,7 @@ def warn_data_thin_design(power_counts_np, k, what="this fit"):
     _warn_data_thin(float(per_neuron.mean()), per_neuron.size, k, what)
 
 
-def warn_data_thin_design_dense(stim_np, k_true=None, what="this fit"):
+def warn_data_thin_design_dense(stim_np, what="this fit"):
     """The same preflight for the solvers that keep no per-neuron counts
     (CAVI-SnS, MBCS): one host ``count_nonzero`` pass, paid only from
     N >= 2000."""
@@ -56,8 +56,8 @@ def warn_data_thin_design_dense(stim_np, k_true=None, what="this fit"):
     n = stim_np.shape[0]
     if n < _DATA_THIN_MIN_N:
         return
-    k = int(stim_np.shape[1] if k_true is None else k_true)
-    _warn_data_thin(float(np.count_nonzero(stim_np)) / n, n, k, what)
+    _warn_data_thin(float(np.count_nonzero(stim_np)) / n, n,
+                    stim_np.shape[1], what)
 
 
 def _warn_data_thin(mean_stims, n, k, what):
@@ -226,12 +226,12 @@ def _stim_on_device(stim_np, levels_np, kind, payload, dtype, device):
     return stim
 
 
-def prepare_stim(stim, dtype, device, powers=None):
+def prepare_stim(stim, dtype, device):
     """The stim upload without CAVIaR's mask and lam init. Returns
     (stim_dev, stim_np, powers_np, powers_dev_np), as
     :func:`prepare_stim_and_init` does."""
     stim_np = np.asarray(stim)
-    powers_np, levels_np, kind, payload = _upload_plan(stim_np, powers)
+    powers_np, levels_np, kind, payload = _upload_plan(stim_np, None)
     stim_dev = _stim_on_device(stim_np, levels_np, kind, payload, dtype,
                                device)
     return (stim_dev, stim_np, powers_np,

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from circuitmap_torch import Model, default_priors
 from circuitmap_tpu.model import default_priors as jax_default_priors
 from circuitmap_tpu.simulation import simulate
+from circuitmap_tpu.utils.metrics import r2_score
 
 jsns = importlib.import_module("circuitmap_tpu.solvers.cavi_sns")
 tsns = importlib.import_module("circuitmap_torch.solvers.cavi_sns")
@@ -56,6 +57,35 @@ def test_whole_fit_matches_jax_in_float64(fits, i, name):
     g = got[i].numpy() if torch.is_tensor(got[i]) else got[i]
     assert g.dtype == np.float64 and g.shape == want[i].shape, name
     np.testing.assert_allclose(g, want[i], err_msg=name, **FIT_RTOL)
+
+
+def test_random_order_fit_matches_jax_on_its_row_orders(monkeypatch):
+    """A random-order fit handed the row orders that the JAX package
+    draws at the same seed (each iteration splits its key in five and
+    permutes the rows with the first three parts) is the JAX package's
+    fit: float64, exact power-curve means, rtol 1e-6."""
+    N, iters, seed = 30, 8, 3
+    sim = _sim(N=N, K=300, seed=2)
+    p = jax_default_priors(N)
+    args = (sim["psc"], sim["stim_matrix"], p["mu"], p["beta"], p["alpha"],
+            p["shape"], p["rate"], p["phi"], p["phi_cov"])
+    kw = dict(iters=iters, seed=seed, analytic_mc=True, verbose=False,
+              save_histories=False)
+    with jax.enable_x64(True):
+        want = [np.asarray(a) for a in jsns.cavi_sns(
+            *args, dtype=jnp.float64, **kw)[:8]]
+        key, orders = jax.random.PRNGKey(seed), []
+        for _ in range(iters):
+            key, *parts = jax.random.split(key, 5)
+            orders += [np.asarray(jax.random.permutation(k, N))
+                       for k in parts[:3]]
+    queue = [torch.as_tensor(o, dtype=torch.int64) for o in orders]
+    monkeypatch.setattr(torch, "randperm",
+                        lambda n, generator=None, device=None: queue.pop(0))
+    got = tsns.cavi_sns(*args, dtype=torch.float64, device="cpu", **kw)[:8]
+    assert not queue
+    for name, g, w in zip(NAMES, got, want):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=name, **FIT_RTOL)
 
 
 def _sweep_state(N=30, K=300, seed=3):
@@ -158,6 +188,22 @@ def test_slab_scale_and_noise_match_jax():
     np.testing.assert_allclose(got_beta.numpy(), want_beta, rtol=1e-12)
     for g, w in zip(got_noise, want_noise):
         np.testing.assert_allclose(float(g), float(w), rtol=1e-12)
+
+
+def test_weight_recovery():
+    """The JAX suite's recovery check (tests/test_solvers.py::TestCaviSns)
+    through the port's ``Model.fit``: the same map and options."""
+    np.random.seed(42)
+    sim = simulate(N=60, trials=600, H=6, connection_prob=0.1,
+                   spont_prob=0.02, verbose=False)
+    model = Model(60).fit(
+        sim["psc"], sim["stim_matrix"], method="cavi_sns", device="cpu",
+        fit_options={"iters": 25, "verbose": False, "save_histories": False,
+                     "seed": 1})
+    s = model.state
+    assert r2_score(sim["weights"], s["mu"] * s["alpha"]) > 0.5
+    assert s["alpha"].shape == (60,) and s["lam"].shape == (60, 600)
+    assert s["alpha"].min() >= 0.0 and s["alpha"].max() <= 1.0
 
 
 def test_random_order_fit_is_seeded_and_finite():
