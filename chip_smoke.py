@@ -7,8 +7,9 @@ Builds the CUDA kernels from ``circuitmap_torch/csrc``, holds each
 against its plain PyTorch version at the shapes its path gives it, then
 drives the paths through the user entry points and checks that each fit
 recovers the simulated weights. One kernel, the cluster sweep
-(``csrc/sweep_cluster.cu``), serves both sweep schedules: ``sweep_blocked``
-(8 rows a step) and ``sweep_row`` (one row a step) name its two uses.
+(``csrc/sweep_cluster.cuh``), serves both sweep schedules:
+``sweep_blocked`` (2..32 rows a step, 8 by default) and ``sweep_row``
+(one row a step) name its two uses.
 
 * the main path: ``simulate`` (N=1000, K=20000), the int4d2 demixer with
   its QAT checkpoint, and a 50-iteration CAVIaR fit through
@@ -28,15 +29,26 @@ recovers the simulated weights. One kernel, the cluster sweep
   MBCS (50 iterations, Monte Carlo and exact noise model; plain PyTorch)
   and MBCS-ARD (30 iterations; its sweep is the row kernel);
 * the main-path fit with ``track_elbo`` (equal to the untracked fit)
-  and with ``elbo_tol=1e-4`` (the sweep launches once a live iteration).
+  and with ``elbo_tol=1e-4`` (the sweep launches once a live iteration);
+* the streaming and batched fits (phases 17-21): the main-path fit at
+  ``sweep_block_size=16``; ``caviar_resumable`` in segments of 10,
+  straight and resumed from its file, against the one-shot fit;
+  ``OnlineCaviar`` (one update of all trials against the batch fit, a
+  stream of 10 blocks of 2,000 trials with each update's latency, a
+  stream saved after block 5 and reloaded); ``closed_loop_map`` (N=1000,
+  2,000 trials a round, at most 5 rounds); ``sns_many`` and
+  ``mbcs_many`` on the 4 folds, batched against sequential, and a
+  ragged ``sns_many`` against the single fits.
 
 The sweep is held against its plain version at both schedules at
 N=1000/K=20000 and N=200/K=100000, at one row a step at N=16/K=300000
 (r in device memory), at E=4 (K=15000, one row a step; the
 ragged stack's inert padding and per-experiment scalars at 8 rows a
-step), with the gate on also for agreement between the CTAs of each
-cluster, and at one row a step at the arguments CAVI-SnS and MBCS-ARD
-give it (phase 12); the Laplace kernel at [1000] and [4, 1000] lanes,
+step), at the pinned blocks 7, 12, 16 and 32 and at 16 power levels
+(phase 3b), with the gate on also for agreement between the CTAs of
+each cluster, and at one row a step at the arguments CAVI-SnS and
+MBCS-ARD give it (phase 12); the Laplace kernel at [1000] and [4, 1000]
+lanes and at 17 buckets,
 timed on the device (a CUDA graph of 20 launches) and per wrapper call,
 its bound counting the Armijo candidates those inputs need. One warm
 main-path fit runs under torch.profiler (phase 5b: the top device
@@ -138,17 +150,18 @@ def call_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def sweep_inputs(seed=0, n=N, k=K):
+def sweep_inputs(seed=0, n=N, k=K, powers=POWERS, block=8):
     """Bench-like sweep inputs at the main-path shape (or n x k): H
-    targets per trial at one of three powers, ~5% connected neurons,
-    spike posteriors on targeted trials, power-curve means near the
-    simulator's phi, a block order and a row order."""
+    targets per trial at one of the ``powers`` (three by default), ~5%
+    connected neurons, spike posteriors on targeted trials, power-curve
+    means near the simulator's phi, an order of the blocks of ``block``
+    rows and a row order."""
     import torch
 
     rng = np.random.default_rng(seed)
     stim = np.zeros((n, k), np.float32)
     cols = np.repeat(np.arange(k), H)
-    stim[rng.integers(0, n, k * H), cols] = rng.choice(POWERS, k * H)
+    stim[rng.integers(0, n, k * H), cols] = rng.choice(powers, k * H)
     lam = np.where(stim > 0, rng.uniform(0, 1, (n, k)), 0).astype(np.float32)
     mu = np.where(rng.random(n) < 0.05, rng.uniform(10, 40, n), 0).astype(np.float32)
     spikes = (rng.random((n, k)) < lam).astype(np.float32)
@@ -158,23 +171,23 @@ def sweep_inputs(seed=0, n=N, k=K):
         lam=lam, m0=rng.uniform(0.2, 0.25, n).astype(np.float32),
         m1=rng.uniform(10, 15, n).astype(np.float32),
         lam_mask=(rng.random(k) > 0.02).astype(np.float32),
-        powers=np.asarray(POWERS, np.float32),
-        border=rng.permutation(-(-n // 8)).astype(np.int64),
+        powers=np.asarray(powers, np.float32),
+        border=rng.permutation(-(-n // block)).astype(np.int64),
         order=rng.permutation(n).astype(np.int64))
     out = {key: torch.from_numpy(v).cuda() for key, v in d.items()}
     out["power_counts"] = torch.stack(
-        [(out["stim"] == p).sum(1) for p in POWERS], 1).float()
+        [(out["stim"] == p).sum(1) for p in powers], 1).float()
     return out
 
 
-def sweep_call(fn, a, gate_active, dtype=None):
+def sweep_call(fn, a, gate_active, dtype=None, **kw):
     import torch
 
     t = {k: (v.to(dtype) if dtype is not None and v.is_floating_point() else v)
          for k, v in a.items()}
     return fn(t["y"], t["stim"], t["mu"], t["beta"], t["lam"], 0.1,
               t["m0"], t["m1"], t["lam_mask"], t["powers"], t["power_counts"],
-              t["border"], 0.35, 3.0, float(gate_active))
+              t["border"], 0.35, 3.0, float(gate_active), **kw)
 
 
 def counters():
@@ -292,7 +305,7 @@ def phase_sweep():
         f"{bound_ms:.4f} ms (3*N*K*4 B at 3.35 TB/s), "
         f"{bound_ms / ms:.1%} of the bound")
     return dict(name="sweep_blocked", route="cuda",
-                source="circuitmap_torch/csrc/sweep_cluster.cu",
+                source="circuitmap_torch/csrc/sweep_cluster.cuh",
                 replaces="circuitmap_tpu/ops/sweep_pallas.py:658",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes", library_ms=None,
@@ -395,6 +408,83 @@ def check_laplace(S, C, levels, what):
     return dict(max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
                 bound_share=bound_ms / ms, armijo_j=hist)
+
+
+def check_blocked(a, block, what):
+    """The cluster sweep at ``block`` rows a step against its plain
+    version on the inputs ``a``, as phase 3 holds it at 8: rtol 1e-4 /
+    atol 1e-5 with the gate off, at most 0.5% of the gate decisions
+    differing with it on, the CTAs of the cluster agreeing; then its
+    time (CUDA events, median of 20), the plain version's and the byte
+    bound."""
+    import torch
+    from circuitmap_torch.ops import sweep_cuda as sc
+
+    n, k = a["stim"].shape
+    P = a["powers"].shape[0]
+    kw = dict(block_size=block)
+    ker = sweep_call(sc.sweep_spikes_blocked, a, 0, **kw)
+    plain = sweep_call(sc.sweep_spikes_blocked_torch, a, 0, **kw)
+    torch.cuda.synchronize()
+    err = (ker - plain).abs().max().item()
+    ok = torch.allclose(ker, plain, rtol=1e-4, atol=1e-5)
+    ker1 = sweep_call(sc.sweep_spikes_blocked, a, 1, **kw)
+    plain1 = sweep_call(sc.sweep_spikes_blocked_torch, a, 1, **kw)
+    off_k = (ker1.sum(1) == 0) & (ker.sum(1) > 0)
+    off_p = (plain1.sum(1) == 0) & (plain.sum(1) > 0)
+    flips = int((off_k != off_p).sum())
+    log(f"{what}: gate off max |kernel - plain| = {err:.3e}; gate on "
+        f"{int(off_k.sum())} rows gated off, {flips} decisions differ")
+    if not ok:
+        raise AssertionError(f"{what}: the sweep kernel disagrees with its "
+                             "plain version beyond rtol 1e-4 / atol 1e-5")
+    if flips > 0.005 * n:
+        raise AssertionError(f"{what}: {flips} gate decisions differ "
+                             "(> 0.5% of rows)")
+    check_cta_agreement(ker1, plain1, a, block, what)
+    ms = cuda_ms(lambda: sweep_call(sc.sweep_spikes_blocked, a, 1, **kw))
+    plain_ms = cuda_ms(lambda: sweep_call(sc.sweep_spikes_blocked_torch, a,
+                                          1, **kw), reps=3, warmup=1)
+    bound_ms = 3 * n * k * 4 / PEAK_BYTES_PER_S * 1e3
+    plan = sc.launch_plan(1, k, block, P)
+    log(f"{what}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, byte bound "
+        f"{bound_ms:.4f} ms ({bound_ms / ms:.1%}); plan {plan}")
+    return dict(rows_per_step=block, P=P, max_abs_err=err, gate_flips=flips,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_share=bound_ms / ms, on_chip=plan.on_chip,
+                ring_depth=plan.depth)
+
+
+WIDE_POWERS = tuple(float(p) for p in np.linspace(30.0, 75.0, 16))
+
+
+def phase_blocks_and_levels():
+    """Phase 3b: the sweep at every pinned block size the JAX package's
+    frontier study fitted beside 8 (7, 12, 16, 32; P=3) and at 16 power
+    levels (8 rows and one row a step), and the Laplace kernel at 17
+    buckets, each against its plain version."""
+    from circuitmap_torch.ops import sweep_cuda as sc
+    from circuitmap_torch.ops import sweep_row_cuda as sr
+    from circuitmap_torch.solvers._laplace import powercurve_stats
+
+    log("phase 3b: cluster sweep at pinned blocks 7, 12, 16, 32 (P=3) and "
+        "at 16 power levels; Laplace at 17 buckets (N=1000, K=20000)")
+    blocks = {}
+    for block in (7, 12, 16, 32):
+        blocks[block] = check_blocked(sweep_inputs(seed=block, block=block),
+                                      block, f"{block} rows a step, P=3")
+    a16 = sweep_inputs(seed=16, powers=WIDE_POWERS)
+    wide = check_blocked(a16, 8, "8 rows a step, P=16")
+    row16, _ = check_sweep_kernel(sr.sweep_spikes_row,
+                                  sr.sweep_spikes_row_torch, a16,
+                                  "one row a step, P=16")
+    lam = sweep_call(sc.sweep_spikes_blocked_torch, a16, 1)
+    S, C, levels = powercurve_stats(lam, a16["stim"], a16["powers"],
+                                    total_trials=K,
+                                    counts=a16["power_counts"])
+    lap17 = check_laplace(S, C, levels, "N=1000, P+1=17")
+    return dict(blocks=blocks, sweep_p16=wide, row_p16_max_abs_err=row16,
+                laplace_p17=lap17)
 
 
 def phase_laplace(sweep_state):
@@ -694,7 +784,7 @@ def phase_row_sweep():
                        f"1 row a step, E=1 N={n} K={k} (r off chip)")
     del wide
     return dict(name="sweep_row", route="cuda",
-                source="circuitmap_torch/csrc/sweep_cluster.cu",
+                source="circuitmap_torch/csrc/sweep_cluster.cuh",
                 replaces="circuitmap_tpu/ops/sweep_pallas.py:338, :89, :481",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes", library_ms=None,
@@ -1046,9 +1136,10 @@ def phase_solver_mappings():
 
 def phase_sns(sim, dem):
     """CAVI-SnS through ``Model.fit`` with its defaults (random order,
-    100 Monte Carlo samples, histories kept), 50 iterations: B3 and B2
-    once an iteration each; truth-R2 of mu*alpha and of mu; a warm
-    10-iteration fit profiled. Then the float64 witness: the same fit
+    100 Monte Carlo samples), 50 iterations without histories, warmed up
+    by a 10-iteration fit under the profiler: B3 and B2 once an
+    iteration each; truth-R2 of mu*alpha and of mu. Then the float64
+    witness: the same fit
     with the lam sweep swapped for its plain version in float64, on the
     same card and random streams (the sweep draws none), and on each of
     its 50 sweeps the kernel held against that plain version on the same
@@ -1074,12 +1165,14 @@ def phase_sns(sim, dem):
                             fit_options={"iters": 50, "verbose": False,
                                          **extra})
 
+    profiled(lambda: fit(iters=10, save_histories=False),
+             "sns_fit_10_iterations")
     reset_counts()
-    model, cold_s = timed(fit)
+    model, warm_s = timed(lambda: fit(save_histories=False))
     launches = kernel_launches(read_counts())
     mu, alpha = model.state["mu"], model.state["alpha"]
     r2_w, r2_mu = r2_score(w, mu * alpha), r2_score(w, mu)
-    log(f"cold fit {cold_s:.3f} s (histories pulled); launches {launches}; "
+    log(f"warm fit {warm_s:.3f} s (no histories); launches {launches}; "
         f"truth-R2 of mu*alpha {r2_w:.4f}, of mu {r2_mu:.4f}; "
         f"{int((alpha > 0.5).sum())} cells at alpha > 0.5 "
         f"({int((w != 0).sum())} connected)")
@@ -1092,10 +1185,6 @@ def phase_sns(sim, dem):
         if np.isnan(np.asarray(model.state[key])).any():
             raise AssertionError(f"SnS posterior {key} holds a NaN")
     del model
-    _, warm_s = timed(fit)
-    log(f"warm fit {warm_s:.3f} s (histories pulled)")
-    profiled(lambda: fit(iters=10, save_histories=False),
-             "sns_fit_10_iterations")
 
     kernel_sweep = sns_mod.sweep_spikes_row
     held = []
@@ -1133,28 +1222,29 @@ def phase_sns(sim, dem):
     if max(clean, default=0.0) > 1e-4:
         raise AssertionError(f"SnS: the kernel differs from the float64 "
                              f"plain sweep by {max(clean):.3e} (> 1e-4)")
-    return launches, dict(cold_s=cold_s, warm_s=warm_s, r2_mu_alpha=r2_w,
+    return launches, dict(warm_s=warm_s, r2_mu_alpha=r2_w,
                           r2_mu=r2_mu, witness_r2_mu_alpha=r2_wit,
                           witness_flips=flips,
                           witness_max_err=max(clean, default=0.0))
 
 
 def phase_mbcs(sim, dem):
-    """MBCS through ``Model.fit``, 50 iterations on the demixed traces,
-    with the Monte Carlo noise model and then its exact moments: plain
+    """MBCS through ``Model.fit``, 20 iterations on the demixed traces
+    (50 until the streaming phases came: cut for the call's time), with
+    the Monte Carlo noise model and then its exact moments: plain
     PyTorch on the card (no kernel of the port runs), truth-R2 at least
     0.9, no NaN."""
     from circuitmap_torch import Model
     from circuitmap_torch.utils.metrics import r2_score
 
-    log("phase 14: MBCS, 50 iterations, on the demixed traces")
+    log("phase 14: MBCS, 20 iterations, on the demixed traces")
     paths, out = {}, {}
     for analytic in (False, True):
         name = "mbcs_analytic" if analytic else "mbcs"
         reset_counts()
         model, fit_s = timed(lambda: Model(N).fit(
             dem, sim["stim_matrix"], method="mbcs",
-            fit_options={"iters": 50, "analytic_noise": analytic}))
+            fit_options={"iters": 20, "analytic_noise": analytic}))
         paths[name] = kernel_launches(read_counts())
         r2 = r2_score(sim["weights"], model.state["mu"])
         log(f"analytic_noise={analytic}: {fit_s:.3f} s (histories pulled); "
@@ -1257,6 +1347,354 @@ def phase_elbo(sim, dem):
                        max_rel_diff=worst, stop_at=stop_at, stopped_s=stop_s)
 
 
+def max_rel_diff(a, b, fields):
+    """The largest difference between two fits over ``fields``, each
+    relative to the field's largest magnitude in ``b`` (NaNs must sit in
+    the same places)."""
+    import torch
+
+    worst = 0.0
+    for f in fields:
+        x, y = (np.asarray(v.cpu() if torch.is_tensor(v) else v, np.float64)
+                for v in (a[f], b[f]))
+        if not np.array_equal(np.isnan(x), np.isnan(y)):
+            return float("inf")
+        scale = max(float(np.nanmax(np.abs(y))), 1e-30) if y.size else 1.0
+        worst = max(worst, float(np.nanmax(np.abs(x - y))) / scale
+                    if y.size else 0.0)
+    return worst
+
+
+FIT_FIELDS = ("mu", "beta", "lam", "shape", "rate", "phi", "phi_cov", "z")
+
+
+def phase_block16_fit(sim, dem):
+    """Phase 17: the main-path fit at a pinned sweep_block_size=16 (a
+    size the port refused on CUDA before): B1 at 16 rows a step once an
+    iteration, truth-R2 at least 0.98."""
+    from circuitmap_torch import Model
+    from circuitmap_torch.utils.metrics import r2_score
+
+    log("phase 17: the main-path fit at sweep_block_size=16, 50 iterations")
+    reset_counts()
+    model, fit_s = timed(lambda: Model(N).fit(
+        dem, sim["stim_matrix"], method="caviar",
+        fit_options={"iters": 50, "msrmp": 0.3, "powers": list(POWERS),
+                     "verbose": False, "sweep_block_size": 16}))
+    launches = kernel_launches(read_counts())
+    r2 = r2_score(sim["weights"], model.state["mu"])
+    log(f"fit {fit_s:.3f} s; launches {launches}; truth-R2 {r2:.4f}")
+    if launches["sweep_blocked"] != 50 or launches["sweep_row"] != 0:
+        raise AssertionError(f"block 16 must launch B1 50 times: {launches}")
+    if np.isnan(model.state["mu"]).any() or r2 < 0.98:
+        raise AssertionError(f"block-16 fit: truth-R2 {r2:.4f} < 0.98 or NaN")
+    return launches, dict(s=fit_s, r2=r2)
+
+
+def caviar_args(dem, sim):
+    from circuitmap_torch import default_priors
+
+    p = default_priors(N)
+    return (dem, sim["stim_matrix"], p["mu"], p["beta"], p["shape"],
+            p["rate"], p["phi"], p["phi_cov"])
+
+
+def fit_dict(out):
+    return dict(zip(FIT_FIELDS, out[:8]))
+
+
+def phase_resumable(sim, dem):
+    """Phase 18: caviar_resumable on the main path's map, 50 iterations
+    in segments of 10, against the one-shot caviar() at the same seed
+    (1e-6 relative); then a call stopped after 20 iterations and a
+    second call that resumes from its file, against the same."""
+    import tempfile
+
+    from circuitmap_torch import caviar, caviar_resumable
+
+    log("phase 18: caviar_resumable, 50 iterations in segments of 10, "
+        "against the one-shot fit")
+    args = caviar_args(dem, sim)
+    kw = dict(iters=50, msrmp=0.3, powers=list(POWERS), verbose=False,
+              seed=0)
+    one, one_s = timed(lambda: caviar(*args, **kw))
+    one = fit_dict(one)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        seg, seg_s = timed(lambda: caviar_resumable(
+            *args, f"{tmp}/fit", checkpoint_every=10, **kw))
+        launches = kernel_launches(read_counts())
+        d_seg = max_rel_diff(fit_dict(seg), one, FIT_FIELDS)
+        size_mb = Path(f"{tmp}/fit.npz").stat().st_size / 1e6
+        caviar_resumable(*args, f"{tmp}/stop", checkpoint_every=10,
+                         **{**kw, "iters": 20})
+        resumed, res_s = timed(lambda: caviar_resumable(
+            *args, f"{tmp}/stop", checkpoint_every=10, **kw))
+        d_res = max_rel_diff(fit_dict(resumed), one, FIT_FIELDS)
+    per_segment_ms = (seg_s - one_s) / 5 * 1e3
+    log(f"one-shot {one_s:.3f} s, segmented {seg_s:.3f} s ({per_segment_ms:.1f}"
+        f" ms a segment more; a checkpoint is {size_mb:.1f} MB), resumed "
+        f"from iteration 20 {res_s:.3f} s; launches {launches}; largest "
+        f"relative difference from the one-shot fit: segmented {d_seg:.3e}, "
+        f"resumed {d_res:.3e}")
+    if max(d_seg, d_res) > 1e-6:
+        raise AssertionError("the resumable fit differs from the one-shot "
+                             f"fit: {d_seg:.3e}, {d_res:.3e} (> 1e-6)")
+    if launches["sweep_blocked"] != 50:
+        raise AssertionError(f"the segmented fit must launch B1 50 times: "
+                             f"{launches}")
+    return launches, dict(one_shot_s=one_s, segmented_s=seg_s,
+                          resumed_s=res_s, per_segment_ms=per_segment_ms,
+                          checkpoint_mb=size_mb, max_rel_diff=max(d_seg,
+                                                                  d_res))
+
+
+STREAM_BLOCKS, STREAM_TRIALS = 10, 2000
+
+
+def phase_online(sim, dem):
+    """Phase 19: OnlineCaviar on the main path's map. One update of all
+    20,000 trials at 50 iterations against the batch caviar() fit (both
+    at max_backtrack_iters=50: with the default 20 the stream caps the
+    spontaneous update's seed from iteration 20 on, by design), 1e-6
+    relative. Then a stream of 10 blocks of 2,000 trials at 10
+    iterations with the reconnection scan, from the default capacity
+    1024 (the buffers grow): each block's update latency
+    (host-synchronised), the launches, the final truth-R2 (at least
+    0.95); and a stream saved after block 5 and loaded, equal to the
+    uninterrupted one (1e-6 relative)."""
+    import tempfile
+
+    import torch
+    from circuitmap_torch import OnlineCaviar, caviar
+    from circuitmap_torch.utils.metrics import r2_score
+
+    log("phase 19: OnlineCaviar on the main path's map")
+    paths = {}
+    args = caviar_args(dem, sim)
+    kw = dict(msrmp=0.3, max_backtrack_iters=50)
+    batch = fit_dict(caviar(*args, iters=50, fn_scan=False, verbose=False,
+                            powers=list(POWERS), **kw))
+    # buffers of the block's width: the batch fit's shapes, so its sums
+    oc = OnlineCaviar(N, powers=list(POWERS), capacity=K, **kw)
+    reset_counts()
+    _, one_s = timed(lambda: oc.update(dem, sim["stim_matrix"], iters=50,
+                                       fn_scan=False))
+    paths["online_one_block"] = kernel_launches(read_counts())
+    d_one = max_rel_diff(oc.result(fn_scan=False), batch, FIT_FIELDS)
+    log(f"one update of {K} trials at 50 iterations {one_s:.3f} s; launches "
+        f"{paths['online_one_block']}; largest relative difference from "
+        f"the batch fit {d_one:.3e}")
+    if d_one > 1e-6:
+        raise AssertionError(f"one update differs from the batch fit by "
+                             f"{d_one:.3e} (> 1e-6)")
+    del oc, batch
+
+    host = dem.cpu().numpy()
+    stim = sim["stim_matrix"]
+    edges = [b * STREAM_TRIALS for b in range(STREAM_BLOCKS + 1)]
+
+    def feed(stream, lo, hi, times=None):
+        for a, b in zip(edges[lo:hi], edges[lo + 1:hi + 1]):
+            t0 = time.perf_counter()
+            stream.update(host[a:b], stim[:, a:b], iters=10)
+            torch.cuda.synchronize()
+            if times is not None:
+                times.append((time.perf_counter() - t0) * 1e3)
+
+    stream = OnlineCaviar(N, powers=list(POWERS))
+    times, caps = [], []
+    reset_counts()
+    for blk in range(STREAM_BLOCKS):
+        feed(stream, blk, blk + 1, times)
+        caps.append(stream._C)
+    paths["online_stream"] = kernel_launches(read_counts())
+    res = stream.result()
+    r2 = r2_score(sim["weights"], res["mu"])
+    steady = statistics.median(times[3:])
+    log(f"stream of {STREAM_BLOCKS} blocks of {STREAM_TRIALS} trials, 10 "
+        f"iterations each: update ms per block "
+        + ", ".join(f"{t:.1f}" for t in times)
+        + f"; steady median (blocks 4-10) {steady:.1f} ms; capacity per "
+        f"block {caps}; launches {paths['online_stream']}; truth-R2 "
+        f"{r2:.4f}")
+    if r2 < 0.95 or np.isnan(res["mu"]).any():
+        raise AssertionError(f"stream truth-R2 {r2:.4f} < 0.95 or NaN")
+    if paths["online_stream"]["sweep_blocked"] != 10 * STREAM_BLOCKS:
+        raise AssertionError("the stream must launch B1 10 times a block: "
+                             f"{paths['online_stream']}")
+
+    part = OnlineCaviar(N, powers=list(POWERS))
+    with tempfile.TemporaryDirectory() as tmp:
+        feed(part, 0, 5)
+        part.save(f"{tmp}/stream.npz")
+        reset_counts()
+        part = OnlineCaviar.load(f"{tmp}/stream.npz")
+        feed(part, 5, STREAM_BLOCKS)
+        paths["online_resumed"] = kernel_launches(read_counts())
+    d_load = max_rel_diff(part.result(), res, FIT_FIELDS)
+    log(f"saved after block 5, loaded, 5 more blocks: largest relative "
+        f"difference from the uninterrupted stream {d_load:.3e}")
+    if d_load > 1e-6:
+        raise AssertionError(f"the reloaded stream differs by {d_load:.3e}")
+    return paths, dict(one_block_s=one_s, one_block_rel_diff=d_one,
+                       block_ms=times, steady_median_ms=steady,
+                       capacity=caps, r2=r2, reload_rel_diff=d_load)
+
+
+def phase_closed_loop():
+    """Phase 20: closed_loop_map at N=1000, H=10, 2000 trials a round,
+    at most 5 rounds of 8 iterations, each block demixed (int4d2
+    checkpoint, float32 wire); ``acquire`` simulates the trials on one
+    fixed truth drawn from a pilot simulation. Truth-R2 at least 0.8
+    (the JAX package's test bar)."""
+    from circuitmap_torch import NeuralDemixer, closed_loop_map, simulate
+    from circuitmap_torch.utils.metrics import r2_score
+
+    log("phase 20: closed_loop_map, N=1000, H=10, 2000 trials a round, "
+        "at most 5 rounds")
+    np.random.seed(4)
+    pilot = simulate(N=N, trials=STREAM_TRIALS, H=H, connection_prob=0.05,
+                     powers=list(POWERS), verbose=False)
+    truth = {k: pilot[k] for k in ("weights", "phi_0", "phi_1", "tau_r",
+                                   "tau_d")}
+
+    def acquire(stim):
+        return simulate(N=N, stim_matrix=stim, weights=truth["weights"],
+                        phi_0=truth["phi_0"], phi_1=truth["phi_1"],
+                        kernel=(truth["tau_r"], truth["tau_d"]),
+                        powers=list(POWERS), batch_size=1000,
+                        verbose=False)["psc"]
+
+    rounds = []
+    reset_counts()
+    (post, designer, solver), loop_s = timed(lambda: closed_loop_map(
+        acquire, N=N, H=H, powers=list(POWERS), block_trials=STREAM_TRIALS,
+        max_rounds=5, iters_per_round=8,
+        demixer=NeuralDemixer(str(CHECKPOINT)),
+        callback=lambda r, d, p: rounds.append(int(d.pool.size))))
+    launches = kernel_launches(read_counts())
+    r2 = r2_score(truth["weights"], post["mu"])
+    log(f"{designer.rounds} rounds in {loop_s:.2f} s; pool after each round "
+        f"{rounds}; {solver.trial_count} trials; launches {launches}; "
+        f"truth-R2 {r2:.4f}")
+    if r2 < 0.8 or launches["sweep_blocked"] != 8 * designer.rounds:
+        raise AssertionError(f"closed loop: truth-R2 {r2:.4f} < 0.8, or B1 "
+                             f"not 8 launches a round: {launches}")
+    return launches, dict(rounds=designer.rounds, pool=rounds, s=loop_s,
+                          r2=r2)
+
+
+def fold_stack(sim, dem):
+    """Phase 10's 4 folds: [4, 15000, 900] device traces, stims."""
+    import torch
+
+    q = K // 4
+    keeps = [np.r_[0:f * q, (f + 1) * q:K] for f in range(4)]
+    ys = torch.stack([dem[torch.from_numpy(kp).cuda()] for kp in keeps])
+    return ys, np.stack([sim["stim_matrix"][:, kp] for kp in keeps])
+
+
+def ragged_folds(sim, dem):
+    """Phase 11's ragged folds, as host lists."""
+    host = dem.cpu().numpy()
+    idx = [(np.arange(k) + K // 10 * f) % K for f, k in enumerate(RAGGED)]
+    return [host[i] for i in idx], [sim["stim_matrix"][:, i] for i in idx]
+
+
+def compare_folds(a, b, fields, what, tol=1e-4):
+    diffs = [max_rel_diff(x, y, fields) for x, y in zip(a, b)]
+    log(f"{what}: largest relative difference per fold "
+        + ", ".join(f"{d:.3e}" for d in diffs))
+    if max(diffs) > tol:
+        raise AssertionError(f"{what}: {max(diffs):.3e} > {tol}")
+    return diffs
+
+
+def phase_many_baselines(sim, dem):
+    """Phase 21: sns_many and mbcs_many on phase 10's 4 folds, 10
+    iterations, sequential and batched. Batched equals sequential fold
+    by fold to 1e-4 relative at a fixed row order with exact means (SnS)
+    and at the same random orders with exact noise moments (MBCS); SnS's
+    random order is printed, not compared (its gate is absorbing).
+    Batched SnS launches the batched row kernel and the Laplace kernel
+    10 times each. MBCS folds at truth-R2 0.9 or more. A ragged
+    sns_many (5 iterations) equals the single cavi_sns fits."""
+    from circuitmap_torch import cavi_sns, default_priors, mbcs_many, sns_many
+    from circuitmap_torch.utils.metrics import r2_score
+
+    log("phase 21: sns_many and mbcs_many on the 4 folds, 10 iterations")
+    ys, stims = fold_stack(sim, dem)
+    p = default_priors(N)
+    sns_priors = (p["mu"], p["beta"], p["alpha"], p["shape"], p["rate"],
+                  p["phi"], p["phi_cov"])
+    sns_fields = ("mu", "beta", "alpha", "lam", "shape", "rate", "phi",
+                  "phi_cov")
+    w = sim["weights"]
+    paths, out = {}, {}
+    fixed = dict(iters=10, update_order="identity", analytic_mc=True,
+                 verbose=False)
+    runs = {}
+    for mode in ("sequential", "batched"):
+        reset_counts()
+        runs[mode], out[f"sns_{mode}_s"] = timed(lambda: sns_many(
+            ys, stims, *sns_priors, compile_mode=mode, **fixed))
+        paths[f"sns_many_{mode}"] = kernel_launches(read_counts())
+        log(f"sns_many {mode} (identity order, exact means) "
+            f"{out[f'sns_{mode}_s']:.3f} s; launches {read_counts()}")
+    if paths["sns_many_batched"] != {"sweep_blocked": 0, "laplace": 10,
+                                     "sweep_row": 10}:
+        raise AssertionError("batched sns_many must launch B5 and B2 10 "
+                             f"times each: {paths['sns_many_batched']}")
+    out["sns_rel_diff"] = compare_folds(runs["batched"], runs["sequential"],
+                                        sns_fields, "sns_many batched vs "
+                                        "sequential")
+    rnd, out["sns_random_batched_s"] = timed(lambda: sns_many(
+        ys, stims, *sns_priors, iters=10, compile_mode="batched",
+        verbose=False))
+    out["sns_random_r2_mu_alpha"] = [r2_score(w, r["mu"] * r["alpha"])
+                                     for r in rnd]
+    log(f"sns_many batched, random order: {out['sns_random_batched_s']:.3f} "
+        "s; truth-R2 of mu*alpha per fold "
+        + ", ".join(f"{v:.4f}" for v in out["sns_random_r2_mu_alpha"]))
+
+    mruns = {}
+    for mode in ("sequential", "batched"):
+        reset_counts()
+        mruns[mode], out[f"mbcs_{mode}_s"] = timed(lambda: mbcs_many(
+            ys, stims, p["mu"], p["beta"], p["shape"], p["rate"], iters=10,
+            analytic_noise=True, compile_mode=mode, verbose=False))
+        paths[f"mbcs_many_{mode}"] = kernel_launches(read_counts())
+        log(f"mbcs_many {mode} (exact noise moments) "
+            f"{out[f'mbcs_{mode}_s']:.3f} s")
+    out["mbcs_rel_diff"] = compare_folds(
+        mruns["batched"], mruns["sequential"],
+        ("mu", "beta", "lam", "shape", "rate", "z", "receptive_fields"),
+        "mbcs_many batched vs sequential")
+    out["mbcs_r2"] = [r2_score(w, r["mu"]) for r in mruns["batched"]]
+    log("mbcs_many truth-R2 per fold "
+        + ", ".join(f"{v:.4f}" for v in out["mbcs_r2"]))
+    if min(out["mbcs_r2"]) < 0.9:
+        raise AssertionError(f"mbcs_many: a fold below truth-R2 0.9: "
+                             f"{out['mbcs_r2']}")
+    del ys
+
+    rys, rstims = ragged_folds(sim, dem)
+    reset_counts()
+    rag, out["sns_ragged_s"] = timed(lambda: sns_many(
+        rys, rstims, *sns_priors, iters=5, verbose=False))
+    paths["sns_many_ragged"] = kernel_launches(read_counts())
+    singles = [dict(zip(sns_fields, cavi_sns(
+        y, s, *sns_priors, iters=5, seed=b, save_histories=False,
+        verbose=False)[:8])) for b, (y, s) in enumerate(zip(rys, rstims))]
+    out["sns_ragged_rel_diff"] = compare_folds(
+        rag, singles, sns_fields, "ragged sns_many vs single cavi_sns fits",
+        tol=1e-6)
+    log(f"ragged sns_many {out['sns_ragged_s']:.3f} s; launches "
+        f"{paths['sns_many_ragged']}")
+    return paths, out
+
+
 def main():
     try:
         import torch
@@ -1287,10 +1725,15 @@ def main():
     sweep_rec, sweep_state = phase_sweep()
     laplace_rec = phase_laplace(sweep_state)
     del sweep_state
+    wide = phase_blocks_and_levels()
+    sweep_rec["pinned_blocks"] = wide["blocks"]
+    sweep_rec["p16"] = wide["sweep_p16"]
+    laplace_rec["p17"] = wide["laplace_p17"]
     paths = {}
     paths["main"], sim, dem = phase_main_path()
     laplace_profiled_ms = phase_profile(sim, dem)
     row_rec = phase_row_sweep()
+    row_rec["p16_max_abs_err"] = wide["row_p16_max_abs_err"]
     sweep_rec["batched"], laplace_rec["batched"] = phase_batched_kernels()
     paths["block1_fit"] = phase_block1_fit(sim, dem)
     paths["auto_large_k"] = phase_large_k_fit()
@@ -1303,6 +1746,13 @@ def main():
     paths["ard"], solvers["mbcs_ard"] = phase_ard(sim, dem)
     elbo_paths, solvers["elbo"] = phase_elbo(sim, dem)
     paths.update(elbo_paths)
+    paths["block16_fit"], solvers["block16"] = phase_block16_fit(sim, dem)
+    paths["resumable"], solvers["resumable"] = phase_resumable(sim, dem)
+    online_paths, solvers["online"] = phase_online(sim, dem)
+    paths.update(online_paths)
+    paths["closed_loop"], solvers["closed_loop"] = phase_closed_loop()
+    many_paths, solvers["many_baselines"] = phase_many_baselines(sim, dem)
+    paths.update(many_paths)
     log(f"solvers: {json.dumps(solvers)}")
     laplace_rec["main_path_profiled_ms"] = laplace_profiled_ms
     records = (sweep_rec, laplace_rec, row_rec)

@@ -7,10 +7,13 @@ an ``nn.Module``, the solvers are plain functions on tensors, devices
 are explicit and random streams are ``torch.Generator``s.
 
 Device rule: every entry point (``Model.fit``, ``caviar``,
-``caviar_many``, ``cavi_sns``, ``mbcs``, ``mbcs_ard``, ``NeuralDemixer``,
-``simulate``) takes ``device=None``, which means ``"cuda"``. Pass ``device="cpu"`` to run on the CPU; without
-a CUDA device and without that request, the entry point raises
-RuntimeError instead of quietly running on the CPU.
+``caviar_many``, ``caviar_resumable``, ``OnlineCaviar``, ``cavi_sns``,
+``sns_many``, ``mbcs``, ``mbcs_many``, ``mbcs_ard``, ``closed_loop_map``,
+``NeuralDemixer``, ``simulate``) takes ``device=None``, which means
+``"cuda"``. Pass ``device="cpu"`` to run on the CPU; without a CUDA
+device and without that request, the entry point raises RuntimeError
+instead of quietly running on the CPU. ``pool_design`` and
+``AdaptiveDesigner`` are host numpy.
 
 Every Pallas TPU kernel of the JAX package has a hand-written CUDA C++
 counterpart for sm_90a (``csrc/``), built with nvcc at first use
@@ -29,6 +32,14 @@ _LAZY = {
     "NeuralDemixer": ("circuitmap_torch.demix.demixer", "NeuralDemixer"),
     "caviar": ("circuitmap_torch.solvers.caviar", "caviar"),
     "caviar_many": ("circuitmap_torch.solvers.batched", "caviar_many"),
+    "sns_many": ("circuitmap_torch.solvers.batched", "sns_many"),
+    "mbcs_many": ("circuitmap_torch.solvers.batched", "mbcs_many"),
+    "caviar_resumable": ("circuitmap_torch.solvers.resumable",
+                         "caviar_resumable"),
+    "OnlineCaviar": ("circuitmap_torch.solvers.online", "OnlineCaviar"),
+    "pool_design": ("circuitmap_torch.design", "pool_design"),
+    "AdaptiveDesigner": ("circuitmap_torch.design", "AdaptiveDesigner"),
+    "closed_loop_map": ("circuitmap_torch.design", "closed_loop_map"),
     "cavi_sns": ("circuitmap_torch.solvers.cavi_sns", "cavi_sns"),
     "mbcs": ("circuitmap_torch.solvers.mbcs", "mbcs"),
     "cosamp": ("circuitmap_torch.solvers.cosamp", "cosamp"),

@@ -33,12 +33,12 @@
 //   step is never evaluated again and equals the objective at phi
 //   exactly. Without an acceptance the lane that evaluated j = 40
 //   supplies both (the step 0.5^40).
-// - The bucket count P+1 <= 16 is a template parameter, so S, C and the
-//   levels sit in registers (fully unrolled loops). The launch bounds
-//   promise one block an SM at least: without that, ptxas aims at a
-//   higher occupancy, caps a thread at 128 or 168 registers and spills
-//   from P+1 = 7 on; with it every P+1 uses 82-236 registers, no stack
-//   frame and no spills.
+// - The bucket count P+1 <= 17 (16 power levels) is a template
+//   parameter, so S, C and the levels sit in registers (fully unrolled
+//   loops). The launch bounds promise one block an SM at least: without
+//   that, ptxas aims at a higher occupancy, caps a thread at 128 or 168
+//   registers and spills from P+1 = 7 on; with it P+1 <= 16 uses 82-236
+//   registers, no stack frame and no spills.
 // - Arithmetic runs in double (inputs and outputs stay float32): the
 //   2x2 Hessian of closely spaced power levels is ill-conditioned, so
 //   float32 arithmetic leaves ~3e-4 relative error in the covariance.
@@ -54,7 +54,7 @@
 
 namespace {
 
-constexpr int MAX_P1 = 16;
+constexpr int MAX_P1 = 17;  // ops/laplace_cuda.py::MAX_P1
 constexpr int NEWTON_STEPS = 10;
 constexpr int MAX_BACKTRACK = 40;
 constexpr double BARRIER_T = 10.0;

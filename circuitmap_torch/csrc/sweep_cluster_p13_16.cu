@@ -1,0 +1,6 @@
+// The cluster sweep's instantiations at 13..16 power levels (kernel:
+// sweep_cluster.cuh; entry points: sweep_cluster.cu).
+
+#include "sweep_cluster.cuh"
+
+CM_SWEEP_DEFINE_RANGE(13)

@@ -30,7 +30,7 @@ BARRIER_T = 1e1
 ARMIJO_ALPHA = 0.25
 BACKTRACK_BETA = 0.5
 MAX_BACKTRACK = 40
-MAX_P1 = 16
+MAX_P1 = 17  # buckets: 16 power levels and the unstimulated one
 
 
 def _inv2x2(M):

@@ -3,13 +3,14 @@ PyTorch version.
 
 Port of ``circuitmap_tpu/ops/sweep_pallas.py::
 sweep_spikes_pallas_dma_blocked``. One coordinate-ascent sweep over the
-N spike-posterior rows in blocks of 8 consecutive rows, visited in the
-order ``border`` (a permutation of the ceil(N/8) block indices,
-including a partial last block): Jacobi within a block (every row of a
-block reads the residual ``r = mu @ lam`` as it stood at the block's
-start), Gauss-Seidel across blocks. Per row: ``est``, the per-power
-spike rates, the isotonic fit at max power (suffix-mean maximum), the
-connection gate and the gated new row.
+N spike-posterior rows in blocks of ``block_size`` consecutive rows (8
+by default, any of 1..32), visited in the order ``border`` (a
+permutation of the ceil(N/block_size) block indices, including a partial
+last block): Jacobi within a block (every row of a block reads the
+residual ``r = mu @ lam`` as it stood at the block's start),
+Gauss-Seidel across blocks. Per row: ``est``, the per-power spike rates,
+the isotonic fit at max power (suffix-mean maximum), the connection gate
+and the gated new row.
 
 ``sweep_spikes_blocked_batched`` runs E independent experiments in one
 launch (``sweep_spikes_pallas_dma_blocked_batched``, the batched fits'
@@ -17,9 +18,10 @@ form). ``_sweep_row_blocks`` is the plain per-row algebra that every
 plain sweep of the port runs, blocked or strictly sequential.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA float32 tensor
-launches ``csrc/sweep_cluster.cu`` (8 rows a step); anything else raises.
-The same kernel runs the strictly sequential sweep (1 row a step,
-``ops/sweep_row_cuda.py``). :func:`cluster_plan` lays out its launch.
+launches ``csrc/sweep_cluster.cuh`` (1..32 rows a step, 1..16 power
+levels); anything else raises. The same kernel runs the strictly
+sequential sweep (1 row a step, ``ops/sweep_row_cuda.py``).
+:func:`cluster_plan` lays out its launch.
 """
 
 from __future__ import annotations
@@ -32,9 +34,10 @@ import torch
 from .._device import highest_matmul
 from .pava import isotonic_fit_at_max_batched
 
-BLOCK = 8
-MAX_POWERS = 8
-CLUSTER_THREADS = 512     # threads per CTA (csrc/sweep_cluster.cu THREADS)
+BLOCK = 8                 # rows a step by default
+MAX_BLOCK = 32            # rows a step at most (one warp's lanes)
+MAX_POWERS = 16           # power levels the kernel is built for
+CLUSTER_THREADS = 512     # threads per CTA (csrc/sweep_cluster.cuh THREADS)
 CLUSTER_SIZES = (16, 8)   # CTAs per experiment: 16 where the card admits it
 SMEM_PER_CTA = 232448     # dynamic shared memory one CTA may take on sm_90
 RING_MAX = 4              # steps of rows prefetched at most
@@ -253,20 +256,20 @@ class ClusterPlan(NamedTuple):
 
 def cluster_plan(E, K, rows, P=MAX_POWERS, cluster=CLUSTER_SIZES[0]):
     """The launch of ``E`` sweeps over ``K`` trials at ``rows`` rows a
-    step (1 or 8) and ``P`` power levels (one cluster per experiment, so
-    the layout is the same for every E), as ``csrc/sweep_cluster.cu``
+    step (1..32) and ``P`` power levels (one cluster per experiment, so
+    the layout is the same for every E), as ``csrc/sweep_cluster.cuh``
     lays out its shared memory (in floats, each part a multiple of 4):
     the exchanged partials [2, cluster, rows*(P+1)], the CTA's reduction
-    [warps, rows*(P+1)], the gates (8), the row parameters
+    [warps, rows*(P+1)], the gates (32), the row parameters
     [2, rows, 4+P], the step's first row (4) and the exchange's two
     mbarriers (4); then, on chip, r, y and mask [cols] and est
     [rows, cols]; then the ring, ``depth`` slots of [rows, 2, cols]."""
-    if rows not in (1, BLOCK) or cluster not in CLUSTER_SIZES:
+    if not 1 <= rows <= MAX_BLOCK or cluster not in CLUSTER_SIZES:
         raise ValueError(f"no cluster sweep at rows={rows}, "
                          f"cluster={cluster}")
     cols = 4 * -(-K // (4 * cluster))
     ns = rows * (P + 1)
-    fixed = (2 * cluster * ns + CLUSTER_THREADS // 32 * ns + 8
+    fixed = (2 * cluster * ns + CLUSTER_THREADS // 32 * ns + MAX_BLOCK
              + 4 * -(-2 * rows * (4 + P) // 4) + 8)
     resident = (3 + rows) * cols
     slot = 2 * rows * cols
@@ -306,11 +309,12 @@ def launch_cluster_sweep(rows, y, stim, mu, beta, lam, sig, m0, m1,
                          lam_mask, powers, power_counts, steps, msrmp_eff,
                          minimum_spike_count, gate_active):
     """One launch of the cluster sweep over E experiments ([E, ...]
-    arrays) at ``rows`` rows a step; ``steps``: [E, ceil(N/8)] block
-    indices (8) or [E, N] rows (1). Returns the new lam [E, N, K]."""
+    arrays) at ``rows`` rows a step (1..32); ``steps``: [E,
+    ceil(N/rows)] block indices, or [E, N] rows at one row a step.
+    Returns the new lam [E, N, K]."""
     from . import _build
 
-    what = "sweep" if rows == BLOCK else "row-sweep"
+    what = "sweep" if rows > 1 else "row-sweep"
     arrays, scalars, r = _kernel_args(
         y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers, power_counts,
         msrmp_eff, minimum_spike_count, gate_active, what)
@@ -318,8 +322,8 @@ def launch_cluster_sweep(rows, y, stim, mu, beta, lam, sig, m0, m1,
     nsteps = -(-N // rows)
     if steps.shape != (E, nsteps):
         raise ValueError(
-            f"{'border' if rows == BLOCK else 'order'} must hold {nsteps} "
-            f"{'block' if rows == BLOCK else 'row'} indices per "
+            f"{'border' if rows > 1 else 'order'} must hold {nsteps} "
+            f"{'block' if rows > 1 else 'row'} indices per "
             f"experiment, got {tuple(steps.shape)}")
     dev = lam.device
     P = powers.shape[0]
@@ -341,10 +345,10 @@ def launch_cluster_sweep(rows, y, stim, mu, beta, lam, sig, m0, m1,
 def _launch(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
             power_counts, border, msrmp_eff, minimum_spike_count,
             gate_active, block_size):
-    if block_size != BLOCK:
+    if not 1 <= block_size <= MAX_BLOCK:
         raise ValueError(
-            f"the CUDA sweep kernel takes block_size={BLOCK}, got "
+            f"the CUDA sweep kernel takes block_size 1..{MAX_BLOCK}, got "
             f"{block_size}")
     return launch_cluster_sweep(
-        BLOCK, y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
+        block_size, y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
         power_counts, border, msrmp_eff, minimum_spike_count, gate_active)

@@ -14,7 +14,7 @@ maximum) and the connection gate, writes the gated row and updates
 order.
 
 One kernel serves all three, the cluster sweep of the blocked sweep
-(``csrc/sweep_cluster.cu``) at one row a step: the single wrapper
+(``csrc/sweep_cluster.cuh``) at one row a step: the single wrapper
 launches it with one experiment, the batched wrapper with E (one
 cluster each). It takes any K.
 

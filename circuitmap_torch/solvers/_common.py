@@ -21,6 +21,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..ops.sweep_cuda import MAX_POWERS
 from ..utils.quant import (_upsample2, encode_int4_traces, quantise_int8,
                            unpack_int4_codes)
 
@@ -115,10 +116,25 @@ def prepare_traces(y_psc, dtype, device, trace_wire=None):
                            device=device).to(dtype)
 
 
-def _levels(stim_np, powers=None):
+def check_levels_for_device(n_levels, device):
+    """Raise unless a fit on ``device`` (only its type is read) takes
+    ``n_levels`` power levels: the CUDA kernels are built for 1..16 (the
+    sweep's template instantiations, the Laplace kernel's 17 buckets);
+    the CPU's plain versions take any number."""
+    if device is not None and torch.device(device).type == "cuda" \
+            and n_levels > MAX_POWERS:
+        raise ValueError(
+            f"the stimulus holds {n_levels} power levels; the CUDA kernels "
+            f"take at most {MAX_POWERS} (ROADMAP C). Round the stim matrix "
+            "to the rig's levels, or fit with device='cpu'")
+
+
+def _levels(stim_np, powers=None, device=None):
     """Sorted stimulation levels: (powers_host in the stim's precision,
     the 0-prefixed float32 level table the device reconstruction uses).
-    ``powers`` (the rig's levels) skips the np.unique scan."""
+    ``powers`` (the rig's levels) skips the np.unique scan. With a
+    ``device``, raises when its kernels do not take that many levels
+    (:func:`check_levels_for_device`), before anything is uploaded."""
     cand = np.unique(stim_np if powers is None else np.asarray(powers))
     cand = cand[cand != 0.0]
     if powers is None and cand.size > 1024:
@@ -131,6 +147,7 @@ def _levels(stim_np, powers=None):
     lv32, first = np.unique(cand.astype(np.float32), return_index=True)
     powers_host = cand[first]
     levels_np = np.concatenate([[0.0], lv32]).astype(np.float32)
+    check_levels_for_device(powers_host.size, device)
     return powers_host, levels_np
 
 
@@ -186,11 +203,11 @@ def _bucketise_dense(stim_np, levels_np):
     return bucket.astype(np.int8)
 
 
-def _upload_plan(stim_np, powers):
+def _upload_plan(stim_np, powers, device=None):
     """(powers_host, levels_np, kind, payload); kind is "dense"
     (payload None), "sparse" ((targets, tbucket, power_counts)) or
-    "bucket" (the int8 bucket matrix)."""
-    powers_host, levels_np = _levels(stim_np, powers)
+    "bucket" (the int8 bucket matrix). ``device``: as :func:`_levels`."""
+    powers_host, levels_np = _levels(stim_np, powers, device)
     if levels_np.size > 127:
         return powers_host, levels_np, "dense", None
     sparse = _sparsify(stim_np, levels_np)
@@ -226,28 +243,40 @@ def _stim_on_device(stim_np, levels_np, kind, payload, dtype, device):
     return stim
 
 
-def prepare_stim(stim, dtype, device):
+def stim_upload_plan(stim, powers, device):
+    """The host half of the stim upload: (stim_np, plan), for
+    :func:`prepare_stim` and :func:`prepare_stim_and_init`.
+    Raises, before any device allocation, when the fit's device does not
+    take the stim's power levels."""
+    stim_np = np.asarray(stim)
+    return stim_np, _upload_plan(stim_np, powers, device)
+
+
+def prepare_stim(stim, dtype, device, plan=None):
     """The stim upload without CAVIaR's mask and lam init. Returns
     (stim_dev, stim_np, powers_np, powers_dev_np), as
-    :func:`prepare_stim_and_init` does."""
+    :func:`prepare_stim_and_init` does. ``plan``: the stim's
+    :func:`stim_upload_plan` (its second element) when already made."""
     stim_np = np.asarray(stim)
-    powers_np, levels_np, kind, payload = _upload_plan(stim_np, None)
+    if plan is None:
+        plan = _upload_plan(stim_np, None)
+    powers_np, levels_np, kind, payload = plan
     stim_dev = _stim_on_device(stim_np, levels_np, kind, payload, dtype,
                                device)
     return (stim_dev, stim_np, powers_np,
             _powers_dev(powers_np, levels_np, kind))
 
 
-def prepare_stim_and_init(stim, active, dtype, device, powers=None):
-    """Device (stim, lam_mask, lam0) plus the host bookkeeping.
+def prepare_stim_and_init(stim_np, active, dtype, device, plan):
+    """Device (stim, lam_mask, lam0) plus the host bookkeeping, from the
+    stim and its :func:`stim_upload_plan`.
 
     lam0 = 0.95 on targeted active trials (reference caviar.py:32-34).
     Returns (stim_dev, lam_mask, lam0, stim_np, powers_np, powers_dev_np,
     power_counts_np); power_counts_np is the host [N, P] count per power
     when the sparse upload computed it for free, else None.
     """
-    stim_np = np.asarray(stim)
-    powers_np, levels_np, kind, payload = _upload_plan(stim_np, powers)
+    powers_np, levels_np, kind, payload = plan
     stim_dev = _stim_on_device(stim_np, levels_np, kind, payload, dtype,
                                device)
     lam_mask = active.to(dtype)

@@ -41,8 +41,19 @@ def powercurve_stats(lam, stim, powers, total_trials=None, counts=None):
     sum(counts)`` with ``total = total_trials`` or K. ``total_trials``
     without ``counts``: bucket 0 is still derived that way (the real
     trial count when the arrays carry inert padded columns). It is a
-    number, or one count per experiment ([...] tensor).
+    number, or one count per experiment ([...] tensor). A stack's
+    sums are taken experiment by experiment, as its single fits take
+    them.
     """
+    if lam.dim() > 2:  # each experiment's sums as its single fit takes them
+        E = lam.shape[0]
+        per = [powercurve_stats(
+            lam[b], stim[b], powers,
+            total_trials[b] if isinstance(total_trials, torch.Tensor)
+            and total_trials.dim() else total_trials,
+            None if counts is None else counts[b]) for b in range(E)]
+        return (torch.stack([x[0] for x in per]),
+                torch.stack([x[1] for x in per]), per[0][2])
     levels = torch.cat([torch.zeros(1, dtype=powers.dtype,
                                     device=powers.device), powers])
     zero = torch.zeros((), dtype=lam.dtype, device=lam.device)

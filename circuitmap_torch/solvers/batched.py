@@ -1,5 +1,6 @@
-"""Batched CAVIaR: fit many experiments at once (port of
-``circuitmap_tpu/solvers/batched.py::caviar_many``).
+"""Batched fits: many experiments at once (port of
+``circuitmap_tpu/solvers/batched.py``: ``caviar_many``, ``sns_many``,
+``mbcs_many``).
 
 Mapping sessions produce stacks of problems of one shape:
 cross-validation folds, repeated maps of one field of view, parameter
@@ -20,6 +21,12 @@ count ``k_true`` where the fit counts trials; results come back at each
 experiment's true width. Each experiment draws its row orders and Monte
 Carlo samples from its own generator seeded from ``seeds[b]``, in the
 sequence of ``caviar(seed=seeds[b])``.
+
+``sns_many`` and ``mbcs_many`` take the same modes for CAVI-SnS and
+MBCS. Their batched loops are the single fits' loops with an experiment
+axis (``cavi_sns._run_sns``: the batched row kernel and one batched
+Laplace launch an iteration; ``mbcs._run_mbcs``: FISTA over [E, N, N]).
+A ragged list runs each experiment's own single fit at its true shape.
 """
 
 from __future__ import annotations
@@ -28,12 +35,13 @@ import numpy as np
 import torch
 
 from .._device import resolve_device, torch_dtype
-from ..ops.charge import prepare_observations
+from ..ops.charge import integrated_charge, prepare_observations
 from ._common import (_levels, _powers_dev, _stim_on_device, _upload_plan,
                       prepare_traces)
 from ._laplace import laplace_phi_update, resolve_laplace_impl
 from .caviar import (_as, _reconnect_scan_device, _resolve_sweep,
-                     _run_caviar, power_counts_of, seeded_generator)
+                     _run_caviar, _validate_update_order, power_counts_of,
+                     seeded_generator)
 
 FIELDS = ("mu", "beta", "lam", "shape", "rate", "phi", "phi_cov", "z")
 
@@ -84,11 +92,12 @@ def _same_shape_stack(y_pscs, stims, trace_wire, dtype):
     return np.asarray(y_pscs), np.asarray(stims)
 
 
-def _validate_shared_levels(stims_np, powers):
+def _validate_shared_levels(stims_np, powers, device=None):
     """The shared power levels, from experiment 0 (or ``powers``). Above
     127 levels the upload is dense and checks no coverage, so every
-    other experiment is checked against them here."""
-    powers_np, levels_np = _levels(stims_np[0], powers)
+    other experiment is checked against them here. ``device``: raise
+    first when its kernels do not take that many levels."""
+    powers_np, levels_np = _levels(stims_np[0], powers, device)
     if levels_np.size > 127:
         table = np.concatenate([[0.0], powers_np])
         for b in range(1, stims_np.shape[0]):
@@ -278,7 +287,7 @@ def caviar_many(
     resolve_laplace_impl(laplace_impl)
     block = (1 if mode == "batched" and sweep_block_size == "auto"
              else _resolve_sweep("auto", sweep_block_size, dev, k=K))
-    powers_np = _validate_shared_levels(stims_np, powers)
+    powers_np = _validate_shared_levels(stims_np, powers, dev)
     if verbose:
         ragged = ("" if k_trues is None else
                   f", ragged trials {k_trues.min()}-{k_trues.max()} "
@@ -343,3 +352,246 @@ def caviar_many(
             results[b]["phi"], results[b]["phi_cov"] = phi[j], phi_cov[j]
     return [{name: v.cpu().numpy() for name, v in res.items()}
             for res in results]
+
+
+def _ragged_sequential_guard(name, mesh, compile_mode, powers):
+    """Ragged SnS and MBCS stacks run each experiment's single fit at
+    its true shape (the sequential mode); the knobs of one shared
+    program raise, as in the JAX package."""
+    if mesh is not None or compile_mode == "batched":
+        raise ValueError(
+            f"ragged {name} runs per-experiment sequential fits; "
+            "mesh=/compile_mode='batched' need a same-shape stack, or "
+            "caviar_many, whose k_trues supports both")
+    if powers is not None:
+        raise ValueError(
+            f"ragged {name} scans each experiment's own stim levels; "
+            "powers= applies only to same-shape stacks")
+
+
+def _float_device(device, dtype):
+    dev = resolve_device(device)
+    dtype = torch_dtype(dtype)
+    if dev.type == "cuda" and dtype != torch.float32:
+        raise NotImplementedError(
+            f"the CUDA fits of this version run in float32 only; a "
+            f"{dtype} fit runs with device='cpu'")
+    return dev, dtype
+
+
+def _split(finals, fields):
+    """Per-experiment dicts of numpy arrays from a stacked final state."""
+    host = {f: v.cpu().numpy() for f, v in zip(fields, finals)}
+    return [{f: host[f][b] for f in fields}
+            for b in range(len(next(iter(host.values()))))]
+
+
+SNS_FIELDS = ("mu", "beta", "alpha", "lam", "shape", "rate", "phi",
+              "phi_cov")
+MBCS_FIELDS = ("mu", "beta", "lam", "shape", "rate", "z", "receptive_fields")
+
+
+def sns_many(
+    y_pscs, stims, mu_prior, beta_prior, alpha_prior, shape_prior, rate_prior,
+    phi_prior, phi_cov_prior, iters=50, seeds=None, num_mc_samples=100,
+    minimum_spike_count=3, analytic_mc=False, laplace_impl="auto",
+    dtype=torch.float32, mesh=None, powers=None, compile_mode="auto",
+    trace_wire=None, verbose=True, update_order="random", device=None,
+):
+    """Fit B experiments with CAVI-SnS; the signature of
+    ``circuitmap_tpu.solvers.sns_many`` plus ``update_order`` (as
+    ``cavi_sns``) and ``device`` (None means CUDA; the package's device
+    rule). Priors are shared. Returns a list of B dicts of numpy arrays
+    with keys mu/beta/alpha/lam/shape/rate/phi/phi_cov.
+
+    ``compile_mode``: "sequential" (and "auto") runs the single fit's
+    loop per experiment; "batched" one loop over the stack, whose lam
+    sweep is one launch of the batched row kernel and whose refit one
+    Laplace launch an iteration. Experiment b draws its row orders and
+    Monte Carlo samples from a generator seeded with ``seeds[b]``
+    (default b), in the sequence of ``cavi_sns(seed=seeds[b])``, so the
+    two modes agree to float rounding.
+
+    A ragged list of [K_b, T] traces with matching [N, K_b] stims runs
+    each experiment's single ``cavi_sns`` fit at its true shape.
+    """
+    from .cavi_sns import _run_sns, cavi_sns
+
+    dev, dtype = _float_device(device, dtype)
+    resolve_laplace_impl(laplace_impl)
+    ragged_in = _ragged_lists(y_pscs, stims, "sns_many")
+    if ragged_in is not None:
+        _ragged_sequential_guard("sns_many", mesh, compile_mode, powers)
+        ys_list, st_list, ks = ragged_in
+        seeds = np.arange(len(ys_list)) if seeds is None else seeds
+        if verbose:
+            print(f"Running CAVI-SnS (PyTorch) on {len(ys_list)} "
+                  f"experiments (ragged trials {min(ks)}-{max(ks)}, "
+                  "sequential true-shape fits).")
+        return [dict(zip(SNS_FIELDS, (v.cpu().numpy() for v in cavi_sns(
+            yb, sb, mu_prior, beta_prior, alpha_prior, shape_prior,
+            rate_prior, phi_prior, phi_cov_prior, iters=iters,
+            num_mc_samples=num_mc_samples, seed=int(seeds[b]),
+            minimum_spike_count=minimum_spike_count,
+            analytic_mc=analytic_mc, laplace_impl=laplace_impl, dtype=dtype,
+            trace_wire=trace_wire, save_histories=False,
+            update_order=update_order, verbose=False, device=dev)[:8])))
+            for b, (yb, sb) in enumerate(zip(ys_list, st_list))]
+
+    y_pscs, stims_np = _same_shape_stack(y_pscs, stims, trace_wire, dtype)
+    B, K, _T = y_pscs.shape
+    mode = _resolve_mode(compile_mode, mesh)
+    powers_np = _validate_shared_levels(stims_np, powers, dev)
+    if verbose:
+        print(f"Running CAVI-SnS (PyTorch) on {B} experiments "
+              f"(compile_mode={mode}).")
+    y_dev = _upload_trace_stack(y_pscs, dtype, trace_wire, dev)
+    stim_dev, powers_dev_np = _upload_stim_stack(stims_np, dtype, powers_np,
+                                                 dev)
+    ys = integrated_charge(y_dev)
+    # the reference disables the activity mask for this solver
+    masks = torch.ones((B, K), dtype=dtype, device=dev)
+    lam0 = (stim_dev > 0).to(dtype) * 0.95
+    powers_t = _as(powers_dev_np, dtype, dev)
+    hyper = tuple(_as(a, dtype, dev) for a in (
+        mu_prior, beta_prior, alpha_prior, shape_prior, rate_prior,
+        phi_prior, phi_cov_prior))
+    gens = [seeded_generator(sd, dev)
+            for sd in (np.arange(B) if seeds is None else seeds)]
+    loop = dict(iters=int(iters), num_mc_samples=int(num_mc_samples),
+                minimum_spike_count=int(minimum_spike_count),
+                analytic_mc=bool(analytic_mc), save_histories=False,
+                update_order=_validate_update_order(str(update_order)))
+    if mode == "sequential":
+        finals = [_run_sns(ys[b], stim_dev[b], lam0[b], masks[b], powers_t,
+                           hyper, [gens[b]], **loop)[0] for b in range(B)]
+        final = [torch.stack(xs) for xs in zip(*finals)]
+    else:
+        final = _run_sns(ys, stim_dev, lam0, masks, powers_t, hyper, gens,
+                         **loop)[0]
+    return _split(final, SNS_FIELDS)
+
+
+def _mbcs_mask_init(y_psc, stim, y_xcorr_thresh, lam_mask_fraction,
+                    init_spike_prior):
+    """MBCS's activity masks [B, K] and lam inits [B, N, K] of a stack of
+    [B, K, T] traces, on the traces' device: the energy threshold, and
+    no trial whose peak is below ``lam_mask_fraction`` of its
+    experiment's largest sample (the single fit's host rule)."""
+    energy = torch.sum(y_psc * y_psc, dim=-1)
+    mask = (energy > y_xcorr_thresh).to(y_psc.dtype)
+    peaks = torch.amax(y_psc, dim=-1)
+    top = torch.amax(y_psc, dim=(-2, -1))
+    mask = torch.where(peaks < lam_mask_fraction * top[:, None], 0.0, mask)
+    lam0 = (stim > 0).to(y_psc.dtype) * float(init_spike_prior) \
+        * mask[:, None, :]
+    return mask, lam0
+
+
+def mbcs_many(
+    y_pscs, stims, mu_prior, beta_prior, shape_prior, rate_prior, iters=50,
+    seeds=None, penalty=5e0, scale_factor=0.5, max_penalty_iters=10,
+    max_lasso_iters=100, constrain_weights="positive", learn_lam=True,
+    delay_spont_estimation=1, minimum_spike_count=1, noise_scale=0.5,
+    num_mc_samples_noise_model=10, minimum_maximal_spike_prob=0.2,
+    orthogonal_outliers=True, outlier_penalty=5e1, init_spike_prior=0.75,
+    outlier_tol=0.05, spont_rate=0, y_xcorr_thresh=0.05,
+    lam_mask_fraction=0.05, analytic_noise=False, dtype=torch.float32,
+    mesh=None, powers=None, compile_mode="auto", trace_wire=None,
+    verbose=True, device=None,
+):
+    """Fit B experiments with MBCS; the signature of
+    ``circuitmap_tpu.solvers.mbcs_many`` plus ``device`` (None means
+    CUDA; the package's device rule). Priors are shared; experiment b's
+    initial weights are the single fit's lognormal draw from
+    ``np.random.default_rng(seeds[b])`` (default b), its row orders and
+    noise samples come from a generator seeded with ``seeds[b]``.
+    Returns a list of B dicts of numpy arrays with keys
+    mu/beta/lam/shape/rate/z/receptive_fields.
+
+    The activity masks are computed on the device (:func:`_mbcs_mask_init`).
+    ``compile_mode``: "sequential" (and "auto") runs the single fit's
+    loop per experiment; "batched" one loop over the stack (FISTA over
+    [B, N, N] with a stopping flag per experiment; the spike sweep over
+    the union of the experiments' connected rows, each row kept only
+    where its experiment's weight is nonzero). The modes agree to float
+    rounding. Feed demixed traces, as ``mbcs`` documents.
+
+    A ragged list runs each experiment's single ``mbcs`` fit at its true
+    shape (host traces on the exact wire: ``trace_wire`` raises).
+    """
+    from .mbcs import _run_mbcs, fit_params, mbcs as mbcs_single
+
+    dev, dtype = _float_device(device, dtype)
+    params = fit_params(
+        penalty=penalty, scale_factor=scale_factor,
+        max_penalty_iters=max_penalty_iters, max_lasso_iters=max_lasso_iters,
+        constrain_weights=constrain_weights, learn_lam=learn_lam,
+        delay_spont_estimation=delay_spont_estimation,
+        minimum_spike_count=minimum_spike_count,
+        num_mc_samples_noise_model=num_mc_samples_noise_model,
+        orthogonal_outliers=orthogonal_outliers,
+        analytic_noise=analytic_noise, outlier_penalty=outlier_penalty,
+        minimum_maximal_spike_prob=minimum_maximal_spike_prob,
+        outlier_tol=outlier_tol, noise_scale=noise_scale)
+    ragged_in = _ragged_lists(y_pscs, stims, "mbcs_many")
+    if ragged_in is not None:
+        _ragged_sequential_guard("mbcs_many", mesh, compile_mode, powers)
+        if trace_wire is not None:
+            raise ValueError(
+                "ragged mbcs_many has no trace_wire path (the single fit "
+                "computes its activity mask from the host traces); ship "
+                "float32, or use caviar_many for a compressed ragged wire")
+        ys_list, st_list, ks = ragged_in
+        seeds = np.arange(len(ys_list)) if seeds is None else seeds
+        if verbose:
+            print(f"Running MBCS (PyTorch) on {len(ys_list)} experiments "
+                  f"(ragged trials {min(ks)}-{max(ks)}, sequential "
+                  "true-shape fits).")
+        single = dict(params, init_spike_prior=init_spike_prior,
+                      spont_rate=spont_rate, y_xcorr_thresh=y_xcorr_thresh,
+                      lam_mask_fraction=lam_mask_fraction)
+        return [dict(zip(MBCS_FIELDS, (v.cpu().numpy() for v in mbcs_single(
+            yb, sb, mu_prior, beta_prior, shape_prior, rate_prior,
+            iters=iters, seed=int(seeds[b]), dtype=dtype,
+            save_histories=False, verbose=False, device=dev,
+            **single)[:7])))
+            for b, (yb, sb) in enumerate(zip(ys_list, st_list))]
+
+    y_pscs, stims_np = _same_shape_stack(y_pscs, stims, trace_wire, dtype)
+    B, K, _T = y_pscs.shape
+    N = np.asarray(mu_prior).shape[0]
+    mode = _resolve_mode(compile_mode, mesh)
+    powers_np = _validate_shared_levels(stims_np, powers)
+    if verbose:
+        print(f"Running MBCS (PyTorch) on {B} experiments "
+              f"(compile_mode={mode}).")
+    y_dev = _upload_trace_stack(y_pscs, dtype, trace_wire, dev)
+    stim_dev, powers_dev_np = _upload_stim_stack(stims_np, dtype, powers_np,
+                                                 dev)
+    ys = integrated_charge(y_dev)
+    masks, lam0 = _mbcs_mask_init(y_dev, stim_dev, float(y_xcorr_thresh),
+                                  float(lam_mask_fraction), init_spike_prior)
+    powers_with_zero = _as(np.concatenate([[0.0], powers_dev_np]), dtype, dev)
+    seeds = np.arange(B) if seeds is None else seeds
+    mu0 = _as(np.stack([np.random.default_rng(int(sd)).lognormal(1.0, 1.0, N)
+                        for sd in seeds]), dtype, dev)
+    beta_p = _as(beta_prior, dtype, dev)
+    gens = [seeded_generator(sd, dev) for sd in seeds]
+    shape0 = torch.full((B, K), float(shape_prior), dtype=dtype, device=dev)
+    rate0 = torch.full((B, K), float(rate_prior), dtype=dtype, device=dev)
+    spont0 = torch.full((B,), float(spont_rate), dtype=dtype, device=dev)
+    loop = dict(iters=int(iters), save_histories=False)
+    if mode == "sequential":
+        outs = [_run_mbcs(ys[b], stim_dev[b], lam0[b], masks[b],
+                          powers_with_zero, mu0[b], beta_p, shape0[b],
+                          rate0[b], spont0[b], [gens[b]], params, **loop)
+                for b in range(B)]
+        final = [torch.stack(xs) for xs in zip(
+            *[(*carry[:6], rf) for carry, rf, _ in outs])]
+    else:
+        carry, rf, _ = _run_mbcs(ys, stim_dev, lam0, masks, powers_with_zero,
+                                 mu0, beta_p, shape0, rate0, spont0, gens,
+                                 params, **loop)
+        final = [*carry[:6], rf]
+    return _split(final, MBCS_FIELDS)

@@ -15,6 +15,12 @@ falls below it, so only the spike-count gate acts) and the gate on. The
 mu and alpha sweeps are plain PyTorch on the fit's device, one row
 after another: the row order is read to the host once a sweep and each
 row is a few small launches, with no host read.
+
+``_run_sns_many`` runs the loop over a stack of independent experiments
+(``sns_many``'s batched mode, solvers/batched.py): the lam sweep is one
+launch of the batched row kernel, the refit one batched Laplace launch,
+and the mu and alpha sweeps visit position i of every experiment's
+order at once.
 """
 
 from __future__ import annotations
@@ -27,9 +33,12 @@ import torch
 from .._device import resolve_device, torch_dtype
 from ..ops.charge import integrated_charge
 from ..ops.sweep_row_cuda import sweep_spikes_row
-from ._common import prepare_stim, prepare_traces, warn_data_thin_design_dense
+from ._common import (prepare_stim, prepare_traces, stim_upload_plan,
+                      warn_data_thin_design_dense)
 from ._laplace import laplace_phi_update, resolve_laplace_impl
-from .caviar import (_as, _mv, _validate_update_order, _vm, power_counts_of,
+from ..ops.sweep_row_cuda import sweep_spikes_row_batched
+from .caviar import (_as, _each_expt, _each_stream, _mv,
+                     _validate_update_order, _vm, power_counts_of,
                      powercurve_logit_means, seeded_generator)
 
 EPS = 1e-10
@@ -105,6 +114,62 @@ def sweep_connection_probs(y, mu, beta, alpha, lam, sig, alpha_prior, order):
     return alpha
 
 
+def _sweep_means_many(y, mu, beta, alpha, lam, sig, mu_prior, beta_prior,
+                      orders):
+    """:func:`sweep_means` over a stack ([E, ...] arrays, ``sig`` [E] or
+    shared, ``orders`` [E, N]): step i updates row ``orders[e, i]`` of
+    every experiment e, from its own residual. Products and dots are
+    taken experiment by experiment (the single sweep's own), the rest
+    over the stack at once."""
+    E, N = mu.shape
+    ex = torch.arange(E, device=mu.device)
+    sig = torch.as_tensor(sig).expand(E)[:, None]
+    w = mu * alpha
+    r = _each_expt(_vm, w, lam)
+    beta2 = beta * beta
+    base = beta2 * (alpha * _each_expt(_mv, lam, sig * y)
+                    + mu_prior / (beta_prior * beta_prior))
+    slope = beta2 * (alpha * sig)
+    mu = mu.clone()
+    for i in range(N):
+        n = orders[:, i]
+        lam_n = lam[ex, n]
+        r_excl = torch.addcmul(r, w[ex, n][:, None], lam_n, value=-1.0)
+        new = torch.addcmul(base[ex, n], slope[ex, n],
+                            _each_expt(torch.dot, lam_n, r_excl), value=-1.0)
+        r = torch.addcmul(r_excl, (new * alpha[ex, n])[:, None], lam_n)
+        mu[ex, n] = new
+    return mu
+
+
+def _sweep_connection_probs_many(y, mu, beta, alpha, lam, sig, alpha_prior,
+                                 orders):
+    """:func:`sweep_connection_probs` over a stack, as
+    :func:`_sweep_means_many`."""
+    E, N = mu.shape
+    ex = torch.arange(E, device=mu.device)
+    w = mu * alpha
+    r = _each_expt(_vm, w, lam)
+    prior_logit = torch.log((alpha_prior + EPS) / (1.0 - alpha_prior + EPS))
+    base = (-2.0 * mu * _each_expt(_mv, lam, y)
+            + (mu * mu + beta * beta)
+            * _each_expt(lambda a: torch.sum(a, dim=1), lam))
+    two_mu = 2.0 * mu
+    half_sig = 0.5 * torch.as_tensor(sig).expand(E)
+    alpha = alpha.clone()
+    for i in range(N):
+        n = orders[:, i]
+        lam_n = lam[ex, n]
+        r_excl = torch.addcmul(r, w[ex, n][:, None], lam_n, value=-1.0)
+        quad = torch.addcmul(base[ex, n], two_mu[ex, n],
+                             _each_expt(torch.dot, lam_n, r_excl))
+        new = torch.sigmoid(torch.addcmul(prior_logit[n], half_sig, quad,
+                                          value=-1.0))
+        r = torch.addcmul(r_excl, (mu[ex, n] * new)[:, None], lam_n)
+        alpha[ex, n] = new
+    return alpha
+
+
 def sweep_spikes_sns(y, stim, mu, beta, alpha, lam, sig, m0, m1, lam_mask,
                      order, minimum_spike_count, powers=None,
                      power_counts=None):
@@ -151,55 +216,88 @@ def update_noise_sns(y, mu, beta, alpha, lam, shape_prior, rate_prior):
     return shape_prior + 0.5 * K, rate
 
 
-def _iteration(state, data, hyper, orders, generator, *, num_mc_samples,
+def _iteration(state, data, hyper, orders, generators, *, num_mc_samples,
                minimum_spike_count, analytic_mc):
-    """One CAVI-SnS iteration. ``orders``: the row orders of the mu,
-    alpha and lam sweeps; ``generator``: the Monte Carlo stream of the
-    power-curve means (unused with ``analytic_mc``)."""
+    """One CAVI-SnS iteration over one experiment or a stack (a leading
+    axis on y). ``orders``: the row orders of the mu, alpha and lam
+    sweeps ([N] or [E, N]); ``generators``: the Monte Carlo streams of
+    the power-curve means, one per experiment (unused with
+    ``analytic_mc``)."""
     y, stim, lam_mask, powers, power_counts = data
     (mu_prior, beta_prior, alpha_prior, shape_prior, rate_prior,
      phi_prior, phi_cov_prior) = hyper
+    many = y.dim() > 1
     sig0 = state.shape / state.rate
-    beta = update_slab_scale(state.alpha, state.lam, state.shape, state.rate,
-                             beta_prior)
-    mu = sweep_means(y, state.mu, beta, state.alpha, state.lam, sig0,
-                     mu_prior, beta_prior, orders[0])
-    alpha = sweep_connection_probs(y, mu, beta, state.alpha, state.lam, sig0,
-                                   alpha_prior, orders[1])
-    m0, m1 = powercurve_logit_means(generator, state.phi, state.phi_cov,
-                                    num_mc_samples, analytic_mc)
-    lam = sweep_spikes_sns(y, stim, mu, beta, alpha, state.lam, sig0, m0, m1,
-                           lam_mask, orders[2], minimum_spike_count, powers,
-                           power_counts)
-    shape, rate = update_noise_sns(y, mu, beta, alpha, lam, shape_prior,
-                                   rate_prior)
+    if many:  # each experiment's slab scale as its single fit takes it
+        E = y.shape[0]
+        beta = _each_expt(
+            lambda a, lm, sh, rt: update_slab_scale(a, lm, sh, rt,
+                                                    beta_prior),
+            state.alpha, state.lam, state.shape.expand(E),
+            state.rate.expand(E))
+    else:
+        beta = update_slab_scale(state.alpha, state.lam, state.shape,
+                                 state.rate, beta_prior)
+    mu = (_sweep_means_many if many else sweep_means)(
+        y, state.mu, beta, state.alpha, state.lam, sig0, mu_prior,
+        beta_prior, orders[0])
+    alpha = (_sweep_connection_probs_many if many else
+             sweep_connection_probs)(y, mu, beta, state.alpha, state.lam,
+                                     sig0, alpha_prior, orders[1])
+    m0, m1 = _each_stream(generators, lambda g, b: torch.stack(
+        powercurve_logit_means(
+            g, state.phi if b is None else state.phi[b],
+            state.phi_cov if b is None else state.phi_cov[b],
+            num_mc_samples, analytic_mc))).unbind(-2)
+    if many:
+        w, beta_eff = row_sweep_weights(mu, beta, alpha)
+        lam = sweep_spikes_row_batched(
+            y, stim, w, beta_eff, state.lam, sig0, m0, m1, lam_mask, powers,
+            power_counts, orders[2], -1.0, minimum_spike_count, 1.0)
+    else:
+        lam = sweep_spikes_sns(y, stim, mu, beta, alpha, state.lam, sig0, m0,
+                               m1, lam_mask, orders[2], minimum_spike_count,
+                               powers, power_counts)
+    if many:
+        shape, rate = _each_expt(
+            lambda *a: update_noise_sns(*a, shape_prior, rate_prior),
+            y, mu, beta, alpha, lam)
+    else:
+        shape, rate = update_noise_sns(y, mu, beta, alpha, lam, shape_prior,
+                                       rate_prior)
     phi, phi_cov = laplace_phi_update(lam, stim, phi_prior, phi_cov_prior,
                                       powers=powers, counts=power_counts)
     return SnsState(mu, beta, alpha, lam, shape, rate, phi, phi_cov)
 
 
-def _run_sns(y, stim, lam0, lam_mask, powers, hyper, generator, *, iters,
+def _run_sns(y, stim, lam0, lam_mask, powers, hyper, generators, *, iters,
              num_mc_samples, minimum_spike_count, analytic_mc, save_histories,
              update_order="random"):
-    """The fit loop; draws each iteration's three row orders (then the
-    Monte Carlo samples) from ``generator``. Returns (final state, the
-    per-iteration states when ``save_histories``)."""
+    """The fit loop over one experiment (y [K], one generator) or a stack
+    (y [E, K], stim [E, N, K], E generators); draws each iteration's
+    three row orders (then the Monte Carlo samples) from each
+    experiment's generator. Returns (final state, the per-iteration
+    states when ``save_histories``)."""
     (mu_prior, beta_prior, alpha_prior, shape_prior, rate_prior,
      phi_prior, phi_cov_prior) = hyper
-    N = stim.shape[0]
+    N = stim.shape[-2]
+    lead = y.shape[:-1]
     data = (y, stim, lam_mask, powers, power_counts_of(stim, powers, y.dtype))
-    state = SnsState(mu_prior, beta_prior, alpha_prior, lam0, shape_prior,
-                     rate_prior, phi_prior, phi_cov_prior)
+    state = SnsState(mu_prior.expand(*lead, N), beta_prior.expand(*lead, N),
+                     alpha_prior.expand(*lead, N), lam0, shape_prior,
+                     rate_prior, phi_prior.expand(*lead, N, 2),
+                     phi_cov_prior.expand(*lead, N, 2, 2))
 
     def draw():
         if update_order == "identity":
-            return torch.arange(N, device=y.device)
-        return torch.randperm(N, generator=generator, device=y.device)
+            return torch.arange(N, device=y.device).expand(*lead, N)
+        return _each_stream(generators, lambda g, b: torch.randperm(
+            N, generator=g, device=y.device))
 
     snaps = []
     for _ in range(iters):
         orders = (draw(), draw(), draw())
-        state = _iteration(state, data, hyper, orders, generator,
+        state = _iteration(state, data, hyper, orders, generators,
                            num_mc_samples=num_mc_samples,
                            minimum_spike_count=minimum_spike_count,
                            analytic_mc=analytic_mc)
@@ -237,8 +335,10 @@ def cavi_sns(
     if verbose:
         print("Running CAVI-SnS (PyTorch).")
 
+    stim_np, plan = stim_upload_plan(stim, None, dev)
     y_psc = prepare_traces(y_psc, dtype, dev, trace_wire=trace_wire)
-    stim_t, stim_np, _, powers_dev_np = prepare_stim(stim, dtype, dev)
+    stim_t, _, _, powers_dev_np = prepare_stim(stim_np, dtype, dev,
+                                               plan=plan)
     warn_data_thin_design_dense(stim_np, what="cavi_sns()")
     y = integrated_charge(y_psc)
     lam_mask = torch.ones(stim_t.shape[1], dtype=dtype, device=dev)
@@ -248,7 +348,7 @@ def cavi_sns(
         phi_prior, phi_cov_prior))
     final, snaps = _run_sns(
         y, stim_t, lam0, lam_mask, _as(powers_dev_np, dtype, dev), hyper,
-        seeded_generator(seed, dev), iters=int(iters),
+        [seeded_generator(seed, dev)], iters=int(iters),
         num_mc_samples=int(num_mc_samples),
         minimum_spike_count=int(minimum_spike_count),
         analytic_mc=bool(analytic_mc), save_histories=bool(save_histories),

@@ -32,6 +32,7 @@ cannot reproduce ``jax.random``, so cross-package parity runs use
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,18 +40,36 @@ import torch
 from .._device import highest_matmul, resolve_device, torch_dtype
 from ..ops.charge import prepare_observations
 from ..ops.pava import isotonic_fit_at_max_batched
-from ..ops.sweep_cuda import (_sweep_row_blocks, sweep_spikes_blocked,
+from ..ops.sweep_cuda import (MAX_BLOCK, _sweep_row_blocks,
+                              sweep_spikes_blocked,
                               sweep_spikes_blocked_batched)
 from ..ops.sweep_row_cuda import (sweep_spikes_row, sweep_spikes_row_batched,
                                   sweep_spikes_row_torch)
 from ..ops.truncnorm import sample_truncated_normal, truncated_normal_mean
 from ._common import (prepare_stim_and_init, prepare_traces,
-                      warn_data_thin_design)
+                      stim_upload_plan, warn_data_thin_design)
 from ._laplace import laplace_phi_update, resolve_laplace_impl
 from .diagnostics import elbo_device
 
 SWEEP_IMPLS = ("auto", "cuda")
 CUDA_BLOCK_SIZE = 8
+
+
+class CaviarState(NamedTuple):
+    """The fit loop's state after an iteration: the posteriors and the
+    spontaneous rate that the next iteration's gate adds to ``msrmp``.
+    One experiment, or a stack with a leading axis. The random stream is
+    not part of it: it is the caller's ``torch.Generator``, which carries
+    across calls."""
+    mu: torch.Tensor
+    beta: torch.Tensor
+    lam: torch.Tensor
+    shape: torch.Tensor
+    rate: torch.Tensor
+    phi: torch.Tensor
+    phi_cov: torch.Tensor
+    z: torch.Tensor
+    spont_rate: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
@@ -65,6 +84,17 @@ def _mv(A, x):
         if x.dim() == 1:
             return A @ x
         return (A @ x[..., None])[..., 0]
+
+
+def _each_expt(fn, *arrays):
+    """``fn`` on each experiment's slices of [E, ...] arrays, stacked (a
+    tuple of results stacks element by element): the single fit's own
+    products and reductions, so a batched loop that takes them rounds as
+    the sequential one does."""
+    outs = [fn(*(a[b] for a in arrays)) for b in range(arrays[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(x) for x in zip(*outs))
+    return torch.stack(outs)
 
 
 def _vm(x, A):
@@ -214,21 +244,35 @@ def _run_caviar(y, stim, lam0, lam_mask, powers, power_counts, hyper,
                 delay_spont_est, msrmp, scale_factor, penalty,
                 max_backtrack_iters, tol, spont_orthogonality, analytic_mc,
                 save_histories, sweep_block_size, update_order, k_true=None,
-                track_elbo=False, elbo_tol=None):
+                track_elbo=False, elbo_tol=None, init_state=None,
+                start_iter=0, spont_seed_cap=None):
     """The fit loop over one experiment (y [K], stim [N, K], one
     generator) or E of them (y [E, K], stim [E, N, K], E generators,
-    the batched sweep kernels). ``k_true``: None, or the real trial
-    counts [E] of a ragged stack whose padded columns are inert (zero
-    traces, stim and mask); the places that count trials use it.
+    the batched sweep kernels). ``k_true``: None, the real trial count
+    (a number) of one experiment, or the real trial counts [E] of a
+    stack, when the arrays carry inert padded columns (zero traces, stim
+    and mask); the places that count trials use it.
+
+    Warm starts (the resumable and streaming fits): ``init_state`` (a
+    :class:`CaviarState`) replaces the priors and ``lam0`` as the
+    starting point; the iterations are numbered from ``start_iter``,
+    which sets the gate's delay (``it > delay_spont_est``) and the
+    spontaneous update's trips; ``spont_seed_cap`` caps the index that
+    seeds those trips (``min(it, cap)``). Segments run with the same
+    generators one after another give the one-shot fit.
 
     ``track_elbo`` (one experiment): the bound after each iteration
     (``diagnostics.elbo_device``), returned third as ``(elbos [iters],
     stop_at)``, else None. With ``elbo_tol``, ``stop_at`` is the first
-    iteration but iteration 0 whose bound moved by less than
+    iteration after ``start_iter`` whose bound moved by less than
     ``elbo_tol`` relative to the one before (one host read an
     iteration): the state freezes there, and the remaining history and
-    bound slots repeat the frozen values. It is ``iters`` when that
-    never happens."""
+    bound slots repeat the frozen values. It is ``start_iter + iters``
+    when that never happens.
+
+    Returns (final :class:`CaviarState`, the per-iteration (mu, beta,
+    lam, shape, rate, phi, phi_cov, z) when ``save_histories``, the
+    bound or None)."""
     mu_prior, beta_prior, shape_prior, rate_prior, phi_prior, phi_cov_prior = hyper
     N, K = stim.shape[-2:]
     lead = y.shape[:-1]  # () for one experiment, (E,) for a stack
@@ -239,14 +283,17 @@ def _run_caviar(y, stim, lam0, lam_mask, powers, power_counts, hyper,
         sweep = functools.partial(sweep, block_size=B)
     n_slots = N if B == 1 else -(-N // B)  # rows, or blocks incl. padding
     k_count = K if k_true is None else k_true
-    mu, beta, lam = mu_prior, beta_prior, lam0
-    shape, rate = shape_prior, rate_prior
-    phi = phi_prior.expand(*lead, N, 2)
-    phi_cov = phi_cov_prior.expand(*lead, N, 2, 2)
-    z = torch.zeros(*lead, K, dtype=y.dtype, device=dev)
-    spont_rate = torch.zeros(lead, dtype=y.dtype, device=dev)
-    snaps, elbos, stop_at = [], [], iters
-    for it in range(iters):
+    if init_state is None:
+        init_state = CaviarState(
+            mu_prior, beta_prior, lam0, shape_prior, rate_prior,
+            phi_prior.expand(*lead, N, 2),
+            phi_cov_prior.expand(*lead, N, 2, 2),
+            torch.zeros(*lead, K, dtype=y.dtype, device=dev),
+            torch.zeros(lead, dtype=y.dtype, device=dev))
+    mu, beta, lam, shape, rate, phi, phi_cov, z, spont_rate = init_state
+    end = start_iter + iters
+    snaps, elbos, stop_at = [], [], end
+    for it in range(start_iter, end):
         mu, beta = update_weights(y, lam, shape, rate, mu_prior, beta_prior)
         if update_order == "identity":
             order = torch.arange(n_slots, device=dev).expand(*lead, n_slots)
@@ -268,7 +315,8 @@ def _run_caviar(y, stim, lam0, lam_mask, powers, power_counts, hyper,
         phi, phi_cov = laplace_phi_update(lam, stim, phi_prior, phi_cov_prior,
                                           powers=powers, total_trials=k_count,
                                           counts=power_counts)
-        z = update_spontaneous(y, mu, lam, z, it, penalty, lam_mask,
+        spont_it = it if spont_seed_cap is None else min(it, spont_seed_cap)
+        z = update_spontaneous(y, mu, lam, z, spont_it, penalty, lam_mask,
                                scale_factor, tol, spont_orthogonality,
                                max_backtrack_iters)
         spont_rate = torch.sum((z != 0.0).to(y.dtype), dim=-1) / k_count
@@ -278,20 +326,22 @@ def _run_caviar(y, stim, lam0, lam_mask, powers, power_counts, hyper,
             elbos.append(elbo_device(y, stim, dict(
                 mu=mu, beta=beta, lam=lam, shape=shape, rate=rate, phi=phi,
                 z=z), hyper, k_count))
-            if elbo_tol is not None and it > 0:
+            if elbo_tol is not None and it > start_iter:
                 prev = elbos[-2]
                 rel = torch.abs(elbos[-1] - prev) / torch.clamp(
                     torch.abs(prev), min=1e-12)
                 if bool(rel < elbo_tol):
                     stop_at = it
                     break
-    if stop_at < iters:  # the frozen iterations repeat the state
-        frozen = iters - 1 - stop_at
+    if stop_at < end:  # the frozen iterations repeat the state
+        frozen = end - 1 - stop_at
         snaps += snaps[-1:] * frozen
         elbos += elbos[-1:] * frozen
     elbo_out = ((torch.stack(elbos).cpu().numpy(), stop_at) if track_elbo
                 else None)
-    return (mu, beta, lam, shape, rate, phi, phi_cov, z), snaps, elbo_out
+    final = CaviarState(mu, beta, lam, shape, rate, phi, phi_cov, z,
+                        spont_rate)
+    return final, snaps, elbo_out
 
 
 # ---------------------------------------------------------------------------
@@ -389,13 +439,17 @@ def reconnect_from_spontaneous(y, stim, lam, mu, beta, z, msrmp=0.3,
 
 def _reconnect_and_refit(stim, lam, mu, beta, z, powers, phi, phi_cov,
                          phi_prior, phi_cov_prior, msrmp,
-                         minimum_spike_count):
-    """Reconnection scan, then the power-curve refit if lam changed."""
+                         minimum_spike_count, total_trials=None):
+    """Reconnection scan, then the power-curve refit if lam changed.
+    ``total_trials``: the real trial count when the arrays carry inert
+    padded columns (the streaming fit's capacity buffers); the scan is
+    padding-proof, the refit's unstimulated bucket counts trials."""
     mu, beta, lam, z, n_rec = _reconnect_scan_device(
         stim, lam, mu, beta, z, powers, msrmp, minimum_spike_count)
     if n_rec:
         phi, phi_cov = laplace_phi_update(lam, stim, phi_prior, phi_cov_prior,
-                                          powers=powers)
+                                          powers=powers,
+                                          total_trials=total_trials)
     return mu, beta, lam, z, phi, phi_cov, n_rec
 
 
@@ -415,12 +469,13 @@ def _validate_update_order(update_order):
 def _resolve_sweep(sweep_impl, sweep_block_size, device, k=None):
     """The sweep's block size on ``device`` (only its type is read) for
     ``k`` trials, which no longer matters: the cluster kernel takes any
-    K at either block size.
+    K at any block size.
 
     'auto' is 8 on CUDA (the cluster kernel at 8 rows a step) and 1 on
     the CPU (the reference's strictly sequential schedule). A pinned size
-    is honoured verbatim: on CUDA 1 runs the kernel at one row a step, 8
-    at eight, and no other size has a kernel.
+    is honoured verbatim: on CUDA 1..32 run the kernel at that many rows
+    a step (1: the strictly sequential schedule); a larger size raises
+    here, before anything is uploaded (ROADMAP C).
     """
     if sweep_impl not in SWEEP_IMPLS:
         raise ValueError(
@@ -431,9 +486,11 @@ def _resolve_sweep(sweep_impl, sweep_block_size, device, k=None):
     if sweep_block_size == "auto":
         return CUDA_BLOCK_SIZE if on_cuda else 1
     block = int(sweep_block_size)
-    if on_cuda and block not in (1, CUDA_BLOCK_SIZE):
+    if block < 1:
+        raise ValueError(f"sweep_block_size must be >= 1, got {block}")
+    if on_cuda and block > MAX_BLOCK:
         raise NotImplementedError(
-            f"the CUDA sweep kernel runs single rows or 8-row blocks; "
+            f"the CUDA sweep kernel takes 1..{MAX_BLOCK} rows a step; "
             f"sweep_block_size={block} is not available on the GPU")
     return block
 
@@ -477,7 +534,9 @@ def caviar(
     CPU). CUDA fits are float32; a float64 fit runs on the CPU.
 
     ``sweep_block_size="auto"`` is 8 on CUDA at any K and 1 on the CPU;
-    a pinned 1 or 8 is honoured (``_resolve_sweep``).
+    a pinned size is honoured, on CUDA 1..32 (``_resolve_sweep``). A
+    CUDA fit takes at most 16 power levels; more raise before any
+    upload.
 
     ``track_elbo=True`` appends an 18th element ``(elbos [iters],
     converged_at)``: the evidence lower bound after each iteration
@@ -500,10 +559,11 @@ def caviar(
     if verbose:
         print("Running CAVIaR (PyTorch).")
 
+    stim_np, plan = stim_upload_plan(stim, powers, dev)
     y_psc = prepare_traces(y_psc, dtype, dev, trace_wire=trace_wire)
     y, active = prepare_observations(y_psc, y_xcorr_thresh)
     stim_t, lam_mask, lam0, _, _, powers_dev_np, pc_np = prepare_stim_and_init(
-        stim, active, dtype, dev, powers=powers)
+        stim_np, active, dtype, dev, plan)
     warn_data_thin_design(pc_np, stim_t.shape[1], what="caviar()")
     powers_t = _as(powers_dev_np, dtype, dev)
     hyper = tuple(_as(a, dtype, dev) for a in (
@@ -523,7 +583,7 @@ def caviar(
         sweep_block_size=block_size, update_order=update_order,
         track_elbo=bool(track_elbo),
         elbo_tol=None if elbo_tol is None else float(elbo_tol))
-    mu, beta, lam, shape, rate, phi, phi_cov, z = final
+    mu, beta, lam, shape, rate, phi, phi_cov, z, _ = final
 
     if fn_scan:
         mu, beta, lam, z, phi, phi_cov, n_rec = _reconnect_and_refit(

@@ -9,8 +9,13 @@ MBCS sweep takes a per-trial noise vector, a per-trial spike prior and
 skips disconnected rows, so it does not map onto the CAVIaR sweep
 kernel (and is no Pallas kernel in the JAX package either).
 
+The updates take one experiment or a stack of independent experiments
+with a leading axis (``mbcs_many``'s batched mode, solvers/batched.py):
+FISTA over [E, N, N] with a stopping flag per experiment, and a spike
+sweep over the union of the experiments' connected rows.
+
 Host reads: the penalty loop of the weight update reads its stopping
-flag once a penalty step, and the spike sweep reads the row order and
+flags once a penalty step, and the spike sweep reads the row order and
 the connected rows once a sweep; nothing is read per row.
 """
 
@@ -23,7 +28,7 @@ from .._device import highest_matmul, resolve_device, torch_dtype
 from ..ops.charge import integrated_charge
 from ..ops.pava import isotonic_regression_batched
 from ._common import prepare_stim, prepare_traces, warn_data_thin_design_dense
-from .caviar import _as, _mv, _vm, seeded_generator
+from .caviar import _as, _each_expt, _each_stream, _mv, _vm, seeded_generator
 
 
 # ---------------------------------------------------------------------------
@@ -47,6 +52,15 @@ def _lasso_setup(A, y):
     return AtA, Aty, 1.0 / L
 
 
+def _each(many, fn, *arrays):
+    """``fn`` on the arrays, or with ``many`` on each experiment's slices
+    of them, stacked (``caviar._each_expt``): a stack's products and
+    reductions are its single fits' own, so the batched loop rounds as
+    the sequential one does, and MBCS's thresholds (the lasso's zeros,
+    the isotonic filter) decide alike."""
+    return _each_expt(fn, *arrays) if many else fn(*arrays)
+
+
 def _momentum_coefs(max_iters, dtype):
     """FISTA's momentum factors (t - 1) / t_new, computed in the fit's
     float width as the device recursion would."""
@@ -61,17 +75,21 @@ def _momentum_coefs(max_iters, dtype):
 
 def _fista(setup, x0, penalty, max_iters, positive):
     AtA, Aty, step = setup
-    thresh = step * penalty
+    thresh = (step * penalty)[..., None]
+    step = step[..., None]
 
     def prox(u):
         if positive:  # sign(u) * max(|u| - thresh, 0), clipped at 0
             return torch.clamp(u - thresh, min=0.0)
         return torch.sign(u) * torch.clamp(torch.abs(u) - thresh, min=0.0)
 
+    def grad_of(a, b, v):  # AtA x - Aty
+        return torch.addmv(b, a, v, beta=-1.0)
+
     x, x_last = x0, x0
     with highest_matmul():
         for coef in _momentum_coefs(max_iters, x0.dtype):
-            grad = torch.addmv(Aty, AtA, x, beta=-1.0)  # AtA x - Aty
+            grad = _each(x.dim() > 1, grad_of, AtA, Aty, x)
             x_new = prox(torch.addcmul(x, step, grad, value=-1.0))
             x = torch.add(x_new, x_new - x_last, alpha=coef)
             x_last = x_new
@@ -93,26 +111,36 @@ def update_weights_constrained_l1(
     """Penalty-shrinking constrained Lasso weight update: shrinks the L1
     penalty geometrically until the residual meets the noise-scale
     constraint ``sqrt(sum(rate/shape))``, or until shrinking no longer
-    changes the solution. Reads its stopping flag on the host once a
-    penalty step; the lasso's Gram matrix and step are computed once."""
+    changes the solution. A stack of experiments ([E, ...] arrays) runs
+    FISTA over [E, N, N] Gram matrices, and each experiment stops on its
+    own: a stopped experiment keeps its weights and penalty while the
+    others go on. Reads the stopping flags on the host once a penalty
+    step; the lasso's Gram matrix and step are computed once."""
     del verbose
-    constr = torch.sqrt(torch.sum(rate / shape))
+    many = lam.dim() > 2
+    constr = _each(many, lambda r, s: torch.sqrt(torch.sum(r / s)), rate,
+                   shape)
     flip = constrain_weights == "negative"
-    A = (-lam if flip else lam).T  # [K, N]
+    A = (-lam if flip else lam).mT  # [..., K, N]
     coef = -mu if flip else mu
     positive = constrain_weights in ("positive", "negative")
-    pen = torch.as_tensor(penalty, dtype=lam.dtype, device=lam.device)
-    setup = _lasso_setup(A, y)
+    pen = torch.full(constr.shape, float(penalty), dtype=lam.dtype,
+                     device=lam.device)
+    live = torch.ones(constr.shape, dtype=torch.bool, device=lam.device)
+    setup = _each(many, _lasso_setup, A, y)
     for i in range(int(max_penalty_iters)):
         new = _fista(setup, coef, pen, int(max_lasso_iters), positive)
-        err = torch.linalg.norm(y - _mv(A, new))
+        err = _each(many, lambda yy, a, x: torch.linalg.norm(yy - _mv(a, x)),
+                    y, A, new)
         done = err <= constr
         if i > 0:
-            plateau = (torch.all(torch.abs(new - coef) < tol)
-                       & ~torch.all(new == 0))
+            plateau = (torch.all(torch.abs(new - coef) < tol, dim=-1)
+                       & ~torch.all(new == 0, dim=-1))
             done = done | plateau
-        coef, pen = new, pen * scale_factor
-        if bool(done):
+        coef = torch.where(live[..., None], new, coef)
+        pen = torch.where(live, pen * scale_factor, pen)
+        live = live & ~done
+        if not bool(live.any()):
             break
     return -coef if flip else coef
 
@@ -146,11 +174,15 @@ def update_receptive_fields(lam, stim, powers_with_zero):
 
 def isotonic_filtering(mu, lam, receptive_field, minimum_spike_count=1,
                        minimum_maximal_spike_prob=0.2):
-    """Disconnect cells failing the max-power rate or spike-count floor."""
-    keep = ((receptive_field[:, -1] >= minimum_maximal_spike_prob)
-            & (torch.sum(lam >= 0.5, dim=1) >= minimum_spike_count))
+    """Disconnect cells failing the max-power rate or spike-count floor.
+    ``minimum_maximal_spike_prob``: a number, or one per experiment."""
+    floor = torch.as_tensor(minimum_maximal_spike_prob)
+    if floor.dim():
+        floor = floor[..., None]
+    keep = ((receptive_field[..., -1] >= floor)
+            & (torch.sum(lam >= 0.5, dim=-1) >= minimum_spike_count))
     keep = keep.to(mu.dtype)
-    return mu * keep, lam * keep[:, None]
+    return mu * keep, lam * keep[..., None]
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +263,39 @@ def sweep_spikes_mbcs(y, stim, mu, beta, lam, shape, rate, lam_mask,
     return lam
 
 
+def _sweep_spikes_mbcs_many(y, stim, mu, beta, lam, shape, rate, lam_mask,
+                            spike_prior, orders):
+    """:func:`sweep_spikes_mbcs` over a stack of experiments ([E, ...]
+    arrays, ``orders`` [E, N]): at each position of the orders it visits
+    the rows of every experiment at once, but only the positions where
+    some experiment's row is connected (read to the host with the
+    orders, once a sweep), and each row's new lam is taken only where
+    its experiment's weight is nonzero. A zero weight leaves the
+    residual exactly as it was, so each experiment's result is its own
+    sweep's."""
+    E = lam.shape[0]
+    sig = shape / (2.0 * rate)  # [E, K]
+    r = _each_expt(_vm, mu, lam)
+    m2y = -2.0 * y
+    lam = lam.clone()
+    live = mu != 0
+    ex = torch.arange(E, device=lam.device)
+    orders_h, live_h = orders.cpu().numpy(), live.cpu().numpy()
+    visit = live_h[np.arange(E)[:, None], orders_h].any(axis=0)
+    for i in np.flatnonzero(visit):
+        n = orders[:, i]
+        lam_n = lam[ex, n]                       # [E, K]
+        mu_n, beta_n = mu[ex, n][:, None], beta[ex, n][:, None]
+        r_excl = r - mu_n * lam_n
+        quad = (m2y * mu_n + 2.0 * mu_n * r_excl
+                + (mu_n * mu_n + beta_n * beta_n))
+        new = (lam_mask * (stim[ex, n] > 0)) * torch.sigmoid(
+            spike_prior[ex, n] - sig * quad)
+        r = r_excl + mu_n * new
+        lam[ex, n] = torch.where(live[ex, n][:, None], new, lam_n)
+    return lam
+
+
 def update_outliers(y, mu, lam, lam_mask, penalty=1.0, scale_factor=0.5,
                     max_penalty_iters=10, orthogonal=True, tol=0.05):
     """Soft-threshold outlier (spontaneous) estimate over a shrinking
@@ -262,14 +327,17 @@ def update_outliers(y, mu, lam, lam_mask, penalty=1.0, scale_factor=0.5,
 # ---------------------------------------------------------------------------
 
 
-def _iteration(carry, it, data, params, order, generator):
-    """One MBCS iteration. ``order``: the spike sweep's row order;
-    ``generator``: the Monte Carlo noise model's stream (unused with
+def _iteration(carry, it, data, params, order, generators):
+    """One MBCS iteration over one experiment or a stack. ``order``:
+    the spike sweep's row order ([N], or [E, N]); ``generators``: the
+    Monte Carlo noise model's streams, one per experiment (unused with
     ``analytic_noise``)."""
     mu, beta, lam, shape, rate, z, spont_rate, spike_prior = carry
     y, stim, lam_mask, powers_with_zero, beta_prior = data
     p = params
-    beta = update_slab_scale_mbcs(lam, shape, rate, beta_prior)
+    many = mu.dim() > 1
+    beta = _each(many, lambda lm, sh, rt: update_slab_scale_mbcs(
+        lm, sh, rt, beta_prior), lam, shape, rate)
     mu = update_weights_constrained_l1(
         y, mu, lam, shape, rate, penalty=p["penalty"],
         scale_factor=p["scale_factor"],
@@ -277,48 +345,76 @@ def _iteration(carry, it, data, params, order, generator):
         max_lasso_iters=p["max_lasso_iters"],
         constrain_weights=p["constrain_weights"])
     if p["learn_lam"]:
-        lam = sweep_spikes_mbcs(y, stim, mu, beta, lam, shape, rate,
-                                lam_mask, spike_prior, order)
-    rf, spike_prior = update_receptive_fields(lam, stim, powers_with_zero)
+        sweep = _sweep_spikes_mbcs_many if many else sweep_spikes_mbcs
+        lam = sweep(y, stim, mu, beta, lam, shape, rate, lam_mask,
+                    spike_prior, order)
+    rf, spike_prior = _each(many, lambda lm, st: update_receptive_fields(
+        lm, st, powers_with_zero), lam, stim)
     mu, lam = isotonic_filtering(
         mu, lam, rf, minimum_spike_count=p["minimum_spike_count"],
         minimum_maximal_spike_prob=p["minimum_maximal_spike_prob"]
         + spont_rate)
     if p["analytic_noise"]:
-        shape, rate = update_noise_analytic(y, mu, beta, lam,
-                                            noise_scale=p["noise_scale"])
-    else:
-        shape, rate = update_noise_mc(
-            generator, y, mu, beta, lam, noise_scale=p["noise_scale"],
-            num_mc_samples=p["num_mc_samples_noise_model"])
+        shape, rate = _each(many, lambda *a: update_noise_analytic(
+            *a, noise_scale=p["noise_scale"]), y, mu, beta, lam)
+    else:  # each experiment's samples from its own stream
+        streams = iter(generators)
+        shape, rate = _each(many, lambda *a: update_noise_mc(
+            next(streams), *a, noise_scale=p["noise_scale"],
+            num_mc_samples=p["num_mc_samples_noise_model"]), y, mu, beta,
+            lam)
     if it > p["delay_spont_estimation"]:
-        z = update_outliers(
-            y, mu, lam, lam_mask, penalty=p["outlier_penalty"],
-            scale_factor=p["scale_factor"],
+        z = _each(many, lambda *a: update_outliers(
+            *a, penalty=p["outlier_penalty"], scale_factor=p["scale_factor"],
             max_penalty_iters=p["max_penalty_iters"],
-            orthogonal=p["orthogonal_outliers"], tol=p["outlier_tol"])
-        spont_rate = torch.mean((z != 0.0).to(y.dtype))
+            orthogonal=p["orthogonal_outliers"], tol=p["outlier_tol"]),
+            y, mu, lam, lam_mask)
+        spont_rate = torch.mean((z != 0.0).to(y.dtype), dim=-1)
     return (mu, beta, lam, shape, rate, z, spont_rate, spike_prior), rf
 
 
 def _run_mbcs(y, stim, lam0, lam_mask, powers_with_zero, mu0, beta_prior,
-              shape0, rate0, spont_rate0, generator, params, *, iters,
+              shape0, rate0, spont_rate0, generators, params, *, iters,
               save_histories):
-    """The fit loop; draws each iteration's row order (then the noise
-    model's samples) from ``generator``. Returns (final carry, receptive
-    fields, the per-iteration (mu, beta, lam, shape, rate, z))."""
-    N, P1 = stim.shape[0], powers_with_zero.shape[0]
+    """The fit loop over one experiment (one generator) or a stack with
+    a leading axis (one generator each); draws each iteration's row
+    order (then the noise model's samples) from each experiment's
+    generator. Returns (final carry, receptive fields, the
+    per-iteration (mu, beta, lam, shape, rate, z))."""
+    N, P1 = stim.shape[-2], powers_with_zero.shape[0]
     carry = (mu0, beta_prior, lam0, shape0, rate0, torch.zeros_like(y),
              spont_rate0, lam0)
-    rf = torch.zeros((N, P1), dtype=y.dtype, device=y.device)
+    rf = torch.zeros((*y.shape[:-1], N, P1), dtype=y.dtype, device=y.device)
     data = (y, stim, lam_mask, powers_with_zero, beta_prior)
     snaps = []
     for it in range(iters):
-        order = torch.randperm(N, generator=generator, device=y.device)
-        carry, rf = _iteration(carry, it, data, params, order, generator)
+        order = _each_stream(generators, lambda g, b: torch.randperm(
+            N, generator=g, device=y.device))
+        carry, rf = _iteration(carry, it, data, params, order, generators)
         if save_histories:
             snaps.append(carry[:6])
     return carry, rf, snaps
+
+
+def fit_params(*, penalty, scale_factor, max_penalty_iters, max_lasso_iters,
+               constrain_weights, learn_lam, delay_spont_estimation,
+               minimum_spike_count, num_mc_samples_noise_model,
+               orthogonal_outliers, analytic_noise, outlier_penalty,
+               minimum_maximal_spike_prob, outlier_tol, noise_scale):
+    """The fit loop's options (``_run_mbcs``'s ``params``), typed."""
+    return dict(
+        penalty=float(penalty), scale_factor=float(scale_factor),
+        max_penalty_iters=int(max_penalty_iters),
+        max_lasso_iters=int(max_lasso_iters),
+        constrain_weights=str(constrain_weights), learn_lam=bool(learn_lam),
+        delay_spont_estimation=int(delay_spont_estimation),
+        minimum_spike_count=int(minimum_spike_count),
+        num_mc_samples_noise_model=int(num_mc_samples_noise_model),
+        orthogonal_outliers=bool(orthogonal_outliers),
+        analytic_noise=bool(analytic_noise),
+        outlier_penalty=float(outlier_penalty),
+        minimum_maximal_spike_prob=float(minimum_maximal_spike_prob),
+        outlier_tol=float(outlier_tol), noise_scale=float(noise_scale))
 
 
 def _activity_mask(y_psc, y_xcorr_thresh, lam_mask_fraction):
@@ -390,26 +486,24 @@ def mbcs(
         lam0 = (stim_t > 0).to(dtype) * float(init_spike_prior) * lam_mask
     else:
         lam0 = _as(init_lam, dtype, dev)
-    params = dict(
-        penalty=float(penalty), scale_factor=float(scale_factor),
-        max_penalty_iters=int(max_penalty_iters),
-        max_lasso_iters=int(max_lasso_iters),
-        constrain_weights=str(constrain_weights), learn_lam=bool(learn_lam),
-        delay_spont_estimation=int(delay_spont_estimation),
-        minimum_spike_count=int(minimum_spike_count),
-        num_mc_samples_noise_model=int(num_mc_samples_noise_model),
-        orthogonal_outliers=bool(orthogonal_outliers),
-        analytic_noise=bool(analytic_noise),
-        outlier_penalty=float(outlier_penalty),
-        minimum_maximal_spike_prob=float(minimum_maximal_spike_prob),
-        outlier_tol=float(outlier_tol), noise_scale=float(noise_scale))
+    params = fit_params(
+        penalty=penalty, scale_factor=scale_factor,
+        max_penalty_iters=max_penalty_iters, max_lasso_iters=max_lasso_iters,
+        constrain_weights=constrain_weights, learn_lam=learn_lam,
+        delay_spont_estimation=delay_spont_estimation,
+        minimum_spike_count=minimum_spike_count,
+        num_mc_samples_noise_model=num_mc_samples_noise_model,
+        orthogonal_outliers=orthogonal_outliers,
+        analytic_noise=analytic_noise, outlier_penalty=outlier_penalty,
+        minimum_maximal_spike_prob=minimum_maximal_spike_prob,
+        outlier_tol=outlier_tol, noise_scale=noise_scale)
     carry, receptive_fields, snaps = _run_mbcs(
         y, stim_t, lam0, lam_mask, powers_with_zero, mu0,
         _as(beta_prior, dtype, dev),
         torch.full((K,), float(shape_prior), dtype=dtype, device=dev),
         torch.full((K,), float(rate_prior), dtype=dtype, device=dev),
         torch.as_tensor(float(spont_rate), dtype=dtype, device=dev),
-        seeded_generator(seed, dev), params, iters=int(iters),
+        [seeded_generator(seed, dev)], params, iters=int(iters),
         save_histories=bool(save_histories))
     mu, beta, lam, shape, rate, z = carry[:6]
     if save_histories:

@@ -25,6 +25,7 @@ from circuitmap_torch import Model, default_priors
 # the modules, not the caviar() functions the solvers packages export
 jcav = importlib.import_module("circuitmap_tpu.solvers.caviar")
 tcav = importlib.import_module("circuitmap_torch.solvers.caviar")
+tbat = importlib.import_module("circuitmap_torch.solvers.batched")
 jax_caviar = jcav.caviar
 
 REPO = Path(__file__).resolve().parent.parent
@@ -319,10 +320,39 @@ def test_sweep_block_size_resolution():
     assert tcav._resolve_sweep("auto", "auto", cpu) == 1
     assert tcav._resolve_sweep("auto", "auto", gpu) == 8
     assert tcav._resolve_sweep("cuda", 8, cpu) == 8
-    # the strictly sequential schedule on CUDA runs the row kernel
-    assert tcav._resolve_sweep("auto", 1, gpu) == 1
-    with pytest.raises(NotImplementedError, match="sweep_block_size=4"):
-        tcav._resolve_sweep("auto", 4, gpu)
+    # the strictly sequential schedule on CUDA runs the row kernel; every
+    # pinned size up to 32 runs the cluster kernel at that many rows
+    for block in range(1, 33):
+        assert tcav._resolve_sweep("auto", block, gpu) == block
+    with pytest.raises(NotImplementedError, match="sweep_block_size=33"):
+        tcav._resolve_sweep("auto", 33, gpu)
+    # the CPU's plain sweep takes any size
+    assert tcav._resolve_sweep("auto", 33, cpu) == 33
+    with pytest.raises(ValueError, match=">= 1"):
+        tcav._resolve_sweep("auto", 0, cpu)
+
+
+def test_cuda_fit_with_more_levels_than_the_kernels_raises_at_resolution():
+    """The CUDA kernels take 1..16 power levels: resolving a stim of 17
+    levels for a CUDA fit raises, naming the limit, before anything is
+    uploaded (so this runs without a card); 16 resolve, and the CPU's
+    plain versions take any number."""
+    from circuitmap_torch.solvers import _common
+
+    rng = np.random.default_rng(0)
+    levels = 30.0 + 3.0 * np.arange(17)
+    stim = np.zeros((20, 400))
+    stim[rng.integers(0, 20, 400), np.arange(400)] = rng.choice(levels, 400)
+    gpu, cpu = torch.device("cuda"), torch.device("cpu")
+    with pytest.raises(ValueError, match="at most 16"):
+        _common.stim_upload_plan(stim, None, gpu)
+    with pytest.raises(ValueError, match="at most 16"):
+        _common._levels(stim, levels, gpu)
+    assert _common.stim_upload_plan(stim, None, cpu)[1][0].size == 17
+    sixteen = np.where(stim == levels[-1], levels[0], stim)
+    assert _common.stim_upload_plan(sixteen, None, gpu)[1][0].size == 16
+    with pytest.raises(ValueError, match="at most 16"):
+        tbat._validate_shared_levels(stim[None], None, gpu)
 
 
 def test_default_priors_match_jax():

@@ -20,6 +20,10 @@ REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "circuitmap_tpu")
 PORT_FILES = sorted((REPO / "circuitmap_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
+# the modules of the streaming, resumable and closed-loop slice, which
+# must be among the files scanned
+SLICE_MODULES = ("utils/checkpoint.py", "solvers/resumable.py",
+                 "solvers/online.py", "design.py")
 
 
 def _imported_roots(path):
@@ -41,6 +45,14 @@ def _imported_roots(path):
                          ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
 def test_port_files_import_neither_jax_nor_the_jax_package(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_modules_are_scanned(module):
+    path = REPO / "circuitmap_torch" / module
+    assert path in PORT_FILES
+    assert "torch" in _imported_roots(path) or "numpy" in _imported_roots(
+        path)
 
 
 _CPU_RUN = r"""
@@ -107,6 +119,22 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda):
         cm.mbcs(psc, stim, p["mu"], p["beta"], p["shape"], p["rate"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cm.mbcs_ard(psc, stim, verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cm.caviar_resumable(psc, stim, p["mu"], p["beta"], p["shape"],
+                            p["rate"], p["phi"], p["phi_cov"], "ck",
+                            verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cm.OnlineCaviar(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cm.sns_many(np.stack([psc, psc]), np.stack([stim, stim]),
+                    p["mu"], p["beta"], p["alpha"], p["shape"], p["rate"],
+                    p["phi"], p["phi_cov"], verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cm.mbcs_many(np.stack([psc, psc]), np.stack([stim, stim]),
+                     p["mu"], p["beta"], p["shape"], p["rate"],
+                     verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cm.closed_loop_map(lambda s: psc, 4, 1, [45.0], 8, 1)
     for method in ("cavi_sns", "mbcs", "cosamp"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cm.Model(4).fit(psc, stim, method=method)
@@ -115,14 +143,20 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda):
 def test_lazy_exports():
     import circuitmap_torch as cm
 
-    assert set(cm.__all__) == {"Model", "default_priors", "NeuralDemixer",
-                               "caviar", "caviar_many", "simulate",
-                               "cavi_sns", "mbcs", "cosamp", "mbcs_ard"}
-    from circuitmap_torch import solvers
+    assert set(cm.__all__) == {
+        "Model", "default_priors", "NeuralDemixer", "caviar", "caviar_many",
+        "simulate", "cavi_sns", "mbcs", "cosamp", "mbcs_ard", "sns_many",
+        "mbcs_many", "caviar_resumable", "OnlineCaviar", "pool_design",
+        "AdaptiveDesigner", "closed_loop_map"}
+    from circuitmap_torch import design, solvers
     from circuitmap_torch.solvers.experimental import mbcs_ard
 
-    for name in ("caviar", "caviar_many", "cavi_sns", "mbcs", "cosamp"):
+    for name in ("caviar", "caviar_many", "cavi_sns", "mbcs", "cosamp",
+                 "sns_many", "mbcs_many", "caviar_resumable",
+                 "OnlineCaviar"):
         assert getattr(cm, name) is getattr(solvers, name)
+    for name in ("pool_design", "AdaptiveDesigner", "closed_loop_map"):
+        assert getattr(cm, name) is getattr(design, name)
     assert cm.mbcs_ard is mbcs_ard
     with pytest.raises(AttributeError):
         cm.not_a_name  # noqa: B018

@@ -36,7 +36,7 @@ def cuda():
 
 
 def _sweep_inputs(N, K, powers, seed=0, device="cpu", H=None,
-                  connected=0.2):
+                  connected=0.2, block=8):
     rng = np.random.default_rng(seed)
     H = max(1, N // 10) if H is None else H
     stim = np.zeros((N, K), np.float32)
@@ -57,14 +57,14 @@ def _sweep_inputs(N, K, powers, seed=0, device="cpu", H=None,
     t["power_counts"] = torch.stack(
         [(t["stim"] == p).sum(1) for p in t["powers"]], 1).float()
     t["border"] = torch.from_numpy(
-        rng.permutation(-(-N // 8))).to(device)
+        rng.permutation(-(-N // block))).to(device)
     return t
 
 
-def _sweep(fn, t, gate, msrmp=0.5):
+def _sweep(fn, t, gate, msrmp=0.5, **kw):
     return fn(t["y"], t["stim"], t["mu"], t["beta"], t["lam"], 0.1, t["m0"],
               t["m1"], t["lam_mask"], t["powers"], t["power_counts"],
-              t["border"], msrmp, 3.0, gate)
+              t["border"], msrmp, 3.0, gate, **kw)
 
 
 @pytest.mark.cuda
@@ -89,6 +89,40 @@ def test_sweep_kernel_matches_plain(cuda, N, K, powers):
     assert int((off_k != off_p).sum()) <= max(0, N // 200)
     same = ~(off_k | off_p)
     torch.testing.assert_close(ker1[same], plain1[same], rtol=1e-4, atol=1e-5)
+
+
+SIXTEEN_LEVELS = tuple(30.0 + 3.0 * p for p in range(16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,N,K,powers", [
+    (7, 29, 300, (45.0, 55.0, 65.0)),     # a partial last block
+    (7, 203, 5001, (45.0, 55.0, 65.0)),   # K % 4 != 0
+    (12, 203, 5000, (45.0, 55.0, 65.0)),
+    (16, 203, 5000, (45.0, 55.0, 65.0)),
+    (32, 203, 5000, (45.0, 55.0, 65.0)),  # four groups of 8 rows a step
+    (8, 203, 5000, SIXTEEN_LEVELS),       # two groups of 4 rows a step
+    (32, 64, 20000, SIXTEEN_LEVELS),      # r and est off chip
+])
+def test_sweep_kernel_matches_plain_at_pinned_blocks_and_levels(
+        cuda, block, N, K, powers):
+    # the main path's kind of inputs (at most 10 targets a trial, ~5%
+    # connected): with 20 targets and 20% connected the float32 plain
+    # version alone sits up to 6e-4 from float64 at N=203, and a
+    # comparison at atol 1e-5 says nothing about the kernel
+    t = _sweep_inputs(N, K, powers, device=cuda, block=block,
+                      H=min(10, max(1, N // 10)), connected=0.05)
+    kw = dict(block_size=block)
+    before = sweep_cuda.sweep_spikes_blocked.launches
+    ker = _sweep(sweep_cuda.sweep_spikes_blocked, t, 0.0, **kw)
+    plain = _sweep(sweep_cuda.sweep_spikes_blocked_torch, t, 0.0, **kw)
+    torch.testing.assert_close(ker, plain, rtol=1e-4, atol=1e-5)
+    ker1 = _sweep(sweep_cuda.sweep_spikes_blocked, t, 1.0, **kw)
+    plain1 = _sweep(sweep_cuda.sweep_spikes_blocked_torch, t, 1.0, **kw)
+    torch.cuda.synchronize()
+    assert sweep_cuda.sweep_spikes_blocked.launches == before + 2
+    off_k, off_p = ker1.sum(1) == 0, plain1.sum(1) == 0
+    assert int((off_k != off_p).sum()) <= max(0, N // 200)
 
 
 def _stacked(E, N, K, powers, device, seed=0):
@@ -262,7 +296,7 @@ def _laplace_stats(N, P1, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P1", [2, 4, 6, 16])
+@pytest.mark.parametrize("P1", [2, 4, 6, 16, 17])
 def test_laplace_kernel_matches_plain_float64(cuda, P1):
     args = [a.to(cuda) for a in _laplace_stats(300, P1, seed=P1)]
     before = laplace_cuda.laplace_from_stats.launches
@@ -426,7 +460,10 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         sweep_cuda.sweep_spikes_blocked(
             t["y"], t["stim"], t["mu"], t["beta"], t["lam"], 0.1, t["m0"],
             t["m1"], t["lam_mask"], t["powers"], t["power_counts"],
-            t["border"], 0.3, 3.0, 1.0, block_size=16)
+            t["border"], 0.3, 3.0, 1.0, block_size=33)
+    seventeen = _sweep_inputs(16, 200, SIXTEEN_LEVELS + (80.0,), device=cuda)
+    with pytest.raises(ValueError, match="1..16 power levels"):
+        _sweep(sweep_cuda.sweep_spikes_blocked, seventeen, 1.0)
     # both wrappers take K past the old kernels' shared-memory limit
     wide = _stacked(1, 16, 56065, (45.0, 55.0), cuda)
     wide = {k: (v if k == "powers" else v[0]) for k, v in wide.items()}

@@ -109,6 +109,36 @@ def test_blocked_sweep_matches_xla_blocked_sweep(gate, border_kind):
 
 
 @pytest.mark.parametrize("gate", [0.0, 1.0], ids=["gate_off", "gate_on"])
+@pytest.mark.parametrize("block", [7, 12, 16])
+def test_pinned_block_sweep_matches_xla_blocked_sweep(block, gate):
+    """Every pinned size of 1..32 runs the cluster kernel on CUDA; its
+    plain version at 7, 12 and 16 rows a step against the JAX package's
+    XLA blocked sweep at the same block size and row order (the blocks
+    are consecutive rows in a random block order, the partial block
+    last, as in the test above)."""
+    d = _inputs(5 + block)
+    nb = -(-N // block)
+    border = np.concatenate([np.random.default_rng(block).permutation(nb - 1),
+                             [nb - 1]])
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    got = sweep_cuda.sweep_spikes_blocked_torch(
+        *(t[k] for k in ARGS), SIG, *(t[k] for k in ARGS2), t["power_counts"],
+        torch.from_numpy(border), MSRMP, MIN_COUNT, gate,
+        block_size=block).numpy()
+    rows = (border[:, None] * block + np.arange(block)).ravel()
+    order = rows[rows < N]
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    want = jax_sweep_spikes(
+        *(j[k] for k in ARGS), SIG, *(j[k] for k in ARGS2),
+        jnp.asarray(order), MSRMP, MIN_COUNT, bool(gate), block_size=block)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    via_solver = sweep_spikes(
+        *(t[k] for k in ARGS), SIG, *(t[k] for k in ARGS2),
+        torch.from_numpy(order), MSRMP, MIN_COUNT, gate, block_size=block)
+    np.testing.assert_allclose(via_solver.numpy(), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("gate", [0.0, 1.0], ids=["gate_off", "gate_on"])
 def test_row_sweep_matches_xla_block1(gate):
     d = _inputs(2)
     order = np.random.default_rng(3).permutation(N)
