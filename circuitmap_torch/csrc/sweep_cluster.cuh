@@ -210,8 +210,8 @@ __device__ __forceinline__ void store4(float* p, int c, const float v[4],
 // R: the rows a step when fixed at compile time (1, the strictly
 // sequential schedule; 8, the default block), or 0 for a runtime count
 // a.rows (2..MAX_ROWS). The fixed 8 keeps the default's loops unrolled
-// and its offsets constant: at the main path's shape a runtime count
-// made the sweep measurably slower (sweep_turns.py; PERF.md).
+// and its offsets constant: taken at run time, 8 rows ran ~15% slower in
+// the profiled main-path fit (PERF.md).
 template <int P, int R, bool ON_CHIP>
 __global__ void __launch_bounds__(THREADS, 1)
     sweep_cluster_kernel(const Args a) {
