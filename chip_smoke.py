@@ -8,8 +8,9 @@ against its plain PyTorch version at the shapes its path gives it, then
 drives the paths through the user entry points and checks that each fit
 recovers the simulated weights. One kernel, the cluster sweep
 (``csrc/sweep_cluster.cuh``), serves both sweep schedules:
-``sweep_blocked`` (2..32 rows a step, 8 by default) and ``sweep_row``
-(one row a step) name its two uses.
+``sweep_blocked`` (a block of 2 or more rows a step, 8 by default;
+above 32, sub-steps of at most 32) and ``sweep_row`` (one row a step)
+name its two uses.
 
 * the main path: ``simulate`` (N=1000, K=20000), the int4d2 demixer with
   its QAT checkpoint, and a 50-iteration CAVIaR fit through
@@ -38,22 +39,36 @@ recovers the simulated weights. One kernel, the cluster sweep
   stream saved after block 5 and reloaded); ``closed_loop_map`` (N=1000,
   2,000 trials a round, at most 5 rounds); ``sns_many`` and
   ``mbcs_many`` on the 4 folds, batched against sequential, and a
-  ragged ``sns_many`` against the single fits.
+  ragged ``sns_many`` against the single fits;
+* the fits past the kernels' compile-time limits (phase 3c): the main
+  path at ``sweep_block_size=64`` and on a re-levelled stim of 24 power
+  levels;
+* demixer training (phase 22): the int4d2 QAT fine-tune of
+  ``demixers/nwd_ie_ChroME2f.npz`` on 50,000 generated pairs, 3 epochs
+  (its first 3 steps against the CPU's, its validation loss against the
+  starting checkpoint's, save and reload, one profiled epoch), then the
+  main map demixed by the trained network and fitted;
+* ``fit_psc_templates`` on 1,000 demixed traces (phase 23); the
+  continuous 20 kHz simulation at N=300 over 300 s, demixed by both
+  networks and fitted (phase 24); ``Model.summary``,
+  ``split_single_ensemble`` and ``connection_waveforms`` on the main
+  path's fit (phase 25).
 
 The sweep is held against its plain version at both schedules at
 N=1000/K=20000 and N=200/K=100000, at one row a step at N=16/K=300000
 (r in device memory), at E=4 (K=15000, one row a step; the
 ragged stack's inert padding and per-experiment scalars at 8 rows a
 step), at the pinned blocks 7, 12, 16 and 32 and at 16 power levels
-(phase 3b), with the gate on also for agreement between the CTAs of
-each cluster, and at one row a step at the arguments CAVI-SnS and
-MBCS-ARD give it (phase 12); the Laplace kernel at [1000] and [4, 1000]
-lanes and at 17 buckets,
+(phase 3b), at 24, 64 and 1024 power levels and at 48, 64 and 125
+rows a block (phase 3c), with the gate on also for agreement between
+the CTAs of each cluster, and at one row a step at the arguments
+CAVI-SnS and MBCS-ARD give it (phase 12); the Laplace kernel at [1000]
+and [4, 1000] lanes and at 17, 25, 65 and 1025 buckets,
 timed on the device (a CUDA graph of 20 launches) and per wrapper call,
 its bound counting the Armijo candidates those inputs need. One warm
 main-path fit runs under torch.profiler (phase 5b: the top device
 operations, the Laplace total, the device's idle share), and one warm
-10-iteration CAVI-SnS fit (phase 13).
+2-iteration CAVI-SnS fit (phase 13).
 
 Every kernel's launch count is set to 0 just before each path and read
 just after it. Phases print ``# ...`` lines; any failure raises and the
@@ -81,7 +96,14 @@ POWERS = (45.0, 55.0, 65.0)
 CHECKPOINT = HERE / "demixers" / "nwd_ie_ChroME2f_int4d2qat.npz"
 
 
+T0 = time.time()
+
+
 def log(msg):
+    """A ``# ...`` line; a phase's first line carries the call's elapsed
+    seconds."""
+    if msg.startswith("phase"):
+        msg = f"[{time.time() - T0:7.1f} s] {msg}"
     print(f"# {msg}", flush=True)
 
 
@@ -244,7 +266,7 @@ def check_cta_agreement(out, plain, a, rows, what):
 
     *lead, n, k = out.shape
     E = lead[0] if lead else 1
-    plan = sc.launch_plan(E, k, rows, a["powers"].shape[0])
+    plan = sc.launch_plan(E, k, sc.sub_steps(rows)[1], a["powers"].shape[0])
     pad = plan.cluster * plan.cols - k
 
     def slices(x):
@@ -446,7 +468,7 @@ def check_blocked(a, block, what):
     plain_ms = cuda_ms(lambda: sweep_call(sc.sweep_spikes_blocked_torch, a,
                                           1, **kw), reps=3, warmup=1)
     bound_ms = 3 * n * k * 4 / PEAK_BYTES_PER_S * 1e3
-    plan = sc.launch_plan(1, k, block, P)
+    plan = sc.launch_plan(1, k, sc.sub_steps(block)[1], P)
     log(f"{what}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, byte bound "
         f"{bound_ms:.4f} ms ({bound_ms / ms:.1%}); plan {plan}")
     return dict(rows_per_step=block, P=P, max_abs_err=err, gate_flips=flips,
@@ -560,7 +582,7 @@ def phase_main_path():
     log(f"fit-only median of 3 warm runs: {statistics.median(fit_only):.4f} s "
         f"{fit_only}")
     log(f"truth-R2 {r2:.6f} (JAX package on this data: 0.9968)")
-    return by_path, sim, dem
+    return by_path, sim, dem, model
 
 
 def profiled(fn, label):
@@ -1134,15 +1156,24 @@ def phase_solver_mappings():
     return out
 
 
+# cut for the call's time when phases 22-25 came (PERF.md §4): the SnS
+# float64 witness (was 50 iterations), the profiled SnS fit (was 10; ~16,000
+# launches an iteration, and the profiler takes ~1 ms of host time per
+# device operation to process) and the SnS parts of sns_many (was 10)
+WITNESS_ITERS = 20
+SNS_PROFILE_ITERS = 2
+SNS_MANY_ITERS = 5
+
+
 def phase_sns(sim, dem):
     """CAVI-SnS through ``Model.fit`` with its defaults (random order,
     100 Monte Carlo samples), 50 iterations without histories, warmed up
-    by a 10-iteration fit under the profiler: B3 and B2 once an
+    by a 2-iteration fit under the profiler: B3 and B2 once an
     iteration each; truth-R2 of mu*alpha and of mu. Then the float64
-    witness: the same fit
-    with the lam sweep swapped for its plain version in float64, on the
-    same card and random streams (the sweep draws none), and on each of
-    its 50 sweeps the kernel held against that plain version on the same
+    witness: the same fit, cut to its first 20 iterations for the call's
+    time, with the lam sweep swapped for its plain version in float64, on
+    the same card and random streams (the sweep draws none), and on each
+    of its 20 sweeps the kernel held against that plain version on the same
     inputs: at most 0.5% of the gate decisions may differ, and a sweep
     with none differing must agree to 1e-4. The two fits' truth-R2 are
     printed, not compared: the SnS gate is absorbing (a row it zeroes
@@ -1165,8 +1196,8 @@ def phase_sns(sim, dem):
                             fit_options={"iters": 50, "verbose": False,
                                          **extra})
 
-    profiled(lambda: fit(iters=10, save_histories=False),
-             "sns_fit_10_iterations")
+    profiled(lambda: fit(iters=SNS_PROFILE_ITERS, save_histories=False),
+             f"sns_fit_{SNS_PROFILE_ITERS}_iterations")
     reset_counts()
     model, warm_s = timed(lambda: fit(save_histories=False))
     launches = kernel_launches(read_counts())
@@ -1202,13 +1233,15 @@ def phase_sns(sim, dem):
 
     sns_mod.sweep_spikes_row = plain64
     try:
-        witness, wit_s = timed(lambda: fit(save_histories=False))
+        witness, wit_s = timed(lambda: fit(iters=WITNESS_ITERS,
+                                           save_histories=False))
     finally:
         sns_mod.sweep_spikes_row = kernel_sweep
     r2_wit = r2_score(w, witness.state["mu"] * witness.state["alpha"])
     flips = [h[0] for h in held]
     clean = [h[1] for h in held if h[0] == 0]
-    log(f"float64 plain lam sweep ({wit_s:.1f} s): truth-R2 of mu*alpha "
+    log(f"float64 plain lam sweep, {WITNESS_ITERS} iterations ({wit_s:.1f} "
+        f"s): truth-R2 of mu*alpha "
         f"{r2_wit:.4f} (kernel fit {r2_w:.4f}), of mu "
         f"{r2_score(w, witness.state['mu']):.4f}")
     log(f"the kernel on the witness's {len(held)} sweep inputs: gate "
@@ -1216,7 +1249,7 @@ def phase_sns(sim, dem):
         f"plain| in the {len(clean)} sweeps with none differing "
         f"{max(clean, default=0.0):.3e}; rows gated off in the last sweep "
         f"{held[-1][2]}")
-    if len(held) != 50 or max(flips) > 0.005 * N:
+    if len(held) != WITNESS_ITERS or max(flips) > 0.005 * N:
         raise AssertionError(f"SnS: the kernel's gate decisions differ from "
                              f"the float64 plain sweep's beyond 0.5%: {flips}")
     if max(clean, default=0.0) > 1e-4:
@@ -1612,18 +1645,20 @@ def compare_folds(a, b, fields, what, tol=1e-4):
 
 
 def phase_many_baselines(sim, dem):
-    """Phase 21: sns_many and mbcs_many on phase 10's 4 folds, 10
-    iterations, sequential and batched. Batched equals sequential fold
-    by fold to 1e-4 relative at a fixed row order with exact means (SnS)
-    and at the same random orders with exact noise moments (MBCS); SnS's
-    random order is printed, not compared (its gate is absorbing).
-    Batched SnS launches the batched row kernel and the Laplace kernel
-    10 times each. MBCS folds at truth-R2 0.9 or more. A ragged
-    sns_many (5 iterations) equals the single cavi_sns fits."""
+    """Phase 21: sns_many (SNS_MANY_ITERS iterations) and mbcs_many (10
+    iterations) on phase 10's 4 folds, sequential and batched. Batched
+    equals sequential fold by fold to 1e-4 relative at a fixed row order
+    with exact means (SnS) and at the same random orders with exact noise
+    moments (MBCS); SnS's random order is printed, not compared (its
+    gate is absorbing). Batched SnS launches the batched row kernel and
+    the Laplace kernel once an iteration each. MBCS folds at truth-R2 0.9
+    or more. A ragged sns_many (5 iterations) equals the single cavi_sns
+    fits."""
     from circuitmap_torch import cavi_sns, default_priors, mbcs_many, sns_many
     from circuitmap_torch.utils.metrics import r2_score
 
-    log("phase 21: sns_many and mbcs_many on the 4 folds, 10 iterations")
+    log(f"phase 21: sns_many ({SNS_MANY_ITERS} iterations) and mbcs_many "
+        "(10 iterations) on the 4 folds")
     ys, stims = fold_stack(sim, dem)
     p = default_priors(N)
     sns_priors = (p["mu"], p["beta"], p["alpha"], p["shape"], p["rate"],
@@ -1632,8 +1667,8 @@ def phase_many_baselines(sim, dem):
                   "phi_cov")
     w = sim["weights"]
     paths, out = {}, {}
-    fixed = dict(iters=10, update_order="identity", analytic_mc=True,
-                 verbose=False)
+    fixed = dict(iters=SNS_MANY_ITERS, update_order="identity",
+                 analytic_mc=True, verbose=False)
     runs = {}
     for mode in ("sequential", "batched"):
         reset_counts()
@@ -1642,15 +1677,17 @@ def phase_many_baselines(sim, dem):
         paths[f"sns_many_{mode}"] = kernel_launches(read_counts())
         log(f"sns_many {mode} (identity order, exact means) "
             f"{out[f'sns_{mode}_s']:.3f} s; launches {read_counts()}")
-    if paths["sns_many_batched"] != {"sweep_blocked": 0, "laplace": 10,
-                                     "sweep_row": 10}:
-        raise AssertionError("batched sns_many must launch B5 and B2 10 "
-                             f"times each: {paths['sns_many_batched']}")
+    if paths["sns_many_batched"] != {"sweep_blocked": 0,
+                                     "laplace": SNS_MANY_ITERS,
+                                     "sweep_row": SNS_MANY_ITERS}:
+        raise AssertionError(f"batched sns_many must launch B5 and B2 "
+                             f"{SNS_MANY_ITERS} times each: "
+                             f"{paths['sns_many_batched']}")
     out["sns_rel_diff"] = compare_folds(runs["batched"], runs["sequential"],
                                         sns_fields, "sns_many batched vs "
                                         "sequential")
     rnd, out["sns_random_batched_s"] = timed(lambda: sns_many(
-        ys, stims, *sns_priors, iters=10, compile_mode="batched",
+        ys, stims, *sns_priors, iters=SNS_MANY_ITERS, compile_mode="batched",
         verbose=False))
     out["sns_random_r2_mu_alpha"] = [r2_score(w, r["mu"] * r["alpha"])
                                      for r in rnd]
@@ -1695,6 +1732,392 @@ def phase_many_baselines(sim, dem):
     return paths, out
 
 
+LEVEL_COUNTS = (24, 64, 1024)   # phase 3c: past the 16 compile-time levels
+LONG_BLOCKS = (48, 64, 125)     # phase 3c: past one warp's 32 rows
+
+
+def phase_repaired_kernels():
+    """Phase 3c: the sweep at 24, 64 and 1024 power levels (8 rows a
+    step; above 16 levels the per-level sums go through global scratch)
+    and at 48, 64 and 125 rows a block (P=3; sub-steps of at most 32
+    rows against the block's residual), and the Laplace kernel at 25, 65
+    and 1025 buckets (its bucket loop at run time), each against its
+    plain version as phase 3b holds them (N=1000, K=20000)."""
+    from circuitmap_torch.ops import sweep_cuda as sc
+    from circuitmap_torch.solvers._laplace import powercurve_stats
+
+    log(f"phase 3c: cluster sweep at {LEVEL_COUNTS} power levels (8 rows a "
+        f"step) and at {LONG_BLOCKS} rows a block (P=3); Laplace at "
+        f"{tuple(p + 1 for p in LEVEL_COUNTS)} buckets (N=1000, K=20000)")
+    levels, blocks, laplace = {}, {}, {}
+    for P in LEVEL_COUNTS:
+        powers = tuple(float(v) for v in np.linspace(30.0, 75.0, P))
+        a = sweep_inputs(seed=100 + P, powers=powers)
+        levels[P] = check_blocked(a, 8, f"8 rows a step, P={P}")
+        lam = sweep_call(sc.sweep_spikes_blocked_torch, a, 1)
+        S, C, lv = powercurve_stats(lam, a["stim"], a["powers"],
+                                    total_trials=K,
+                                    counts=a["power_counts"])
+        laplace[P + 1] = check_laplace(S, C, lv, f"N=1000, P+1={P + 1}")
+        del a, lam, S, C
+    for block in LONG_BLOCKS:
+        blocks[block] = check_blocked(sweep_inputs(seed=block, block=block),
+                                      block, f"{block} rows a block, P=3")
+    return dict(levels=levels, blocks=blocks, laplace=laplace)
+
+
+def relevelled(stim, n_offsets=8, seed=0):
+    """The stim with each nonzero entry moved by one of ``n_offsets``
+    offsets of 0.25 (centred on 0): 3 levels become 24, close enough to
+    the simulated powers for the same map."""
+    rng = np.random.default_rng(seed)
+    offsets = 0.25 * (np.arange(n_offsets) - (n_offsets - 1) / 2)
+    out = np.array(stim, dtype=np.float64)
+    nz = out != 0
+    out[nz] += offsets[rng.integers(0, n_offsets, int(nz.sum()))]
+    return out
+
+
+def phase_repaired_fits(sim, dem):
+    """Phase 3c, the fits: the main-path fit at sweep_block_size=64 and
+    on a re-levelled stim of 24 power levels (50 iterations each), which
+    the port refused on CUDA before. Each launches B1 once an iteration;
+    no posterior may hold a NaN; their truth-R2 is printed."""
+    from circuitmap_torch import Model
+    from circuitmap_torch.utils.metrics import r2_score
+
+    log("phase 3c: main-path fits at sweep_block_size=64 and on a 24-level "
+        "stim, 50 iterations each")
+    paths, out = {}, {}
+    stim24 = relevelled(sim["stim_matrix"])
+    for name, stim, extra in (
+            ("block64_fit", sim["stim_matrix"],
+             {"powers": list(POWERS), "sweep_block_size": 64}),
+            ("levels24_fit", stim24, {})):
+        reset_counts()
+        model, fit_s = timed(lambda: Model(N).fit(
+            dem, stim, method="caviar",
+            fit_options={"iters": 50, "msrmp": 0.3, "verbose": False,
+                         **extra}))
+        launches = kernel_launches(read_counts())
+        r2 = r2_score(sim["weights"], model.state["mu"])
+        n_levels = np.unique(stim[stim != 0]).size
+        log(f"{name}: {n_levels} levels, fit {fit_s:.3f} s; launches "
+            f"{launches}; truth-R2 {r2:.4f}")
+        if launches["sweep_blocked"] != 50 or launches["laplace"] < 50:
+            raise AssertionError(f"{name}: B1 must launch 50 times and B2 "
+                                 f"at least 50: {launches}")
+        for key in FIT_FIELDS:
+            if np.isnan(np.asarray(model.state[key])).any():
+                raise AssertionError(f"{name}: posterior {key} holds a NaN")
+        paths[name] = launches
+        out[name] = dict(s=fit_s, r2=r2, levels=n_levels)
+    return paths, out
+
+
+TRAIN_BASE = HERE / "demixers" / "nwd_ie_ChroME2f.npz"
+# the chrome2f_ie preset's data of the int4d2 QAT fine-tune
+# (scripts_tpu/train_qat_demixer.py:80-95, scripts_tpu/train_demixer.py:22)
+QAT_DATA = dict(trial_dur=900, size=50000, gp_scale=0.045, delta_lower=160,
+                delta_upper=400, next_delta_lower=400, next_delta_upper=899,
+                prev_delta_upper=150, tau_r_lower=10, tau_r_upper=40,
+                tau_diff_lower=150, tau_diff_upper=340,
+                noise_std_lower=0.001, noise_std_upper=0.02,
+                gp_lengthscale=45, seed=0)
+
+
+def state_rel_diff(a, b):
+    """max |a - b| over every floating entry of two state_dicts, over
+    max |b| of the same entries (a BatchNorm bias near 0 makes a
+    tensor-by-tensor ratio noise: tests/test_torch_training.py)."""
+    keys = [k for k, v in b.items() if v.is_floating_point()]
+    err = max((a[k].double().cpu() - b[k].double().cpu()).abs().max().item()
+              for k in keys)
+    return err / max(b[k].double().abs().max().item() for k in keys)
+
+
+PROFILED_STEPS = 100  # phase 22's profiled epoch: 6,400 of the pairs
+
+
+def sgd_steps(dm, x, y, batches, lr):
+    """``len(batches)`` SGD steps of ``NeuralDemixer.train`` on dm's
+    network (train mode, TF32 off), batch i taking rows batches[i]."""
+    import torch
+
+    opt = torch.optim.SGD(dm.net.parameters(), lr=lr)
+    dm.net.train()
+    with dm._precision():
+        for idx in batches:
+            opt.zero_grad(set_to_none=True)
+            dm._loss(x[idx], y[idx]).backward()
+            opt.step()
+    dm.net.eval()
+
+
+def phase_training(sim, dem):
+    """Phase 22: the int4d2 QAT fine-tune at full width and on the full
+    dataset, 3 epochs: from demixers/nwd_ie_ChroME2f.npz on 50,000
+    generated pairs (the chrome2f_ie preset, seed 0), inputs through the
+    int4d2 wire, lr 2e-3, batch 64. Holds: its first 3 SGD steps on the
+    card equal the same steps on the CPU in float32 to 1e-4 of the
+    state's largest entry; the validation loss after epoch 3 at most the
+    starting checkpoint's on the same test set; the weights saved and
+    reloaded (.npz and Lightning .ckpt) equal bit for bit. Prints s an
+    epoch, steps/s and the idle share of one profiled epoch, then
+    demixes and fits the main map with the trained network beside the
+    shipped int4d2 QAT checkpoint. Returns the trained demixer."""
+    import tempfile
+
+    import torch
+    from circuitmap_torch import Model, NeuralDemixer
+    from circuitmap_torch.demix import convert
+    from circuitmap_torch.demix.demixer import wire_transform
+    from circuitmap_torch.utils.metrics import r2_score
+
+    log("phase 22: demixer training, the int4d2 QAT fine-tune (50,000 "
+        "pairs, 3 epochs, lr 2e-3, batch 64)")
+    dm = NeuralDemixer(str(TRAIN_BASE))
+    np.random.seed(0)  # the GP noise draws from the global stream
+    t0 = time.time()
+    (x_tr, y_tr), (x_te, y_te) = dm.generate_training_data(**QAT_DATA)
+    gen_s = time.time() - t0
+    t0 = time.time()
+    x_tr, x_te = wire_transform(x_tr, 4, 2), wire_transform(x_te, 4, 2)
+    dm.training_data, dm.test_data = (x_tr, y_tr), (x_te, y_te)
+    log(f"data: {x_tr.shape[0]} train / {x_te.shape[0]} test pairs, "
+        f"generated in {gen_s:.2f} s, int4d2 wire in {time.time() - t0:.2f} s")
+
+    # the first 3 steps on the card and on the CPU, from the same weights
+    # on the same batches (train's own: its first permutation)
+    lr, batch = 2e-3, 64
+    rows = np.random.default_rng(0).permutation(x_tr.shape[0])[:3 * batch]
+    steps, step_s = {}, {}
+    for dev in ("cuda", "cpu"):
+        d = NeuralDemixer(str(TRAIN_BASE), device=dev)
+        x = torch.from_numpy(np.asarray(x_tr[rows], np.float32)).to(dev)
+        y = torch.from_numpy(np.asarray(y_tr[rows], np.float32)).to(dev)
+        _, step_s[dev] = timed(lambda: sgd_steps(
+            d, x, y, [slice(i * batch, (i + 1) * batch) for i in range(3)],
+            lr))
+        steps[dev] = d
+    rel = state_rel_diff(steps["cuda"].net.state_dict(),
+                         steps["cpu"].net.state_dict())
+    log(f"3 SGD steps, card vs CPU (float32, TF32 off): max |diff| / max "
+        f"|entry| over the state {rel:.3e} (card {step_s['cuda']:.2f} s, "
+        f"CPU {step_s['cpu']:.2f} s)")
+    if rel > 1e-4:
+        raise AssertionError(f"3 train steps on the card differ from the CPU "
+                             f"by {rel:.3e} > 1e-4 of the state")
+
+    up = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()  # noqa: E731
+    te = (up(x_te), up(y_te))
+    val0 = dm._val_loss(*te)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    history = dm.train(epochs=3, learning_rate=lr, batch_size=batch, seed=0,
+                       verbose=False)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    n_steps = x_tr.shape[0] // batch
+    log(f"3 epochs in {train_s:.2f} s: {train_s / 3:.3f} s an epoch, "
+        f"{3 * n_steps / train_s:.1f} steps/s ({n_steps} steps an epoch); "
+        f"history {history}")
+    log(f"val loss: starting checkpoint {val0:.6f}, after epoch 3 "
+        f"{history[-1]['val_loss']:.6f} (the QAT checkpoint's record, 150 "
+        "epochs: 0.000600)")
+    if not history[-1]["val_loss"] <= val0:
+        raise AssertionError(f"val loss after 3 epochs "
+                             f"{history[-1]['val_loss']:.6f} > the starting "
+                             f"checkpoint's {val0:.6f}")
+
+    sd = dm.net.state_dict()
+    with tempfile.TemporaryDirectory() as tmp:
+        dm.save(f"{tmp}/trained.npz")
+        convert.save_lightning_checkpoint(f"{tmp}/trained.ckpt", sd,
+                                          epoch=3, global_step=3 * n_steps)
+        for name in ("trained.npz", "trained.ckpt"):
+            back = NeuralDemixer(f"{tmp}/{name}").net.state_dict()
+            for k, v in sd.items():
+                if v.is_floating_point() and not torch.equal(back[k], v):
+                    raise AssertionError(f"{name}: {k} changed on reload")
+    log("saved and reloaded (.npz, .ckpt): equal bit for bit")
+
+    # one more epoch, profiled, on the 3-step copy (the trained network
+    # stays as the 3 epochs left it), over the first PROFILED_STEPS
+    # batches' pairs: a full epoch is ~110,000 device operations, whose
+    # processing took the profiler ~2 minutes
+    prof = steps["cuda"]
+    n_prof = PROFILED_STEPS * batch
+    prof.training_data = (x_tr[:n_prof], y_tr[:n_prof])
+    prof.test_data = (x_te[:0], y_te[:0])
+    t0 = time.time()
+    rows = profiled(lambda: prof.train(epochs=1, learning_rate=lr,
+                                       batch_size=batch, seed=1,
+                                       verbose=False),
+                    f"train_epoch_of_{PROFILED_STEPS}_steps")
+    log(f"profiled epoch with the profiler's processing: "
+        f"{time.time() - t0:.2f} s")
+    del prof, steps
+
+    r2s = {}
+    for name, source in (("shipped int4d2 QAT", dem), ("trained", None)):
+        traces = source if source is not None else dm(
+            sim["psc"], keep_on_device=True, transfer_dtype="int4d2",
+            verbose=False)
+        model = Model(N).fit(traces, sim["stim_matrix"], method="caviar",
+                             fit_options={"iters": 50, "msrmp": 0.3,
+                                          "powers": list(POWERS),
+                                          "verbose": False})
+        r2s[name] = r2_score(sim["weights"], model.state["mu"])
+        if np.isnan(model.state["mu"]).any():
+            raise AssertionError(f"main map demixed by the {name} network: "
+                                 "a NaN weight")
+    log(f"main map, int4d2 demix + 50-iteration fit, truth-R2: {r2s}")
+    return dm, dict(data_s=gen_s, train_s=train_s, epoch_s=train_s / 3,
+                    steps_per_s=3 * n_steps / train_s, val0=val0,
+                    history=history, card_vs_cpu_3_steps=rel,
+                    profiled=rows is not None, r2=r2s)
+
+
+def phase_template_fit(dem):
+    """Phase 23: ``fit_psc_templates`` on 1,000 of the main map's demixed
+    traces (10 kernels, 800 Adam steps, 3 restarts) on the card. Hold:
+    50 Adam steps on 32 of them, from their peak-seeded init, in float64
+    on the card and on the CPU, agree to 1e-4 (the raw parameters
+    relative to their largest entry, the fitted templates relative to
+    the traces' peak). The same steps in float32 are printed, not held:
+    on these traces float32 Adam drifts from float64 on the CPU alone by
+    ~5e-4 of the peak in 50 steps (2e-6 after one step; its first step
+    is lr times each gradient component's sign, and the flat components'
+    signs follow the rounding). Prints the median fit R2, the seconds and
+    ``suggest_datagen_ranges``."""
+    import torch
+    from circuitmap_torch.demix import template_fit as tf
+
+    log("phase 23: PSC-template fit of 1,000 demixed traces (10 kernels, "
+        "800 steps, 3 restarts)")
+    traces = dem[:1000].float()
+    t_np = np.linspace(-5.0, 40.0, traces.shape[1]).astype(np.float32)
+    sub = traces[:32].cpu()
+    raw0 = torch.from_numpy(tf._peak_init(sub.numpy(), t_np, 10,
+                                          np.random.default_rng(0)))
+    diffs = {}
+    for dtype in (torch.float64, torch.float32):
+        t_cpu, x = torch.from_numpy(t_np).to(dtype), sub.to(dtype)
+        raws = {dev: tf._fit_batch(x.to(dev), t_cpu.to(dev),
+                                   raw0.to(dev, dtype), 50, 0.05)[0].cpu()
+                for dev in ("cuda", "cpu")}
+        recon = {dev: tf.sum_of_psc_templates(t_cpu, *tf._unpack(r))
+                 for dev, r in raws.items()}
+        diffs[str(dtype)[6:]] = (
+            ((recon["cuda"] - recon["cpu"]).abs().max() / x.abs().max()
+             ).item(),
+            ((raws["cuda"] - raws["cpu"]).abs().max()
+             / raws["cpu"].abs().max()).item())
+    log("50 Adam steps on 32 traces, card vs CPU: (fitted templates max "
+        "|diff| / max |trace|, raw parameters max |diff| / max |raw|) "
+        f"{diffs}")
+    if max(diffs["float64"]) > 1e-4:
+        raise AssertionError(f"template fit: card and CPU differ by "
+                             f"{diffs['float64']} > 1e-4 in float64 after "
+                             "50 steps")
+    fit, fit_s = timed(lambda: tf.fit_psc_templates(traces, n_kernels=10,
+                                                    steps=800, restarts=3))
+    ranges = tf.suggest_datagen_ranges(fit)
+    med = float(np.median(fit["r2"]))
+    # the R2 of a flat trace (no evoked PSC; its variance near 0) is
+    # meaningless: the median over the traces that peak at 10% of the
+    # largest peak or more beside it
+    peaks = traces.amax(1).cpu().numpy()
+    evoked = peaks >= 0.1 * peaks.max()
+    med_evoked = float(np.median(fit["r2"][evoked]))
+    log(f"fit {fit_s:.2f} s; median fit R2 {med:.4f} over all 1,000, "
+        f"{med_evoked:.4f} over the {int(evoked.sum())} traces peaking at "
+        f">= 10% of the largest; suggest_datagen_ranges {ranges}")
+    if not np.isfinite(fit["reconstruction"]).all():
+        raise AssertionError("template fit: non-finite reconstruction")
+    return dict(s=fit_s, median_r2=med, median_r2_evoked=med_evoked,
+                card_vs_cpu_50_steps=diffs, ranges=ranges)
+
+
+def fidelity(true, demixed):
+    """Mean per-trial R2 of the demixed windows against the true evoked
+    responses, over trials with a response
+    (scripts_tpu/run_signal_fidelity.py:33-38)."""
+    from circuitmap_torch.utils.metrics import r2_score
+
+    return float(np.mean([r2_score(t, d) for t, d in zip(true, demixed)
+                          if t.std() > 0]))
+
+
+def phase_continuous(trained):
+    """Phase 24: ``simulate_continuous_experiment`` at yaml/sweep_tpu.yaml's
+    scale (N=300, H=10, 300 s at 20 kHz, 30 Hz stimulation, connection
+    probability 0.1, 3 Hz spontaneous events), its windows demixed on the
+    int4d2 wire by the shipped QAT checkpoint and by phase 22's network
+    (mean per-trial R2 against the true responses), and a 50-iteration
+    CAVIaR fit of the shipped demix. Hold: no NaN."""
+    from circuitmap_torch import Model, NeuralDemixer, \
+        simulate_continuous_experiment
+    from circuitmap_torch.utils.metrics import r2_score
+
+    log("phase 24: continuous experiment, N=300, H=10, 300 s at 20 kHz, "
+        "30 Hz stimulation")
+    np.random.seed(0)
+    expt, sim_s = timed(lambda: simulate_continuous_experiment(
+        N=300, H=10, expt_len=300 * 20000, stim_freq=30,
+        connection_prob=0.1, spont_rate=3, verbose=False))
+    obs = expt["obs_responses"]
+    log(f"simulated in {sim_s:.2f} s: {obs.shape[0]} windows, "
+        f"{int((expt['weights'] != 0).sum())} connected")
+    if not (np.isfinite(obs).all() and np.isfinite(expt["pscs"]).all()):
+        raise AssertionError("continuous experiment: non-finite traces")
+    r2s, dems = {}, {}
+    for name, dm in (("shipped int4d2 QAT", NeuralDemixer(str(CHECKPOINT))),
+                     ("trained", trained)):
+        dems[name] = dm(obs, transfer_dtype="int4d2", verbose=False)
+        r2s[name] = fidelity(expt["true_responses"], dems[name])
+    log(f"mean per-trial R2 (true vs demixed): {r2s}")
+    reset_counts()
+    model, fit_s = timed(lambda: Model(300).fit(
+        dems["shipped int4d2 QAT"], expt["stim_matrix"], method="caviar",
+        fit_options={"iters": 50, "powers": [45, 55, 65], "verbose": False}))
+    launches = kernel_launches(read_counts())
+    r2 = r2_score(expt["weights"], model.state["mu"])
+    log(f"CAVIaR fit {fit_s:.3f} s; launches {launches}; truth-R2 {r2:.4f}")
+    for key in FIT_FIELDS:
+        if np.isnan(np.asarray(model.state[key])).any():
+            raise AssertionError(f"continuous fit: posterior {key} is NaN")
+    return launches, dict(sim_s=sim_s, fidelity_r2=r2s, fit_s=fit_s,
+                          truth_r2=r2, windows=int(obs.shape[0]))
+
+
+def phase_analysis(sim, dem, model):
+    """Phase 25: the analysis tail on phase 5's fit: ``Model.summary``,
+    ``split_single_ensemble`` and ``connection_waveforms`` (its ridge
+    regression on the card). Prints their seconds and the count of
+    connections."""
+    from circuitmap_torch import pipelines
+
+    log("phase 25: analysis tail on the main-path fit")
+    stim = sim["stim_matrix"]
+    summary, sum_s = timed(lambda: model.summary(stim=stim, verbose=False))
+    (single, multi), split_s = timed(
+        lambda: pipelines.split_single_ensemble(stim))
+    (cnx, wf), wf_s = timed(lambda: pipelines.connection_waveforms(
+        dem, stim, model.state))
+    log(f"summary {sum_s:.3f} s ({summary['connected'].size} connected, "
+        f"noise std {summary['noise_std']:.4g}); split {split_s:.3f} s "
+        f"({single.size} single-target, {multi.size} ensemble trials); "
+        f"connection_waveforms {wf_s:.3f} s ({cnx.size} connections, "
+        f"waveforms {wf.shape})")
+    if cnx.size != summary["connected"].size or not np.isfinite(wf).all():
+        raise AssertionError("analysis tail: waveforms disagree with the "
+                             "summary's connections or are not finite")
+    return dict(summary_s=sum_s, split_s=split_s, waveforms_s=wf_s,
+                connections=int(cnx.size))
+
+
 def main():
     try:
         import torch
@@ -1729,8 +2152,12 @@ def main():
     sweep_rec["pinned_blocks"] = wide["blocks"]
     sweep_rec["p16"] = wide["sweep_p16"]
     laplace_rec["p17"] = wide["laplace_p17"]
+    repaired = phase_repaired_kernels()
+    sweep_rec["many_levels"] = repaired["levels"]
+    sweep_rec["long_blocks"] = repaired["blocks"]
+    laplace_rec["many_buckets"] = repaired["laplace"]
     paths = {}
-    paths["main"], sim, dem = phase_main_path()
+    paths["main"], sim, dem, model = phase_main_path()
     laplace_profiled_ms = phase_profile(sim, dem)
     row_rec = phase_row_sweep()
     row_rec["p16_max_abs_err"] = wide["row_p16_max_abs_err"]
@@ -1753,6 +2180,12 @@ def main():
     paths["closed_loop"], solvers["closed_loop"] = phase_closed_loop()
     many_paths, solvers["many_baselines"] = phase_many_baselines(sim, dem)
     paths.update(many_paths)
+    fits, solvers["repaired_fits"] = phase_repaired_fits(sim, dem)
+    paths.update(fits)
+    trained, solvers["training"] = phase_training(sim, dem)
+    solvers["template_fit"] = phase_template_fit(dem)
+    paths["continuous"], solvers["continuous"] = phase_continuous(trained)
+    solvers["analysis"] = phase_analysis(sim, dem, model)
     log(f"solvers: {json.dumps(solvers)}")
     laplace_rec["main_path_profiled_ms"] = laplace_profiled_ms
     records = (sweep_rec, laplace_rec, row_rec)

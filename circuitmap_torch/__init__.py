@@ -9,11 +9,20 @@ are explicit and random streams are ``torch.Generator``s.
 Device rule: every entry point (``Model.fit``, ``caviar``,
 ``caviar_many``, ``caviar_resumable``, ``OnlineCaviar``, ``cavi_sns``,
 ``sns_many``, ``mbcs``, ``mbcs_many``, ``mbcs_ard``, ``closed_loop_map``,
-``NeuralDemixer``, ``simulate``) takes ``device=None``, which means
-``"cuda"``. Pass ``device="cpu"`` to run on the CPU; without a CUDA
-device and without that request, the entry point raises RuntimeError
-instead of quietly running on the CPU. ``pool_design`` and
-``AdaptiveDesigner`` are host numpy.
+``NeuralDemixer`` with its ``train``, ``simulate``,
+``simulate_continuous_experiment`` and
+``simulation.simulate_continuous_experiment_without_spike_failures``,
+``demix.template_fit.fit_psc_templates`` and
+``pipelines.connection_waveforms`` /
+``pipelines.merge_duplicate_connections``) takes ``device=None``, which
+means ``"cuda"``. Pass ``device="cpu"`` to run on the CPU; without a
+CUDA device and without that request, the entry point raises
+RuntimeError instead of quietly running on the CPU. ``pool_design``,
+``AdaptiveDesigner``, ``summarize``/``format_summary`` (and
+``Model.summary``), ``demix.datagen``, ``NeuralDemixer``'s
+``generate_training_data``, ``demix.demixer.wire_transform``, the rest
+of ``pipelines`` and ``viz`` (matplotlib, imported lazily) are host
+numpy.
 
 Every Pallas TPU kernel of the JAX package has a hand-written CUDA C++
 counterpart for sm_90a (``csrc/``), built with nvcc at first use
@@ -45,6 +54,10 @@ _LAZY = {
     "cosamp": ("circuitmap_torch.solvers.cosamp", "cosamp"),
     "mbcs_ard": ("circuitmap_torch.solvers.experimental", "mbcs_ard"),
     "simulate": ("circuitmap_torch.simulation", "simulate"),
+    "simulate_continuous_experiment": ("circuitmap_torch.simulation",
+                                       "simulate_continuous_experiment"),
+    "summarize": ("circuitmap_torch.summary", "summarize"),
+    "format_summary": ("circuitmap_torch.summary", "format_summary"),
 }
 
 __all__ = list(_LAZY)

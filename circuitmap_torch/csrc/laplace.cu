@@ -35,7 +35,10 @@
 //   supplies both (the step 0.5^40).
 // - The bucket count P+1 <= 17 (16 power levels) is a template
 //   parameter, so S, C and the levels sit in registers (fully unrolled
-//   loops). The launch bounds promise one block an SM at least: without
+//   loops). Above 17 (P1 = 0 in the template) the count is a runtime
+//   value and every loop over the buckets reads S, C and the levels
+//   from device memory (L1), a simple layout that is right: speed at
+//   many levels is later work. The launch bounds promise one block an SM at least: without
 //   that, ptxas aims at a higher occupancy, caps a thread at 128 or 168
 //   registers and spills from P+1 = 7 on; with it P+1 <= 16 uses 82-236
 //   registers, no stack frame and no spills.
@@ -54,7 +57,7 @@
 
 namespace {
 
-constexpr int MAX_P1 = 17;  // ops/laplace_cuda.py::MAX_P1
+constexpr int MAX_P1 = 17;  // bucket counts held in registers (fixed)
 constexpr int NEWTON_STEPS = 10;
 constexpr int MAX_BACKTRACK = 40;
 constexpr double BARRIER_T = 10.0;
@@ -73,18 +76,48 @@ __device__ __forceinline__ double nan_to_num(double v) {
   return v;
 }
 
+// One neuron's buckets: P1 > 0 in registers; P1 = 0, a runtime count
+// `n`, read from device memory at each use.
+template <int P1>
+struct Buckets {
+  double S[P1], C[P1], lev[P1];
+  __device__ void load(const float* s, const float* c, const float* l, int) {
+#pragma unroll
+    for (int p = 0; p < P1; ++p) S[p] = s[p], C[p] = c[p], lev[p] = l[p];
+  }
+  __device__ __forceinline__ int count() const { return P1; }
+  __device__ __forceinline__ double s(int p) const { return S[p]; }
+  __device__ __forceinline__ double c(int p) const { return C[p]; }
+  __device__ __forceinline__ double l(int p) const { return lev[p]; }
+};
+
+template <>
+struct Buckets<0> {
+  const float *S, *C, *lev;
+  int n;
+  __device__ void load(const float* s, const float* c, const float* l,
+                       int p1) {
+    S = s, C = c, lev = l, n = p1;
+  }
+  __device__ __forceinline__ int count() const { return n; }
+  __device__ __forceinline__ double s(int p) const { return S[p]; }
+  __device__ __forceinline__ double c(int p) const { return C[p]; }
+  __device__ __forceinline__ double l(int p) const { return lev[p]; }
+};
+
 template <int P1>
 struct Neuron {
-  double S[P1], C[P1], lev[P1];
+  Buckets<P1> b;
   double pr0, pr1;            // prior mean
   double q00, q01, q10, q11;  // prior precision
 
   __device__ __forceinline__ double objective(double c0, double c1) const {
     double acc = 0.0;
 #pragma unroll
-    for (int p = 0; p < P1; ++p) {
-      const double x = c0 * lev[p] - c1;
-      const double ll = S[p] * log_sigmoid(x) + (C[p] - S[p]) * log_sigmoid(-x);
+    for (int p = 0; p < b.count(); ++p) {
+      const double x = c0 * b.l(p) - c1;
+      const double ll =
+          b.s(p) * log_sigmoid(x) + (b.c(p) - b.s(p)) * log_sigmoid(-x);
       acc -= nan_to_num(ll);
     }
     acc -= (log(c0) + log(c1)) / BARRIER_T;
@@ -99,7 +132,8 @@ __global__ void __launch_bounds__(THREADS, 1) laplace_kernel(
     const float* __restrict__ S, const float* __restrict__ C,
     const float* __restrict__ levels, const float* __restrict__ phi_prior,
     const float* __restrict__ cov_prior, float* __restrict__ phi_out,
-    float* __restrict__ cov_out, int N, int n_phi_prior, int n_cov_prior) {
+    float* __restrict__ cov_out, int N, int p1, int n_phi_prior,
+    int n_cov_prior) {
   const int lane = threadIdx.x % 32;
   const int slot = lane % GROUP;  // this lane's candidate in a round
   const int first_lane = lane - slot;
@@ -108,12 +142,7 @@ __global__ void __launch_bounds__(THREADS, 1) laplace_kernel(
   if (n >= N) return;  // the whole group leaves
 
   Neuron<P1> nr;
-#pragma unroll
-  for (int p = 0; p < P1; ++p) {
-    nr.S[p] = S[n * P1 + p];
-    nr.C[p] = C[n * P1 + p];
-    nr.lev[p] = levels[p];
-  }
+  nr.b.load(S + n * p1, C + n * p1, levels, p1);
   const long long a = n % n_phi_prior, b = n % n_cov_prior;
   nr.pr0 = phi_prior[2 * a];
   nr.pr1 = phi_prior[2 * a + 1];
@@ -135,14 +164,15 @@ __global__ void __launch_bounds__(THREADS, 1) laplace_kernel(
     // Newton direction: gradient, Hessian, adjugate inverse
     double g0 = 0.0, g1 = 0.0, h00 = 0.0, h01 = 0.0, h11 = 0.0;
 #pragma unroll
-    for (int p = 0; p < P1; ++p) {
-      const double f = 1.0 / (1.0 + exp(-(phi0 * nr.lev[p] - phi1)));
-      const double resid = nr.S[p] - nr.C[p] * f;
-      g0 -= nr.lev[p] * resid;
+    for (int p = 0; p < nr.b.count(); ++p) {
+      const double lv = nr.b.l(p), cp = nr.b.c(p);
+      const double f = 1.0 / (1.0 + exp(-(phi0 * lv - phi1)));
+      const double resid = nr.b.s(p) - cp * f;
+      g0 -= lv * resid;
       g1 += resid;
-      const double w = nr.C[p] * f * (1.0 - f);
-      h00 += nr.lev[p] * nr.lev[p] * w;
-      h01 -= nr.lev[p] * w;
+      const double w = cp * f * (1.0 - f);
+      h00 += lv * lv * w;
+      h01 -= lv * w;
       h11 += w;
     }
     const double d0 = phi0 - nr.pr0, d1 = phi1 - nr.pr1;
@@ -200,17 +230,18 @@ struct Args {
   int N, n_phi_prior, n_cov_prior;
 };
 
+// P1: the fixed bucket count that equals p1, or 0 (runtime) above MAX_P1
 template <int P1>
 int launch(int p1, const Args& a, cudaStream_t stream) {
   if constexpr (P1 > MAX_P1) {
-    return (int)cudaErrorInvalidValue;
+    return launch<0>(p1, a, stream);
   } else {
-    if (p1 != P1) return launch<P1 + 1>(p1, a, stream);
+    if (P1 > 0 && p1 != P1) return launch<P1 + 1>(p1, a, stream);
     const long long threads = (long long)a.N * GROUP;
     const int blocks = (int)((threads + THREADS - 1) / THREADS);
     laplace_kernel<P1><<<blocks, THREADS, 0, stream>>>(
         a.S, a.C, a.levels, a.phi_prior, a.cov_prior, a.phi_out, a.cov_out,
-        a.N, a.n_phi_prior, a.n_cov_prior);
+        a.N, p1, a.n_phi_prior, a.n_cov_prior);
     return (int)cudaGetLastError();
   }
 }
@@ -227,7 +258,7 @@ extern "C" int cm_laplace_f32(const void* S, const void* C,
                               const void* cov_prior, void* phi_out,
                               void* cov_out, int N, int P1, int n_phi_prior,
                               int n_cov_prior, void* stream) {
-  if (P1 < 1 || P1 > MAX_P1 || N < 1 || n_phi_prior < 1 ||
+  if (P1 < 1 || N < 1 || n_phi_prior < 1 ||
       n_cov_prior < 1 || N % n_phi_prior != 0 || N % n_cov_prior != 0)
     return (int)cudaErrorInvalidValue;
   const Args a{(const float*)S, (const float*)C, (const float*)levels,

@@ -8,15 +8,27 @@
 //     visited in `border` order, Jacobi within a block (every row reads
 //     the residual r = mu @ lam as it stood at the block's start),
 //     Gauss-Seidel across blocks, a rank-B update of r per block. B is a
-//     runtime count, 2..MAX_ROWS (the JAX package's pinned
-//     sweep_block_size, 8 by default);
+//     runtime count of 2 rows or more (the JAX package's pinned
+//     sweep_block_size, 8 by default). A block of more than MAX_ROWS rows
+//     runs as `subs` sub-steps of at most one warp's rows, all against
+//     the residual of the block's start; their updates of r gather in a
+//     scratch row `dacc` and reach r once, after the block's last
+//     sub-step;
 //   one row a step (SEQ): sweep_spikes_pallas_dma (:338, body :248-334),
 //     sweep_spikes_pallas (:89, body :35-82) and
 //     sweep_spikes_pallas_batched (:481, body :432-477): single rows in
 //     `order`, each updating r = r_excl + new_mu * new_lam (the
 //     reference's algebra).
 // P, the number of power levels (1..MAX_P), is a template parameter, as
-// are the schedules of one row and of the default 8 rows a step.
+// are the schedules of one row and of the default 8 rows a step. P = 0
+// is the path for any count above MAX_P (`a.P` at run time): there the
+// per-row, per-level sums cannot sit in registers or in one CTA's shared
+// memory (32 rows x 1025 sums from each of 16 CTAs), so est is written
+// first and then read back once per chunk of PC levels, each chunk's
+// sums reduced in the CTA into global scratch; the CTAs exchange their
+// partials through global scratch across a cluster barrier, and every
+// CTA sums them in rank order as the fixed-P path does. A simple layout
+// that is right: speed at many levels is later work.
 //
 // What bounds it on this card: bytes. A sweep must read stim and lam
 // ([E, N, K] f32 each) and write the new lam once: 3*E*N*K*4 bytes, 240 MB
@@ -79,6 +91,8 @@ constexpr int WARPS = THREADS / 32;
 constexpr int MAX_ROWS = 32;  // ops/sweep_cuda.py::MAX_BLOCK: one warp
 constexpr int MAX_P = 16;     // ops/sweep_cuda.py::MAX_POWERS
 constexpr int GATES = 32;     // s_gate floats: MAX_ROWS
+constexpr int DYN_G = 4;      // P = 0: rows a thread holds at once
+constexpr int DYN_PC = 8;     // P = 0: levels a pass (ops/sweep_cuda.py)
 static_assert(MAX_ROWS <= 32, "a step's rows are one warp's lanes");
 
 struct Args {
@@ -87,7 +101,11 @@ struct Args {
   const float* scalars;   // [E, 4]: sig, msrmp_eff, min_count, gate_active
   float* r;               // [E, K]: mu @ lam on entry, scratch after
   float* out;             // [E, N, K]
-  int N, K, nsteps, rows, cols, depth;
+  float* dacc;            // [E, K] zeros: a block's update of r (subs > 1)
+  float* xg;              // P = 0: [E, 3, cluster, rows * (P + 1)] scratch
+  // rows: a sub-step's rows (1..MAX_ROWS); block: a block's rows; subs:
+  // sub-steps a block (1 unless block > MAX_ROWS); P: the level count
+  int N, K, nsteps, rows, cols, depth, block, subs, P;
 };
 
 // the launch and occupancy entries of one range of P (CM_SWEEP_DEFINE_RANGE)
@@ -209,18 +227,24 @@ __device__ __forceinline__ void store4(float* p, int c, const float v[4],
 
 // R: the rows a step when fixed at compile time (1, the strictly
 // sequential schedule; 8, the default block), or 0 for a runtime count
-// a.rows (2..MAX_ROWS). The fixed 8 keeps the default's loops unrolled
-// and its offsets constant: taken at run time, 8 rows ran ~15% slower in
-// the profiled main-path fit (PERF.md).
+// a.rows (2..MAX_ROWS a sub-step, a.subs sub-steps a block). The fixed 8
+// keeps the default's loops unrolled and its offsets constant: taken at
+// run time, 8 rows ran ~15% slower in the profiled main-path fit
+// (PERF.md). P: the level count, or 0 for a.P (above MAX_P).
 template <int P, int R, bool ON_CHIP>
 __global__ void __launch_bounds__(THREADS, 1)
     sweep_cluster_kernel(const Args a) {
   constexpr bool SEQ = R == 1;
+  constexpr bool DYN = P == 0;
+  constexpr int PT = DYN ? 1 : P;  // register arrays' level count
   // rows whose sums and parameters a thread holds in registers at once
-  constexpr int G = SEQ ? 1 : (P <= 8 ? 8 : 4);
-  constexpr int NPAR = 4 + P;  // per row: mu, beta, m0, m1, counts
-  const int B = R > 0 ? R : a.rows;
-  const int NS = B * (P + 1);  // per row: P bucket sums + the total
+  constexpr int G = SEQ ? 1 : (DYN ? DYN_G : (P <= 8 ? 8 : 4));
+  constexpr int NPAR = DYN ? 4 : 4 + P;  // per row: mu, beta, m0, m1, counts
+  const int B = R > 0 ? R : a.rows;      // a (sub-)step's rows
+  const int S = R > 0 ? 1 : a.subs;      // sub-steps a block
+  const int NP = DYN ? a.P : P;
+  const int NS = B * (NP + 1);  // per row: P bucket sums + the total
+  const int RS = DYN ? DYN_G * DYN_PC : NS;  // a warp's row of `red`
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
@@ -235,11 +259,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   // shared memory, in the order cluster_plan counts it (floats; each part
   // a multiple of 4, so every part starts 16-byte aligned)
   float* xbuf = smem;                      // [2][C][NS] exchanged partials
-  float* red = xbuf + 2 * C * NS;          // [WARPS][NS]
-  float* s_gate = red + WARPS * NS;        // [B], GATES floats
+  float* red = xbuf + (DYN ? 0 : 2 * C * NS);  // [WARPS][RS]
+  float* s_gate = red + WARPS * RS;        // [B], GATES floats
   float* s_par = s_gate + GATES;           // [2][B][NPAR]
   const int par_floats = (2 * B * NPAR + 3) & ~3;
-  // s_n0: [2] ints in 4 floats' room; then xbar: [2] mbarriers (4 floats)
+  // s_n0: [2] first rows and [2] row counts, ints in 4 floats' room; then
+  // xbar: [2] mbarriers (4 floats)
   int* s_n0 = reinterpret_cast<int*>(s_par + par_floats);
   unsigned long long* xbar =
       reinterpret_cast<unsigned long long*>(s_par + par_floats + 4);
@@ -249,21 +274,29 @@ __global__ void __launch_bounds__(THREADS, 1)
   const float* stim = a.stim + e * NK + k0;
   const float* lam = a.lam + e * NK + k0;
   float* out = a.out + e * NK + k0;
-  const float* counts = a.counts + (size_t)e * N * P;
+  const float* counts = a.counts + (size_t)e * N * NP;
   const int* steps = a.steps + (size_t)e * a.nsteps;
   const float sig = a.scalars[4 * e + 0];
   const float msrmp = a.scalars[4 * e + 1];
   const float min_count = a.scalars[4 * e + 2];
   const float gate_active = a.scalars[4 * e + 3];
-  float pw[P];
+  float pw[PT];
+  if constexpr (!DYN) {
 #pragma unroll
-  for (int p = 0; p < P; ++p) pw[p] = a.powers[p];
+    for (int p = 0; p < P; ++p) pw[p] = a.powers[p];
+  }
+  // P = 0: the exchanged partials [2][C][NS] and this CTA's rank sums [NS]
+  float* xg = DYN ? a.xg + (size_t)e * 3 * C * NS : nullptr;
+  float* xsum = DYN ? xg + (size_t)(2 * C + rank) * NS : nullptr;
+  float* dacc = S > 1 ? a.dacc + (size_t)e * K + k0 : nullptr;
+  const int nsub = a.nsteps * S;  // sub-steps of the sweep
 
   // every row and every slice starts 16-byte aligned (cols % 4 == 0)
   const bool vec16 =
       K % 4 == 0 &&
       (((uintptr_t)a.y | (uintptr_t)a.mask | (uintptr_t)a.stim |
-        (uintptr_t)a.lam | (uintptr_t)a.r | (uintptr_t)a.out) & 15) == 0;
+        (uintptr_t)a.lam | (uintptr_t)a.r | (uintptr_t)a.out |
+        (uintptr_t)a.dacc) & 15) == 0;
 
   // r, y, mask by local column, on chip or in device memory; est: the
   // step's rows [B][cols] on chip, else `out` itself
@@ -301,14 +334,25 @@ __global__ void __launch_bounds__(THREADS, 1)
   const bool vec_r = ON_CHIP || vec16;   // how r, y, mask are accessed
   const int slot_floats = 2 * B * cols;  // per step: [B][stim, lam]
 
-  // the first row of the step whose `steps` entry is idx
-  auto first_row = [B](int idx) { return SEQ ? idx : idx * B; };
+  // the `steps` entry of sub-step t
+  auto entry = [&](int t) {
+    return t < nsub ? steps[SEQ ? t : t / S] : 0;
+  };
+  // the first row of sub-step t, whose `steps` entry is idx, and its rows
+  auto first_row = [&](int t, int idx) {
+    return SEQ ? idx : idx * a.block + (t % S) * B;
+  };
+  auto row_count = [&](int t, int idx) {
+    if (SEQ) return 1;
+    const int end = min(N, (idx + 1) * a.block);
+    return max(0, min(B, end - first_row(t, idx)));
+  };
 
-  // copy step t's stim and lam rows of this thread's quads into the ring
+  // copy sub-step t's stim and lam rows of this thread's quads into the ring
   auto issue = [&](int t, int idx) {
-    if (t < a.nsteps) {
-      const int n0 = first_row(idx);
-      const int nrows = min(B, N - n0);
+    if (t < nsub) {
+      const int n0 = first_row(t, idx);
+      const int nrows = row_count(t, idx);
       float* slot = ring + (t % depth) * slot_floats;
       for (int q = tid; q < quads; q += THREADS) {
         const int c = 4 * q;
@@ -334,16 +378,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     cp_async_commit();  // one group a step, empty past the end
   };
 
-  // row parameters of a step into s_par[t & 1] (warp 0, one lane a row)
-  auto fetch = [&](int idx, float* v) {
-    const int n = first_row(idx) + lane;
-    const bool ok = lane < B && n < N;
+  // row parameters of a sub-step into s_par[t & 1] (warp 0, one lane a
+  // row)
+  auto fetch = [&](int t, int idx, float* v) {
+    const int n = first_row(t, idx) + lane;
+    const bool ok = lane < row_count(t, idx);
     v[0] = ok ? a.mu[(size_t)e * N + n] : 0.f;
     v[1] = ok ? a.beta[(size_t)e * N + n] : 0.f;
     v[2] = ok ? a.m0[(size_t)e * N + n] : 0.f;
     v[3] = ok ? a.m1[(size_t)e * N + n] : 0.f;
 #pragma unroll
-    for (int p = 0; p < P; ++p) v[4 + p] = ok ? counts[(size_t)n * P + p] : 0.f;
+    for (int p = 0; p < NPAR - 4; ++p)
+      v[4 + p] = ok ? counts[(size_t)n * NP + p] : 0.f;
   };
   auto publish = [&](int t, int idx, const float* v) {
     if (lane < B) {
@@ -351,16 +397,76 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int i = 0; i < NPAR; ++i) d[i] = v[i];
     }
-    if (lane == 0) s_n0[t & 1] = first_row(idx);
+    if (lane == 0) {
+      s_n0[t & 1] = first_row(t, idx);
+      s_n0[2 + (t & 1)] = row_count(t, idx);
+    }
+  };
+
+  // P = 0: the per-level sums of rows g0..g0+G-1 of the sub-step at n0
+  // into part, DYN_PC levels a pass over the thread's columns, reading
+  // back the est that pass 1 wrote (each thread its own columns)
+  auto level_sums = [&](int g0, float* part, int n0, int nrows,
+                        const float* slot, bool ringed) {
+    for (int c0 = 0; c0 < NP; c0 += DYN_PC) {
+      float lv[DYN_PC], acc[G * DYN_PC];
+#pragma unroll
+      for (int p = 0; p < DYN_PC; ++p)  // NaN past the last level
+        lv[p] = c0 + p < NP ? a.powers[c0 + p] : __int_as_float(0x7fc00000);
+#pragma unroll
+      for (int s = 0; s < G * DYN_PC; ++s) acc[s] = 0.f;
+      for (int q = tid; q < quads; q += THREADS) {
+        const int c = 4 * q;
+        const int nv = min(4, width - c);
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          const int jj = g0 + j;
+          if (jj < nrows) {
+            float st[4], es[4];
+            if (ringed)
+              load4(st, slot + (2 * jj) * cols, c, 4, true);
+            else
+              load4(st, stim + (size_t)(n0 + jj) * K, c, nv, vec16);
+            if constexpr (ON_CHIP)
+              load4(es, est + jj * cols, c, 4, true);
+            else
+              load4(es, out + (size_t)(n0 + jj) * K, c, nv, vec16);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int p = 0; p < DYN_PC; ++p)
+                if (st[i] == lv[p]) acc[j * DYN_PC + p] += es[i];
+          }
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < G * DYN_PC; ++s) {
+        float v = acc[s];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, o);
+        if (lane == 0) red[warp * RS + s] = v;
+      }
+      __syncthreads();
+      for (int i = tid; i < G * DYN_PC; i += THREADS) {
+        const int j = g0 + i / DYN_PC, p = c0 + i % DYN_PC;
+        if (j < B && p < NP) {
+          float v = 0.f;
+          for (int w = 0; w < WARPS; ++w) v += red[w * RS + i];
+          part[j * (NP + 1) + p] = v;
+        }
+      }
+      __syncthreads();
+    }
   };
 
   if (depth > 0)
-    for (int t = 0; t < depth; ++t) issue(t, t < a.nsteps ? steps[t] : 0);
-  int idx_next = a.nsteps > 1 ? steps[1] : 0;  // step t+1's, one step ahead
+    for (int t = 0; t < depth; ++t) issue(t, entry(t));
+  int idx_next = entry(1);  // sub-step t+1's, one step ahead
   if (warp == 0) {
     float v[NPAR];
-    const int idx0 = steps[0];
-    fetch(idx0, v);
+    const int idx0 = entry(0);
+    fetch(0, idx0, v);
     publish(0, idx0, v);
   }
   if (tid == 0) {
@@ -372,12 +478,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   // mbarriers can be written) and step 0's parameters are visible
   cluster.sync();
 
-  for (int t = 0; t < a.nsteps; ++t) {
+  for (int t = 0; t < nsub; ++t) {
     const int par = t & 1;
     const unsigned bar = smem_u32(&xbar[par]);
-    if (tid == 0) mbar_expect_tx(bar, C * NS * 4);
+    if (!DYN && tid == 0) mbar_expect_tx(bar, C * NS * 4);
     const int n0 = s_n0[par];
-    const int nrows = min(B, N - n0);
+    const int nrows = s_n0[2 + par];
     const float* spar = s_par + par * B * NPAR;  // this step's rows
     // the parameters of G rows (from g0 on) into registers; the first
     // group's load before the waits below, as a step of one group (1 or
@@ -393,13 +499,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     load_group(0);
     // visiting-order entries needed later in this step, loaded now so
     // that no address waits on a load from device memory
-    const int idx_after = t + 2 < a.nsteps ? steps[t + 2] : 0;
-    const int idx_ring =
-        depth > 0 && t + depth < a.nsteps ? steps[t + depth] : 0;
+    const int idx_after = entry(t + 2);
+    const int idx_ring = depth > 0 ? entry(t + depth) : 0;
     // the next step's parameters load while this step computes
-    const bool fetching = warp == 0 && t + 1 < a.nsteps;
+    const bool fetching = warp == 0 && t + 1 < nsub;
     float nxt[NPAR];
-    if (fetching) fetch(idx_next, nxt);
+    if (fetching) fetch(t + 1, idx_next, nxt);
 
     const bool ringed = depth > 0;
     const float* slot = ring + (t % (ringed ? depth : 1)) * slot_floats;
@@ -407,7 +512,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     // pass 1: est of the step's rows and their bucket sums, G rows at a
     // time (every group of the step's B rows, so that each row's sums,
-    // zero past the last row, reach `red`)
+    // zero past the last row, reach `red`; at P = 0 the loop below sums
+    // only the total, and the levels follow in chunks)
     for (int g0 = 0; g0 < B; g0 += G) {
       if (g0 > 0) load_group(g0);
       float acc[G * (P + 1)];
@@ -459,34 +565,89 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
 
       // the CTA's partial sums of the group's rows
+      if constexpr (DYN) {
+        // the totals, then the levels chunk by chunk, into this CTA's slot
+        float* part = xg + (size_t)(par * C + rank) * NS;
 #pragma unroll
-      for (int s = 0; s < G * (P + 1); ++s) {
-        float v = acc[s];
+        for (int j = 0; j < G; ++j) {
+          float v = acc[j];
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          v += __shfl_xor_sync(0xffffffffu, v, o);
-        if (lane == 0 && g0 + s / (P + 1) < B)
-          red[warp * NS + g0 * (P + 1) + s] = v;
+          for (int o = 16; o > 0; o >>= 1)
+            v += __shfl_xor_sync(0xffffffffu, v, o);
+          if (lane == 0) red[warp * RS + j] = v;
+        }
+        __syncthreads();
+        if (tid < G && g0 + tid < B) {
+          float v = 0.f;
+          for (int w = 0; w < WARPS; ++w) v += red[w * RS + tid];
+          part[(g0 + tid) * (NP + 1) + NP] = v;
+        }
+        __syncthreads();
+        level_sums(g0, part, n0, nrows, slot, ringed);
+      } else {
+#pragma unroll
+        for (int s = 0; s < G * (P + 1); ++s) {
+          float v = acc[s];
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            v += __shfl_xor_sync(0xffffffffu, v, o);
+          if (lane == 0 && g0 + s / (P + 1) < B)
+            red[warp * NS + g0 * (P + 1) + s] = v;
+        }
       }
     }
     if (fetching) publish(t + 1, idx_next, nxt);
     idx_next = idx_after;
     __syncthreads();
-    // ... into slot [rank] of every CTA's exchange buffer
-    for (int i = tid; i < NS * C; i += THREADS) {
-      const int s = i % NS, dst = i / NS;
-      float v = 0.f;
+    if constexpr (DYN) {
+      // every CTA's partials of this step are in xg; this CTA's rank sums
+      __threadfence();
+      cluster.sync();
+      for (int i = tid; i < NS; i += THREADS) {
+        float v = 0.f;
+        for (int q = 0; q < C; ++q)
+          v += __ldcg(xg + (size_t)(par * C + q) * NS + i);
+        xsum[i] = v;
+      }
+      __syncthreads();
+    } else {
+      // ... into slot [rank] of every CTA's exchange buffer
+      for (int i = tid; i < NS * C; i += THREADS) {
+        const int s = i % NS, dst = i / NS;
+        float v = 0.f;
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) v += red[w * NS + s];
-      st_remote(smem_u32(xbuf + (par * C + rank) * NS + s), bar, dst, v);
+        for (int w = 0; w < WARPS; ++w) v += red[w * NS + s];
+        st_remote(smem_u32(xbuf + (par * C + rank) * NS + s), bar, dst, v);
+      }
     }
 
     // the gates: thread j sums row j over the ranks in rank order, the
     // same sums in every CTA
-    if (tid < B) {
+    if (DYN && tid < B) {
+      // the rank sums of row j are in xsum; its counts in device memory
+      const int j = tid;
+      const float* sj = xsum + j * (NP + 1);
+      bool ok = false;
+      if (j < nrows) {
+        const float* cnt = counts + (size_t)(n0 + j) * NP;
+        auto rate = [&](int p) {
+          const float c = cnt[p];
+          return sj[p] / (c + 1e-4f * (c == 0.f ? 1.f : 0.f));
+        };
+        // isotonic fit at max power = max over suffix means
+        float run = rate(NP - 1), iso = run, n = 1.f;
+        for (int p = NP - 2; p >= 0; --p) {
+          run += rate(p);
+          n += 1.f;
+          iso = fmaxf(iso, run / n);
+        }
+        ok = iso >= msrmp && sj[NP] >= min_count;
+      }
+      s_gate[j] = gate_active > 0.f ? (ok ? 1.f : 0.f) : 1.f;
+    } else if (!DYN && tid < B) {
       mbar_wait(bar, (t >> 1) & 1);  // all C partials of this step are in
       const int j = tid;
-      float sum[P + 1];
+      float sum[PT + 1];
 #pragma unroll
       for (int p = 0; p <= P; ++p) sum[p] = 0.f;
 #pragma unroll
@@ -498,14 +659,14 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
       const float* cnt = spar + j * NPAR + 4;
-      float rates[P];
+      float rates[PT];
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         const float c = cnt[p];
         rates[p] = sum[p] / (c + 1e-4f * (c == 0.f ? 1.f : 0.f));
       }
       // isotonic fit at max power = max over suffix means
-      float iso = rates[P - 1], run = rates[P - 1], n = 1.f;
+      float iso = rates[PT - 1], run = rates[PT - 1], n = 1.f;
 #pragma unroll
       for (int p = P - 2; p >= 0; --p) {
         run += rates[p];
@@ -529,7 +690,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int nv = min(4, width - c);
         const int nvr = ON_CHIP ? 4 : nv;
         float rq[4], dr[4] = {0.f, 0.f, 0.f, 0.f};
-        load4(rq, r, c, nvr, vec_r);
+        if (S == 1) load4(rq, r, c, nvr, vec_r);
 #pragma unroll
         for (int j = 0; j < G; ++j) {
           const int jj = g0 + j;
@@ -559,11 +720,35 @@ __global__ void __launch_bounds__(THREADS, 1)
             }
           }
         }
-        if (!SEQ) {
+        if (S > 1) {
+          // a sub-step of a long block: r waits for the block's end
+          float dq[4];
+          load4(dq, dacc, c, nv, vec16);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) rq[i] += dr[i];
+          for (int i = 0; i < 4; ++i) dq[i] += dr[i];
+          store4(dacc, c, dq, nv, vec16);
+        } else {
+          if (!SEQ) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) rq[i] += dr[i];
+          }
+          store4(r, c, rq, nvr, vec_r);
         }
+      }
+    }
+    if (S > 1 && t % S == S - 1) {
+      // the block's last sub-step: its update reaches r, dacc is cleared
+      for (int q = tid; q < quads; q += THREADS) {
+        const int c = 4 * q;
+        const int nv = min(4, width - c);
+        const int nvr = ON_CHIP ? 4 : nv;
+        float rq[4], dq[4];
+        load4(rq, r, c, nvr, vec_r);
+        load4(dq, dacc, c, nv, vec16);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) rq[i] += dq[i], dq[i] = 0.f;
         store4(r, c, rq, nvr, vec_r);
+        store4(dacc, c, dq, nv, vec16);
       }
     }
     if (depth > 0) issue(t + depth, idx_ring);  // done with the slot
@@ -669,6 +854,9 @@ int active_from_1(int, int, int, int, int);
 int active_from_5(int, int, int, int, int);
 int active_from_9(int, int, int, int, int);
 int active_from_13(int, int, int, int, int);
+// P = 0, the runtime level count above MAX_P (sweep_cluster_pdyn.cu)
+int launch_dyn(const Args&, int, int, int, int, cudaStream_t);
+int active_dyn(int, int, int, int);
 
 }  // namespace cm_sweep
 

@@ -1,1 +1,2 @@
-"""Waveform demixer: the U-Net module, checkpoint IO and the facade."""
+"""Waveform demixer: the U-Net module, checkpoint IO, training data,
+template fits and the facade."""

@@ -80,6 +80,16 @@ class Model:
         self.time = time.time() - t0
         return self
 
+    def summary(self, stim=None, verbose=True):
+        """Per-neuron posterior summary (``circuitmap_torch.summarize``);
+        prints the table unless ``verbose=False``. Returns the dict."""
+        from .summary import format_summary, summarize
+
+        out = summarize(self, stim=stim)
+        if verbose:
+            print(format_summary(out), end="")
+        return out
+
     def _set_history(self, names, hists):
         self.history = {n: _host(h) for n, h in zip(names, hists)}
 

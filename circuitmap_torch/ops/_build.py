@@ -101,9 +101,9 @@ def library():
 
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    # E, N, K, P, nsteps, rows_per_step, then cluster_plan's cluster,
-    # cols, on_chip, depth, smem_bytes
-    lib.cm_sweep_cluster_f32.argtypes = [p] * 14 + [i] * 11 + [p]
+    # E, N, K, P, nsteps, rows_per_step, block, subs, then cluster_plan's
+    # cluster, cols, on_chip, depth, smem_bytes
+    lib.cm_sweep_cluster_f32.argtypes = [p] * 16 + [i] * 13 + [p]
     lib.cm_sweep_cluster_f32.restype = i
     lib.cm_sweep_cluster_active.argtypes = [i] * 5
     lib.cm_sweep_cluster_active.restype = i

@@ -14,7 +14,8 @@ Leading batch dimensions (a batch of experiments) flatten into one
 launch, the port of the Pallas kernel's custom-vmap rule.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA float32 tensor
-launches ``csrc/laplace.cu``; anything else raises. The kernel takes and
+launches ``csrc/laplace.cu`` (any bucket count: up to 17 held in
+registers, more read from device memory); anything else raises. The kernel takes and
 returns float32 but computes in double (the 2x2 Hessian is
 ill-conditioned at closely spaced power levels), so it agrees with the
 plain version run in float64 on the same inputs.
@@ -30,7 +31,6 @@ BARRIER_T = 1e1
 ARMIJO_ALPHA = 0.25
 BACKTRACK_BETA = 0.5
 MAX_BACKTRACK = 40
-MAX_P1 = 17  # buckets: 16 power levels and the unstimulated one
 
 
 def _inv2x2(M):
@@ -143,9 +143,6 @@ def _prepare(S, C, levels, phi_prior, phi_cov_prior):
             f"the CUDA Laplace kernel takes float32 only, got {S.dtype}; "
             "a float64 fit runs on the CPU in this version")
     P1 = S.shape[-1]
-    if not 1 <= P1 <= MAX_P1:
-        raise ValueError(f"the CUDA Laplace kernel takes 1..{MAX_P1} "
-                         f"buckets, got {P1}")
     lead = S.shape[:-1]
     dev = S.device
     Sf = S.reshape(-1, P1).contiguous()

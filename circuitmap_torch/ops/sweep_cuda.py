@@ -4,7 +4,7 @@ PyTorch version.
 Port of ``circuitmap_tpu/ops/sweep_pallas.py::
 sweep_spikes_pallas_dma_blocked``. One coordinate-ascent sweep over the
 N spike-posterior rows in blocks of ``block_size`` consecutive rows (8
-by default, any of 1..32), visited in the order ``border`` (a
+by default, any size), visited in the order ``border`` (a
 permutation of the ceil(N/block_size) block indices, including a partial
 last block): Jacobi within a block (every row of a block reads the
 residual ``r = mu @ lam`` as it stood at the block's start),
@@ -18,10 +18,13 @@ form). ``_sweep_row_blocks`` is the plain per-row algebra that every
 plain sweep of the port runs, blocked or strictly sequential.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA float32 tensor
-launches ``csrc/sweep_cluster.cuh`` (1..32 rows a step, 1..16 power
-levels); anything else raises. The same kernel runs the strictly
-sequential sweep (1 row a step, ``ops/sweep_row_cuda.py``).
-:func:`cluster_plan` lays out its launch.
+launches ``csrc/sweep_cluster.cuh``; anything else raises. The kernel
+takes any block size (a block above 32 rows runs as sub-steps of at
+most one warp's rows against the block's residual) and any number of
+power levels (1..16 fixed at compile time, more at run time with the
+sums in global scratch). The same kernel runs the strictly sequential
+sweep (1 row a step, ``ops/sweep_row_cuda.py``). :func:`cluster_plan`
+lays out its launch.
 """
 
 from __future__ import annotations
@@ -35,8 +38,9 @@ from .._device import highest_matmul
 from .pava import isotonic_fit_at_max_batched
 
 BLOCK = 8                 # rows a step by default
-MAX_BLOCK = 32            # rows a step at most (one warp's lanes)
-MAX_POWERS = 16           # power levels the kernel is built for
+MAX_BLOCK = 32            # rows a (sub-)step at most (one warp's lanes)
+MAX_POWERS = 16           # power levels fixed at compile time; more at run time
+DYN_ROWS, DYN_LEVELS = 4, 8  # above MAX_POWERS: rows x levels a thread sums
 CLUSTER_THREADS = 512     # threads per CTA (csrc/sweep_cluster.cuh THREADS)
 CLUSTER_SIZES = (16, 8)   # CTAs per experiment: 16 where the card admits it
 SMEM_PER_CTA = 232448     # dynamic shared memory one CTA may take on sm_90
@@ -221,11 +225,8 @@ def _kernel_args(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
             f"the CUDA {what} kernel takes float32 only, got {lam.dtype}; "
             "a float64 fit runs on the CPU in this version")
     E = lam.shape[0]
-    P = powers.shape[0]
-    if not 1 <= P <= MAX_POWERS:
-        raise ValueError(
-            f"the CUDA {what} kernel takes 1..{MAX_POWERS} power levels, "
-            f"got {P}")
+    if powers.shape[0] < 1:
+        raise ValueError(f"the CUDA {what} kernel needs a power level")
     dev = lam.device
 
     def f32(a):
@@ -256,21 +257,29 @@ class ClusterPlan(NamedTuple):
 
 def cluster_plan(E, K, rows, P=MAX_POWERS, cluster=CLUSTER_SIZES[0]):
     """The launch of ``E`` sweeps over ``K`` trials at ``rows`` rows a
-    step (1..32) and ``P`` power levels (one cluster per experiment, so
-    the layout is the same for every E), as ``csrc/sweep_cluster.cuh``
-    lays out its shared memory (in floats, each part a multiple of 4):
-    the exchanged partials [2, cluster, rows*(P+1)], the CTA's reduction
-    [warps, rows*(P+1)], the gates (32), the row parameters
-    [2, rows, 4+P], the step's first row (4) and the exchange's two
-    mbarriers (4); then, on chip, r, y and mask [cols] and est
-    [rows, cols]; then the ring, ``depth`` slots of [rows, 2, cols]."""
+    (sub-)step (1..32) and ``P`` power levels (one cluster per
+    experiment, so the layout is the same for every E), as
+    ``csrc/sweep_cluster.cuh`` lays out its shared memory (in floats,
+    each part a multiple of 4): up to 16 levels the exchanged partials
+    [2, cluster, rows*(P+1)] and the CTA's reduction [warps,
+    rows*(P+1)], above 16 the reduction of one pass [warps,
+    DYN_ROWS*DYN_LEVELS] alone (the partials go to global scratch); the
+    gates (32), the row parameters [2, rows, 4+P] (4 above 16 levels:
+    the counts stay in device memory), the step's first rows and row
+    counts (4) and the exchange's two mbarriers (4); then, on chip, r, y
+    and mask [cols] and est [rows, cols]; then the ring, ``depth`` slots
+    of [rows, 2, cols]."""
     if not 1 <= rows <= MAX_BLOCK or cluster not in CLUSTER_SIZES:
         raise ValueError(f"no cluster sweep at rows={rows}, "
                          f"cluster={cluster}")
     cols = 4 * -(-K // (4 * cluster))
-    ns = rows * (P + 1)
-    fixed = (2 * cluster * ns + CLUSTER_THREADS // 32 * ns + MAX_BLOCK
-             + 4 * -(-2 * rows * (4 + P) // 4) + 8)
+    warps = CLUSTER_THREADS // 32
+    if P > MAX_POWERS:
+        fixed = warps * DYN_ROWS * DYN_LEVELS + 4 * -(-2 * rows * 4 // 4)
+    else:
+        ns = rows * (P + 1)
+        fixed = 2 * cluster * ns + warps * ns + 4 * -(-2 * rows * (4 + P) // 4)
+    fixed += MAX_BLOCK + 8
     resident = (3 + rows) * cols
     slot = 2 * rows * cols
     limit = SMEM_PER_CTA // 4
@@ -305,13 +314,22 @@ def launch_plan(E, K, rows, P):
                        f"{CLUSTER_SIZES} CTAs at K={K}, rows={rows}")
 
 
+def sub_steps(block):
+    """A block of ``block`` rows as (sub-steps, rows a sub-step): one
+    step up to MAX_BLOCK rows, else the fewest sub-steps of at most
+    MAX_BLOCK rows, of even size but the last."""
+    subs = -(-block // MAX_BLOCK)
+    return subs, -(-block // subs)
+
+
 def launch_cluster_sweep(rows, y, stim, mu, beta, lam, sig, m0, m1,
                          lam_mask, powers, power_counts, steps, msrmp_eff,
                          minimum_spike_count, gate_active):
     """One launch of the cluster sweep over E experiments ([E, ...]
-    arrays) at ``rows`` rows a step (1..32); ``steps``: [E,
-    ceil(N/rows)] block indices, or [E, N] rows at one row a step.
-    Returns the new lam [E, N, K]."""
+    arrays) at ``rows`` rows a block (any size; above MAX_BLOCK a block
+    runs as :func:`sub_steps` against the residual of its start);
+    ``steps``: [E, ceil(N/rows)] block indices, or [E, N] rows at one
+    row a step. Returns the new lam [E, N, K]."""
     from . import _build
 
     what = "sweep" if rows > 1 else "row-sweep"
@@ -327,15 +345,24 @@ def launch_cluster_sweep(rows, y, stim, mu, beta, lam, sig, m0, m1,
             f"experiment, got {tuple(steps.shape)}")
     dev = lam.device
     P = powers.shape[0]
-    plan = launch_plan(E, K, rows, P)
+    subs, sub_rows = sub_steps(rows)
+    plan = launch_plan(E, K, sub_rows, P)
     steps32 = steps.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(arrays[3])
+    # a long block's update of r, and the exchange above 16 levels
+    dacc = torch.zeros((E, K), dtype=torch.float32, device=dev) \
+        if subs > 1 else None
+    xg = torch.empty(E * 3 * plan.cluster * sub_rows * (P + 1),
+                     dtype=torch.float32, device=dev) \
+        if P > MAX_POWERS else None
     lib = _build.library()
     # r holds mu @ lam and is the kernel's scratch residual off chip
     err = lib.cm_sweep_cluster_f32(
         *(a.data_ptr() for a in arrays), steps32.data_ptr(),
-        scalars.data_ptr(), r.data_ptr(), out.data_ptr(), E, N, K, P,
-        nsteps, rows, plan.cluster, plan.cols, int(plan.on_chip),
+        scalars.data_ptr(), r.data_ptr(), out.data_ptr(),
+        None if dacc is None else dacc.data_ptr(),
+        None if xg is None else xg.data_ptr(), E, N, K, P, nsteps,
+        sub_rows, rows, subs, plan.cluster, plan.cols, int(plan.on_chip),
         plan.depth, plan.smem_bytes,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "sweep_cluster")
@@ -345,10 +372,8 @@ def launch_cluster_sweep(rows, y, stim, mu, beta, lam, sig, m0, m1,
 def _launch(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
             power_counts, border, msrmp_eff, minimum_spike_count,
             gate_active, block_size):
-    if not 1 <= block_size <= MAX_BLOCK:
-        raise ValueError(
-            f"the CUDA sweep kernel takes block_size 1..{MAX_BLOCK}, got "
-            f"{block_size}")
+    if block_size < 1:
+        raise ValueError(f"block_size must be >= 1, got {block_size}")
     return launch_cluster_sweep(
         block_size, y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
         power_counts, border, msrmp_eff, minimum_spike_count, gate_active)

@@ -21,7 +21,6 @@ import warnings
 import numpy as np
 import torch
 
-from ..ops.sweep_cuda import MAX_POWERS
 from ..utils.quant import (_upsample2, encode_int4_traces, quantise_int8,
                            unpack_int4_codes)
 
@@ -116,25 +115,10 @@ def prepare_traces(y_psc, dtype, device, trace_wire=None):
                            device=device).to(dtype)
 
 
-def check_levels_for_device(n_levels, device):
-    """Raise unless a fit on ``device`` (only its type is read) takes
-    ``n_levels`` power levels: the CUDA kernels are built for 1..16 (the
-    sweep's template instantiations, the Laplace kernel's 17 buckets);
-    the CPU's plain versions take any number."""
-    if device is not None and torch.device(device).type == "cuda" \
-            and n_levels > MAX_POWERS:
-        raise ValueError(
-            f"the stimulus holds {n_levels} power levels; the CUDA kernels "
-            f"take at most {MAX_POWERS} (ROADMAP C). Round the stim matrix "
-            "to the rig's levels, or fit with device='cpu'")
-
-
-def _levels(stim_np, powers=None, device=None):
+def _levels(stim_np, powers=None):
     """Sorted stimulation levels: (powers_host in the stim's precision,
     the 0-prefixed float32 level table the device reconstruction uses).
-    ``powers`` (the rig's levels) skips the np.unique scan. With a
-    ``device``, raises when its kernels do not take that many levels
-    (:func:`check_levels_for_device`), before anything is uploaded."""
+    ``powers`` (the rig's levels) skips the np.unique scan."""
     cand = np.unique(stim_np if powers is None else np.asarray(powers))
     cand = cand[cand != 0.0]
     if powers is None and cand.size > 1024:
@@ -147,7 +131,6 @@ def _levels(stim_np, powers=None, device=None):
     lv32, first = np.unique(cand.astype(np.float32), return_index=True)
     powers_host = cand[first]
     levels_np = np.concatenate([[0.0], lv32]).astype(np.float32)
-    check_levels_for_device(powers_host.size, device)
     return powers_host, levels_np
 
 
@@ -203,11 +186,11 @@ def _bucketise_dense(stim_np, levels_np):
     return bucket.astype(np.int8)
 
 
-def _upload_plan(stim_np, powers, device=None):
+def _upload_plan(stim_np, powers):
     """(powers_host, levels_np, kind, payload); kind is "dense"
     (payload None), "sparse" ((targets, tbucket, power_counts)) or
-    "bucket" (the int8 bucket matrix). ``device``: as :func:`_levels`."""
-    powers_host, levels_np = _levels(stim_np, powers, device)
+    "bucket" (the int8 bucket matrix)."""
+    powers_host, levels_np = _levels(stim_np, powers)
     if levels_np.size > 127:
         return powers_host, levels_np, "dense", None
     sparse = _sparsify(stim_np, levels_np)
@@ -243,13 +226,11 @@ def _stim_on_device(stim_np, levels_np, kind, payload, dtype, device):
     return stim
 
 
-def stim_upload_plan(stim, powers, device):
+def stim_upload_plan(stim, powers):
     """The host half of the stim upload: (stim_np, plan), for
-    :func:`prepare_stim` and :func:`prepare_stim_and_init`.
-    Raises, before any device allocation, when the fit's device does not
-    take the stim's power levels."""
+    :func:`prepare_stim` and :func:`prepare_stim_and_init`."""
     stim_np = np.asarray(stim)
-    return stim_np, _upload_plan(stim_np, powers, device)
+    return stim_np, _upload_plan(stim_np, powers)
 
 
 def prepare_stim(stim, dtype, device, plan=None):

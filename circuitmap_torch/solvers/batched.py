@@ -92,12 +92,11 @@ def _same_shape_stack(y_pscs, stims, trace_wire, dtype):
     return np.asarray(y_pscs), np.asarray(stims)
 
 
-def _validate_shared_levels(stims_np, powers, device=None):
+def _validate_shared_levels(stims_np, powers):
     """The shared power levels, from experiment 0 (or ``powers``). Above
     127 levels the upload is dense and checks no coverage, so every
-    other experiment is checked against them here. ``device``: raise
-    first when its kernels do not take that many levels."""
-    powers_np, levels_np = _levels(stims_np[0], powers, device)
+    other experiment is checked against them here."""
+    powers_np, levels_np = _levels(stims_np[0], powers)
     if levels_np.size > 127:
         table = np.concatenate([[0.0], powers_np])
         for b in range(1, stims_np.shape[0]):
@@ -287,7 +286,7 @@ def caviar_many(
     resolve_laplace_impl(laplace_impl)
     block = (1 if mode == "batched" and sweep_block_size == "auto"
              else _resolve_sweep("auto", sweep_block_size, dev, k=K))
-    powers_np = _validate_shared_levels(stims_np, powers, dev)
+    powers_np = _validate_shared_levels(stims_np, powers)
     if verbose:
         ragged = ("" if k_trues is None else
                   f", ragged trials {k_trues.min()}-{k_trues.max()} "
@@ -441,7 +440,7 @@ def sns_many(
     y_pscs, stims_np = _same_shape_stack(y_pscs, stims, trace_wire, dtype)
     B, K, _T = y_pscs.shape
     mode = _resolve_mode(compile_mode, mesh)
-    powers_np = _validate_shared_levels(stims_np, powers, dev)
+    powers_np = _validate_shared_levels(stims_np, powers)
     if verbose:
         print(f"Running CAVI-SnS (PyTorch) on {B} experiments "
               f"(compile_mode={mode}).")

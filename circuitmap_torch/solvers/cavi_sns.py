@@ -335,7 +335,7 @@ def cavi_sns(
     if verbose:
         print("Running CAVI-SnS (PyTorch).")
 
-    stim_np, plan = stim_upload_plan(stim, None, dev)
+    stim_np, plan = stim_upload_plan(stim, None)
     y_psc = prepare_traces(y_psc, dtype, dev, trace_wire=trace_wire)
     stim_t, _, _, powers_dev_np = prepare_stim(stim_np, dtype, dev,
                                                plan=plan)

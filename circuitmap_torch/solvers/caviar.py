@@ -40,7 +40,7 @@ import torch
 from .._device import highest_matmul, resolve_device, torch_dtype
 from ..ops.charge import prepare_observations
 from ..ops.pava import isotonic_fit_at_max_batched
-from ..ops.sweep_cuda import (MAX_BLOCK, _sweep_row_blocks,
+from ..ops.sweep_cuda import (_sweep_row_blocks,
                               sweep_spikes_blocked,
                               sweep_spikes_blocked_batched)
 from ..ops.sweep_row_cuda import (sweep_spikes_row, sweep_spikes_row_batched,
@@ -473,9 +473,9 @@ def _resolve_sweep(sweep_impl, sweep_block_size, device, k=None):
 
     'auto' is 8 on CUDA (the cluster kernel at 8 rows a step) and 1 on
     the CPU (the reference's strictly sequential schedule). A pinned size
-    is honoured verbatim: on CUDA 1..32 run the kernel at that many rows
-    a step (1: the strictly sequential schedule); a larger size raises
-    here, before anything is uploaded (ROADMAP C).
+    is honoured verbatim on every device (on CUDA, 1 is the strictly
+    sequential schedule, and a block above 32 rows runs as sub-steps of
+    one warp's rows against the block's residual).
     """
     if sweep_impl not in SWEEP_IMPLS:
         raise ValueError(
@@ -488,10 +488,6 @@ def _resolve_sweep(sweep_impl, sweep_block_size, device, k=None):
     block = int(sweep_block_size)
     if block < 1:
         raise ValueError(f"sweep_block_size must be >= 1, got {block}")
-    if on_cuda and block > MAX_BLOCK:
-        raise NotImplementedError(
-            f"the CUDA sweep kernel takes 1..{MAX_BLOCK} rows a step; "
-            f"sweep_block_size={block} is not available on the GPU")
     return block
 
 
@@ -534,9 +530,8 @@ def caviar(
     CPU). CUDA fits are float32; a float64 fit runs on the CPU.
 
     ``sweep_block_size="auto"`` is 8 on CUDA at any K and 1 on the CPU;
-    a pinned size is honoured, on CUDA 1..32 (``_resolve_sweep``). A
-    CUDA fit takes at most 16 power levels; more raise before any
-    upload.
+    a pinned size is honoured on every device (``_resolve_sweep``), as
+    is any number of power levels.
 
     ``track_elbo=True`` appends an 18th element ``(elbos [iters],
     converged_at)``: the evidence lower bound after each iteration
@@ -559,7 +554,7 @@ def caviar(
     if verbose:
         print("Running CAVIaR (PyTorch).")
 
-    stim_np, plan = stim_upload_plan(stim, powers, dev)
+    stim_np, plan = stim_upload_plan(stim, powers)
     y_psc = prepare_traces(y_psc, dtype, dev, trace_wire=trace_wire)
     y, active = prepare_observations(y_psc, y_xcorr_thresh)
     stim_t, lam_mask, lam0, _, _, powers_dev_np, pc_np = prepare_stim_and_init(

@@ -148,7 +148,7 @@ class OnlineCaviar:
         # the level table: fixed by powers= now, or by the first block
         self._powers_np = self._levels_np = self._levels_t = None
         if powers is not None:
-            self._set_levels(*_levels(np.zeros((1, 1)), powers, self.device))
+            self._set_levels(*_levels(np.zeros((1, 1)), powers))
 
         self.k = 0               # true trials seen
         self.it = 0              # CAVI iterations run
@@ -217,7 +217,7 @@ class OnlineCaviar:
 
         fresh_table = self._levels_np is None
         if fresh_table:
-            powers_np, levels_np = _levels(stim_np, None, self.device)
+            powers_np, levels_np = _levels(stim_np, None)
             if levels_np.size < 2:
                 raise ValueError(
                     "the first block carries no nonzero stimulation, so "

@@ -89,7 +89,7 @@ def caviar_resumable(
     block = _resolve_sweep(sweep_impl, sweep_block_size, dev)
     resolve_laplace_impl(laplace_impl)
 
-    stim_np, plan = stim_upload_plan(stim, powers, dev)
+    stim_np, plan = stim_upload_plan(stim, powers)
     y_psc = prepare_traces(y_psc, dtype, dev, trace_wire=trace_wire)
     y, active = prepare_observations(y_psc, y_xcorr_thresh)
     stim_t, lam_mask, lam0, _, _, powers_dev_np, pc_np = prepare_stim_and_init(

@@ -21,6 +21,7 @@ import torch
 import jax.numpy as jnp
 
 from circuitmap_torch import Model, default_priors
+from circuitmap_torch.ops import sweep_cuda
 
 # the modules, not the caviar() functions the solvers packages export
 jcav = importlib.import_module("circuitmap_tpu.solvers.caviar")
@@ -320,39 +321,45 @@ def test_sweep_block_size_resolution():
     assert tcav._resolve_sweep("auto", "auto", cpu) == 1
     assert tcav._resolve_sweep("auto", "auto", gpu) == 8
     assert tcav._resolve_sweep("cuda", 8, cpu) == 8
-    # the strictly sequential schedule on CUDA runs the row kernel; every
-    # pinned size up to 32 runs the cluster kernel at that many rows
-    for block in range(1, 33):
+    # every pinned size is honoured on CUDA, as in the JAX package: 1 is
+    # the strictly sequential schedule, 2..32 rows a kernel step, and a
+    # longer block runs as sub-steps of at most one warp's rows
+    for block in (*range(1, 34), 48, 64, 125, 1000):
         assert tcav._resolve_sweep("auto", block, gpu) == block
-    with pytest.raises(NotImplementedError, match="sweep_block_size=33"):
-        tcav._resolve_sweep("auto", 33, gpu)
-    # the CPU's plain sweep takes any size
-    assert tcav._resolve_sweep("auto", 33, cpu) == 33
+        assert tcav._resolve_sweep("auto", block, cpu) == block
+    assert [sweep_cuda.sub_steps(b) for b in (1, 8, 32, 33, 48, 64, 125)] \
+        == [(1, 1), (1, 8), (1, 32), (2, 17), (2, 24), (2, 32), (4, 32)]
     with pytest.raises(ValueError, match=">= 1"):
         tcav._resolve_sweep("auto", 0, cpu)
+    with pytest.raises(ValueError, match=">= 1"):
+        tcav._resolve_sweep("auto", 0, gpu)
 
 
 def test_cuda_fit_with_more_levels_than_the_kernels_raises_at_resolution():
-    """The CUDA kernels take 1..16 power levels: resolving a stim of 17
-    levels for a CUDA fit raises, naming the limit, before anything is
-    uploaded (so this runs without a card); 16 resolve, and the CPU's
-    plain versions take any number."""
+    """The CUDA kernels take any number of power levels (1..16 fixed at
+    compile time, more at run time), so resolving the levels of a stim
+    for any fit raises only where the JAX package's ``_levels`` does:
+    above 1024 distinct levels derived from the stim; ``powers=`` may
+    name any number."""
     from circuitmap_torch.solvers import _common
+    from circuitmap_tpu.solvers._common import _levels as jax_levels
 
     rng = np.random.default_rng(0)
-    levels = 30.0 + 3.0 * np.arange(17)
-    stim = np.zeros((20, 400))
-    stim[rng.integers(0, 20, 400), np.arange(400)] = rng.choice(levels, 400)
-    gpu, cpu = torch.device("cuda"), torch.device("cpu")
-    with pytest.raises(ValueError, match="at most 16"):
-        _common.stim_upload_plan(stim, None, gpu)
-    with pytest.raises(ValueError, match="at most 16"):
-        _common._levels(stim, levels, gpu)
-    assert _common.stim_upload_plan(stim, None, cpu)[1][0].size == 17
-    sixteen = np.where(stim == levels[-1], levels[0], stim)
-    assert _common.stim_upload_plan(sixteen, None, gpu)[1][0].size == 16
-    with pytest.raises(ValueError, match="at most 16"):
-        tbat._validate_shared_levels(stim[None], None, gpu)
+    for n in (17, 24, 1024):
+        levels = 30.0 + 0.05 * np.arange(n)
+        stim = np.zeros((20, 3000))
+        stim[rng.integers(0, 20, 3000), np.arange(3000)] = levels[
+            np.arange(3000) % n]
+        plan = _common.stim_upload_plan(stim, None)[1]
+        assert plan[0].size == n
+        np.testing.assert_array_equal(plan[0], jax_levels(stim)[0])
+        assert _common._levels(stim, levels)[0].size == n
+        assert tbat._validate_shared_levels(stim[None], None).size == n
+    many = np.zeros((20, 1100))
+    many[0] = 1.0 + np.arange(1100)
+    with pytest.raises(ValueError, match="1100 distinct"):
+        _common._levels(many)
+    assert _common._levels(many, 1.0 + np.arange(1100))[0].size == 1100
 
 
 def test_default_priors_match_jax():

@@ -20,10 +20,15 @@ REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "circuitmap_tpu")
 PORT_FILES = sorted((REPO / "circuitmap_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
-# the modules of the streaming, resumable and closed-loop slice, which
-# must be among the files scanned
+# the modules of the streaming, resumable and closed-loop slice and of
+# the training, continuous-simulation and analysis slice, which must be
+# among the files scanned
 SLICE_MODULES = ("utils/checkpoint.py", "solvers/resumable.py",
-                 "solvers/online.py", "design.py")
+                 "solvers/online.py", "design.py", "summary.py",
+                 "pipelines.py", "viz.py", "simulation.py",
+                 "demix/unet.py", "demix/datagen.py", "demix/demixer.py",
+                 "demix/convert.py", "demix/stacked.py",
+                 "demix/template_fit.py")
 
 
 def _imported_roots(path):
@@ -138,6 +143,21 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda):
     for method in ("cavi_sns", "mbcs", "cosamp"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cm.Model(4).fit(psc, stim, method=method)
+    from circuitmap_torch import pipelines, simulation
+    from circuitmap_torch.demix.template_fit import fit_psc_templates
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cm.simulate_continuous_experiment(N=4, H=1, verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulation.simulate_continuous_experiment_without_spike_failures(N=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fit_psc_templates(psc[:2], steps=1, restarts=1)
+    state = {"mu": np.ones(4), "lam": stim / 45.0}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pipelines.connection_waveforms(psc, stim, state)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pipelines.merge_duplicate_connections(psc, stim, state,
+                                              np.zeros((4, 3)))
 
 
 def test_lazy_exports():
@@ -147,7 +167,8 @@ def test_lazy_exports():
         "Model", "default_priors", "NeuralDemixer", "caviar", "caviar_many",
         "simulate", "cavi_sns", "mbcs", "cosamp", "mbcs_ard", "sns_many",
         "mbcs_many", "caviar_resumable", "OnlineCaviar", "pool_design",
-        "AdaptiveDesigner", "closed_loop_map"}
+        "AdaptiveDesigner", "closed_loop_map",
+        "simulate_continuous_experiment", "summarize", "format_summary"}
     from circuitmap_torch import design, solvers
     from circuitmap_torch.solvers.experimental import mbcs_ard
 
@@ -158,6 +179,12 @@ def test_lazy_exports():
     for name in ("pool_design", "AdaptiveDesigner", "closed_loop_map"):
         assert getattr(cm, name) is getattr(design, name)
     assert cm.mbcs_ard is mbcs_ard
+    from circuitmap_torch import simulation, summary
+
+    assert cm.simulate_continuous_experiment is \
+        simulation.simulate_continuous_experiment
+    assert cm.summarize is summary.summarize
+    assert cm.format_summary is summary.format_summary
     with pytest.raises(AttributeError):
         cm.not_a_name  # noqa: B018
 

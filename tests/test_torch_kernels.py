@@ -94,6 +94,11 @@ def test_sweep_kernel_matches_plain(cuda, N, K, powers):
 SIXTEEN_LEVELS = tuple(30.0 + 3.0 * p for p in range(16))
 
 
+def _levels(n):
+    """n distinct power levels from 30 up, 0.05 apart past 16."""
+    return tuple(float(v) for v in 30.0 + 0.05 * np.arange(n))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("block,N,K,powers", [
     (7, 29, 300, (45.0, 55.0, 65.0)),     # a partial last block
@@ -103,6 +108,16 @@ SIXTEEN_LEVELS = tuple(30.0 + 3.0 * p for p in range(16))
     (32, 203, 5000, (45.0, 55.0, 65.0)),  # four groups of 8 rows a step
     (8, 203, 5000, SIXTEEN_LEVELS),       # two groups of 4 rows a step
     (32, 64, 20000, SIXTEEN_LEVELS),      # r and est off chip
+    # more levels than the compile-time instances: sums in global scratch
+    (8, 203, 5000, _levels(24)),
+    (8, 203, 5000, _levels(64)),
+    (8, 64, 20000, _levels(1024)),
+    (1, 64, 3000, _levels(24)),           # the strictly sequential sweep
+    # blocks of more than one warp's rows: sub-steps against one residual
+    (48, 203, 5000, (45.0, 55.0, 65.0)),
+    (64, 203, 5001, (45.0, 55.0, 65.0)),
+    (125, 300, 5000, (45.0, 55.0, 65.0)),
+    (48, 203, 5000, _levels(24)),
 ])
 def test_sweep_kernel_matches_plain_at_pinned_blocks_and_levels(
         cuda, block, N, K, powers):
@@ -296,7 +311,7 @@ def _laplace_stats(N, P1, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P1", [2, 4, 6, 16, 17])
+@pytest.mark.parametrize("P1", [2, 4, 6, 16, 17, 25, 65, 1025])
 def test_laplace_kernel_matches_plain_float64(cuda, P1):
     args = [a.to(cuda) for a in _laplace_stats(300, P1, seed=P1)]
     before = laplace_cuda.laplace_from_stats.launches
@@ -460,10 +475,10 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         sweep_cuda.sweep_spikes_blocked(
             t["y"], t["stim"], t["mu"], t["beta"], t["lam"], 0.1, t["m0"],
             t["m1"], t["lam_mask"], t["powers"], t["power_counts"],
-            t["border"], 0.3, 3.0, 1.0, block_size=33)
-    seventeen = _sweep_inputs(16, 200, SIXTEEN_LEVELS + (80.0,), device=cuda)
-    with pytest.raises(ValueError, match="1..16 power levels"):
-        _sweep(sweep_cuda.sweep_spikes_blocked, seventeen, 1.0)
+            t["border"], 0.3, 3.0, 1.0, block_size=0)
+    none = dict(t, powers=t["powers"][:0], power_counts=t["power_counts"][:, :0])
+    with pytest.raises(ValueError, match="power level"):
+        _sweep(sweep_cuda.sweep_spikes_blocked, none, 1.0)
     # both wrappers take K past the old kernels' shared-memory limit
     wide = _stacked(1, 16, 56065, (45.0, 55.0), cuda)
     wide = {k: (v if k == "powers" else v[0]) for k, v in wide.items()}

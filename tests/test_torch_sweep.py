@@ -139,6 +139,53 @@ def test_pinned_block_sweep_matches_xla_blocked_sweep(block, gate):
 
 
 @pytest.mark.parametrize("gate", [0.0, 1.0], ids=["gate_off", "gate_on"])
+@pytest.mark.parametrize("block,n_levels", [(8, 24), (64, 3), (48, 24),
+                                            (1, 24)])
+def test_many_levels_and_long_blocks_match_xla_blocked_sweep(
+        block, n_levels, gate):
+    """The plain sweep at more power levels than the kernel's compile-time
+    instances (24) and at blocks of more than one warp's rows (48, 64;
+    the CUDA kernel runs them as sub-steps against the block's residual)
+    against the JAX package's XLA blocked sweep at the same block size
+    and row order, as above; N=150 leaves a partial last block."""
+    n, k = 150, 600
+    powers = 30.0 + 0.5 * np.arange(n_levels)
+    rng = np.random.default_rng(block + n_levels)
+    stim = np.zeros((n, k), np.float32)
+    stim[rng.integers(0, n, 5 * k), np.repeat(np.arange(k), 5)] = rng.choice(
+        powers, 5 * k)
+    lam = np.where(stim > 0, rng.uniform(0, 1, (n, k)), 0).astype(np.float32)
+    mu = np.where(rng.random(n) < 0.2, rng.uniform(5, 20, n), 0).astype(
+        np.float32)
+    d = dict(
+        y=(mu @ (rng.random((n, k)) < lam) + rng.normal(0, 1, k)).astype(
+            np.float32),
+        stim=stim, mu=mu, beta=rng.uniform(0.5, 2, n).astype(np.float32),
+        lam=lam, m0=rng.uniform(0.05, 0.08, n).astype(np.float32),
+        m1=rng.uniform(1, 3, n).astype(np.float32),
+        lam_mask=(rng.random(k) > 0.05).astype(np.float32),
+        powers=powers.astype(np.float32),
+        power_counts=np.stack([(stim == p).sum(1) for p in powers],
+                              1).astype(np.float32))
+    nb = -(-n // block)
+    border = np.concatenate([rng.permutation(nb - 1), [nb - 1]])
+    rows = (border[:, None] * block + np.arange(block)).ravel()
+    order = rows[rows < n]
+    t = {kk: torch.from_numpy(v) for kk, v in d.items()}
+    got = sweep_spikes(*(t[kk] for kk in ARGS), SIG, *(t[kk] for kk in ARGS2),
+                       torch.from_numpy(order), MSRMP, MIN_COUNT, gate,
+                       block_size=block).numpy()
+    j = {kk: jnp.asarray(v) for kk, v in d.items()}
+    want = jax_sweep_spikes(
+        *(j[kk] for kk in ARGS), SIG, *(j[kk] for kk in ARGS2),
+        jnp.asarray(order), MSRMP, MIN_COUNT, bool(gate), block_size=block)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    if gate:  # the gate cut some rows and kept others
+        kept = got.sum(1) > 0
+        assert kept.any() and (~kept & (lam.sum(1) > 0)).any()
+
+
+@pytest.mark.parametrize("gate", [0.0, 1.0], ids=["gate_off", "gate_on"])
 def test_row_sweep_matches_xla_block1(gate):
     d = _inputs(2)
     order = np.random.default_rng(3).permutation(N)

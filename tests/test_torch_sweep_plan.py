@@ -16,7 +16,7 @@ from circuitmap_torch.ops.sweep_cuda import cluster_plan
 def test_plan_covers_k_within_shared_memory(K, E):
     for rows in (1, 7, 8, 12, 16, 32):
         for cluster in sweep_cuda.CLUSTER_SIZES:
-            for P in (1, 3, sweep_cuda.MAX_POWERS):
+            for P in (1, 3, sweep_cuda.MAX_POWERS, 24, 1024):
                 plan = cluster_plan(E, K, rows, P, cluster)
                 assert plan.cluster == cluster
                 assert plan.cols % 4 == 0
@@ -65,3 +65,14 @@ def test_pinned_block_plans_at_the_main_path_width(rows):
     assert wide.smem_bytes >= 4 * (2 * 16 + 16) * rows * 17
     assert wide.smem_bytes <= sweep_cuda.SMEM_PER_CTA
     assert wide.on_chip == (rows < 32)
+
+
+@pytest.mark.parametrize("P", [17, 24, 64, 1024])
+def test_plans_above_the_compile_time_levels(P):
+    # above 16 levels the partials go to global scratch: shared memory
+    # holds one pass's reduction and no [P]-long row parameters, so the
+    # layout does not grow with P and the main path's width stays on chip
+    for rows in (1, 8, 32):
+        plan = cluster_plan(1, 20000, rows, P)
+        assert plan == cluster_plan(1, 20000, rows, 17)
+        assert plan.on_chip and plan.smem_bytes <= sweep_cuda.SMEM_PER_CTA
