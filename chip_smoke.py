@@ -52,7 +52,19 @@ name its two uses.
   continuous 20 kHz simulation at N=300 over 300 s, demixed by both
   networks and fitted (phase 24); ``Model.summary``,
   ``split_single_ensemble`` and ``connection_waveforms`` on the main
-  path's fit (phase 25).
+  path's fit (phase 25);
+* the fit server (phase 26): ``circuitmap_torch.serve`` in process on a
+  thread (CUDA, port 0): ``/health``, ``/warm`` at [[1000, 20000]], the
+  main path's ``/fit`` with the raw PSC on the int4d2 wire, sparse stim
+  and ``demix=true`` against the in-process chain (and again with
+  ``return_fields`` and with the int8 lam wire: wall, server seconds,
+  bytes), ``/fit_many`` on phase 10's folds against ``caviar_many``,
+  phase 19's stream over ``/stream/<name>/update`` against
+  ``OnlineCaviar``; then ``python -m circuitmap_torch serve`` in a
+  subprocess: 5 blocks, SIGTERM (exit 0, the stream saved), a second
+  server loads the stream and takes 5 more blocks, equal to the
+  uninterrupted stream. No phase imports ``yaml``: the ``fit`` command
+  is left to the CPU tests.
 
 The sweep is held against its plain version at both schedules at
 N=1000/K=20000 and N=200/K=100000, at one row a step at N=16/K=300000
@@ -582,7 +594,7 @@ def phase_main_path():
     log(f"fit-only median of 3 warm runs: {statistics.median(fit_only):.4f} s "
         f"{fit_only}")
     log(f"truth-R2 {r2:.6f} (JAX package on this data: 0.9968)")
-    return by_path, sim, dem, model
+    return by_path, sim, dem, model, statistics.median(e2e)
 
 
 def profiled(fn, label):
@@ -2118,6 +2130,389 @@ def phase_analysis(sim, dem, model):
                 connections=int(cnx.size))
 
 
+SERVED_FIELDS = ("mu", "beta", "alpha")  # phase 26's return_fields
+
+
+class ServedPhase:
+    """Phase 26's in-process server: ``FitService`` (CUDA, the int4d2
+    QAT demixer) behind the HTTP handler on 127.0.0.1:<free port>, on a
+    thread of its own, with its per-request log in memory (the server's
+    ``--metrics`` lines: seconds, bytes in and out)."""
+
+    def __init__(self):
+        import io
+        import threading
+        from http.server import HTTPServer
+
+        from circuitmap_torch import serve as ts
+
+        self.svc = ts.FitService(demixer_path=str(CHECKPOINT))
+        self.svc.metrics_fh = io.StringIO()
+        box = [None]
+        self.httpd = HTTPServer(("127.0.0.1", 0),
+                                ts._make_handler(self.svc, box))
+        box[0] = self.httpd
+        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
+        self.client = ts.FitClient(
+            f"http://127.0.0.1:{self.httpd.server_address[1]}", timeout=600)
+
+    def last_request(self):
+        """The server's log line of the latest request."""
+        return json.loads(self.svc.metrics_fh.getvalue().splitlines()[-1])
+
+    def timed_request(self, fn):
+        """(response, client wall s, the server's log line) of one
+        request; the line holds the server's own seconds and the bytes
+        in and out."""
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        rec = self.last_request()
+        if rec["status"] != 200:
+            raise AssertionError(f"request failed: {rec}")
+        return out, wall, rec
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def served_variants(served, sim, opts, full):
+    """Phase 26 (d): the served fit with return_fields and with the int8
+    lam wire, 3 warm requests each: (wall medians, bytes in and out)."""
+    stim = sim["stim_matrix"]
+    variants = {"full": {}, "return_fields": {"return_fields": SERVED_FIELDS},
+                "int8": {"response_wire": "int8"}}
+    out = {}
+    for name, extra in variants.items():
+        runs = [served.timed_request(lambda: served.client.fit(
+            sim["psc"], stim, psc_wire="int4d2", demix=True,
+            trace_wire="int4d2", **opts, **extra)) for _ in range(3)]
+        resp = runs[-1][0]
+        walls = [r[1] for r in runs]
+        out[name] = dict(wall_s=statistics.median(walls), walls_s=walls,
+                         server_s=statistics.median(
+                             r[2]["seconds"] for r in runs),
+                         bytes_in=runs[-1][2]["bytes_in"],
+                         bytes_out=runs[-1][2]["bytes_out"])
+        if not np.array_equal(resp["mu"], full["mu"]):
+            raise AssertionError(f"served fit ({name}): mu differs from "
+                                 "the first served fit")
+        if name == "return_fields" and set(resp) != {*SERVED_FIELDS,
+                                                     "fit_time_s"}:
+            raise AssertionError(f"return_fields gave {sorted(resp)}")
+        if name == "int8":
+            tol = np.maximum(np.abs(full["lam"]).max(axis=1, keepdims=True),
+                             1.0) / 127 * 0.51
+            if not (np.abs(resp["lam"] - full["lam"]) <= tol).all():
+                raise AssertionError("int8 lam beyond half a code step")
+        log(f"served fit, {name}: median of 3 {out[name]['wall_s']:.4f} s "
+            f"{[round(w, 4) for w in walls]} at the client, "
+            f"{out[name]['server_s']:.4f} s in the server's handler; "
+            f"request {out[name]['bytes_in']:,} bytes, response "
+            f"{out[name]['bytes_out']:,} bytes")
+    return out
+
+
+def served_stream(served, host, stim, name, lo, hi, create=None):
+    """Blocks lo..hi-1 of phase 19's stream over /stream/<name>/update;
+    returns each update's latency at the client, ms."""
+    edges = [b * STREAM_TRIALS for b in range(STREAM_BLOCKS + 1)]
+    times = []
+    for blk in range(lo, hi):
+        a, b = edges[blk], edges[blk + 1]
+        t0 = time.perf_counter()
+        served.stream_update(name, host[a:b], stim[:, a:b], iters=10,
+                             demix=False,
+                             create=create if blk == lo else None)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def start_cli_server(state_dir):
+    """``python -m circuitmap_torch serve --port 0 --state-dir`` (CUDA);
+    returns (Popen, FitClient, SERVING line)."""
+    import os
+    import select
+
+    from circuitmap_torch import serve as ts
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(HERE) + os.pathsep + env.get("PYTHONPATH", "")
+    err = open(Path(state_dir) / "server_stderr.log", "a")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "circuitmap_torch", "serve", "--port", "0",
+         "--state-dir", str(state_dir)], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=err, text=True)
+    err.close()
+    deadline = time.time() + 180
+    while time.time() < deadline:
+        ready, _, _ = select.select([proc.stdout], [], [], 1.0)
+        if not ready:
+            if proc.poll() is not None:
+                break
+            continue
+        line = proc.stdout.readline()
+        if line.startswith("SERVING"):
+            port = int(line.split("port=")[1].split()[0])
+            return proc, ts.FitClient(f"http://127.0.0.1:{port}",
+                                      timeout=600), line.strip()
+        if not line:
+            break
+    proc.kill()
+    raise AssertionError("the CLI server printed no SERVING line: "
+                         + (Path(state_dir) / "server_stderr.log").read_text()[-3000:])
+
+
+def stop_process(proc, how):
+    """End a CLI server (``how``: "sigterm", "kill", or "wait" for one
+    that was asked to shut down); returns its exit code and the rest of
+    its standard output."""
+    import signal
+
+    if proc.poll() is None:
+        if how == "sigterm":
+            proc.send_signal(signal.SIGTERM)
+        elif how == "kill":
+            proc.kill()
+    out, _ = proc.communicate(timeout=120)
+    return proc.returncode, out
+
+
+def demix_determinism(sim):
+    """Phase 26's first step: the int4d2 demix of the main map with the
+    demixer's deterministic cuDNN algorithms (what it runs) and with
+    cuDNN's default ones, 4 pairs in turns. The deterministic outputs
+    must agree bit for bit; returns the medians (s) and the default
+    algorithms' largest difference from them."""
+    import torch
+    from circuitmap_torch import NeuralDemixer
+
+    dm = NeuralDemixer(str(CHECKPOINT))
+    chosen = dm._precision
+
+    def default_algorithms(deterministic=False):
+        return chosen(False)
+
+    times = {"deterministic": [], "default": []}
+    outs = {"deterministic": [], "default": []}
+    for _ in range(2):
+        for kind in ("default", "deterministic", "deterministic", "default"):
+            dm._precision = (chosen if kind == "deterministic"
+                             else default_algorithms)
+            out, s = timed(lambda: dm(sim["psc"], keep_on_device=True,
+                                      transfer_dtype="int4d2", verbose=False))
+            times[kind].append(s)
+            outs[kind].append(out)
+    ref = outs["deterministic"][0]
+    if not all(torch.equal(o, ref) for o in outs["deterministic"]):
+        raise AssertionError("the deterministic demix differs run to run")
+    spread = max(float((o - ref).abs().max()) for o in outs["default"])
+    rec = dict(deterministic_s=statistics.median(times["deterministic"]),
+               default_s=statistics.median(times["default"]),
+               default_max_abs_diff=spread)
+    log(f"int4d2 demix of the map, 4 pairs in turns: deterministic cuDNN "
+        f"algorithms (the demixer's) median {rec['deterministic_s']:.4f} s, "
+        f"cuDNN's default ones {rec['default_s']:.4f} s; the default "
+        f"algorithms' outputs part from the deterministic one by up to "
+        f"{spread:.3e}")
+    return rec
+
+
+def phase_serve(sim, dem, main_e2e_s, stream_steady_ms):
+    """Phase 26: the fit server at the main path's width. First the
+    demixer's determinism (``demix_determinism``): a served result can
+    equal the in-process chain only if two demixes of one block agree.
+    In process (CUDA, a thread, port 0): /health; /warm at [[1000, 20000]]; /fit
+    with the raw PSC on the int4d2 wire, sparse stim and demix=true
+    against the in-process chain (1e-6 relative, truth-R2 >= 0.98, the
+    chain's launches); the same request with return_fields and with the
+    int8 lam wire (wall, bytes); /fit_many on phase 10's folds, batched,
+    against caviar_many; phase 19's 10-block stream over HTTP against an
+    in-process OnlineCaviar. Then the CLI server in a subprocess: 5
+    blocks, SIGTERM (exit 0, the stream saved), a second server loads it
+    and takes 5 more blocks, equal to the uninterrupted stream."""
+    import tempfile
+
+    import torch
+    from circuitmap_torch import (Model, NeuralDemixer, OnlineCaviar,
+                                  caviar_many, default_priors)
+    from circuitmap_torch.utils.metrics import r2_score
+
+    log("phase 26: the fit server, in process on a thread (CUDA, port 0, "
+        "the int4d2 QAT demixer), then `python -m circuitmap_torch serve` "
+        "in a subprocess")
+    paths, rec = {}, {}
+    rec["demix"] = demix_determinism(sim)
+    stim = sim["stim_matrix"]
+    opts = dict(iters=50, msrmp=0.3, powers=list(POWERS), seed=0)
+    served = ServedPhase()
+    cli = served.client
+    try:
+        health = cli.health()
+        log(f"/health: device {health['device']!r}, platform "
+            f"{health['platform']!r}")
+        if health["platform"] != "gpu" or \
+                health["device"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"/health does not name the card: {health}")
+
+        warm, warm_s, _ = served.timed_request(
+            lambda: cli.warm([[N, K]], iters=50, powers=list(POWERS)))
+        rec["warm_s"], rec["warm_server_s"] = warm_s, warm["warmed"]
+        log(f"/warm at [[{N}, {K}]]: {warm_s:.3f} s at the client "
+            f"(server: {warm['warmed']})")
+
+        from circuitmap_torch.serve import FitClient
+
+        encode = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            FitClient._body(sim["psc"], stim, True, "int4d2")
+            encode.append(time.perf_counter() - t0)
+        rec["client_encode_s"] = statistics.median(encode)
+        log(f"the client's int4d2 + sparse-stim body: median of 3 "
+            f"{rec['client_encode_s']:.4f} s on the host")
+        reset_counts()
+        full, first_s, _ = served.timed_request(
+            lambda: cli.fit(sim["psc"], stim, psc_wire="int4d2", demix=True,
+                            trace_wire="int4d2", **opts))
+        paths["served_fit"] = kernel_launches(read_counts())
+        reset_counts()
+        chain = Model(N).fit(
+            NeuralDemixer(str(CHECKPOINT))(
+                sim["psc"], keep_on_device=True, transfer_dtype="int4d2",
+                verbose=False),
+            stim, method="caviar", fit_options=dict(opts, verbose=False))
+        torch.cuda.synchronize()
+        chain_launches = kernel_launches(read_counts())
+        d_fit = max_rel_diff(full, chain.state, FIT_FIELDS)
+        r2 = r2_score(sim["weights"], full["mu"])
+        log(f"/fit (int4d2 body, sparse stim, demix, 50 iterations): first "
+            f"{first_s:.3f} s; launches {paths['served_fit']} (in-process "
+            f"chain {chain_launches}); largest relative difference from the "
+            f"in-process chain {d_fit:.3e}; truth-R2 {r2:.4f}")
+        if d_fit > 1e-6:
+            raise AssertionError(f"served fit differs by {d_fit:.3e}")
+        if r2 < 0.98:
+            raise AssertionError(f"served truth-R2 {r2:.4f} < 0.98")
+        if paths["served_fit"] != chain_launches or \
+                paths["served_fit"]["sweep_blocked"] != 50:
+            raise AssertionError("the served fit must launch what the "
+                                 f"chain launches: {paths['served_fit']}")
+        rec.update(first_fit_s=first_s, fit_rel_diff=d_fit, r2=r2,
+                   main_path_e2e_s=main_e2e_s)
+        rec["fit"] = served_variants(served, sim, opts, full)
+        log(f"served fit median {rec['fit']['full']['wall_s']:.4f} s "
+            f"(return_fields {rec['fit']['return_fields']['wall_s']:.4f} s, "
+            f"int8 lam {rec['fit']['int8']['wall_s']:.4f} s) against phase "
+            f"5's in-process end to end {main_e2e_s:.4f} s")
+        del full, chain
+
+        q = K // 4
+        keeps = [np.r_[0:f * q, (f + 1) * q:K] for f in range(4)]
+        raw = np.stack([sim["psc"][kp] for kp in keeps])
+        stims = np.stack([stim[:, kp] for kp in keeps])
+        many_opts = dict(iters=50, msrmp=0.3, powers=list(POWERS),
+                         compile_mode="batched")
+        reset_counts()
+        got, many_s, line = served.timed_request(
+            lambda: cli.fit_many(raw, stims, psc_wire="int4d2", demix=True,
+                                 trace_wire="int4d2", **many_opts))
+        m_in, m_out = line["bytes_in"], line["bytes_out"]
+        paths["served_fit_many"] = kernel_launches(read_counts())
+        flat = NeuralDemixer(str(CHECKPOINT))(
+            raw.reshape(-1, raw.shape[-1]), keep_on_device=True,
+            transfer_dtype="int4d2", verbose=False)
+        p = default_priors(N)
+        ref = caviar_many(flat.reshape(4, q * 3, -1), stims, p["mu"],
+                          p["beta"], p["shape"], p["rate"], p["phi"],
+                          p["phi_cov"], verbose=False, **many_opts)
+        d_many = max(max_rel_diff({k: v[f] for k, v in got.items()}, ref[f],
+                                  FIT_FIELDS) for f in range(4))
+        log(f"/fit_many, 4 folds batched (int4d2 body, demix): {many_s:.3f} s"
+            f" at the client, {line['seconds']:.3f} s in the server's handler;"
+            f" request {m_in:,} bytes, response {m_out:,} bytes; launches "
+            f"{paths['served_fit_many']}; largest relative difference from "
+            f"in-process caviar_many {d_many:.3e}")
+        if d_many > 1e-6:
+            raise AssertionError(f"served fit_many differs by {d_many:.3e}")
+        if paths["served_fit_many"]["sweep_row"] != 50 or \
+                paths["served_fit_many"]["laplace"] < 50:
+            raise AssertionError("served fit_many must launch the batched "
+                                 "row kernel 50 times and Laplace at least "
+                                 f"50: {paths['served_fit_many']}")
+        rec["fit_many"] = dict(s=many_s, server_s=line["seconds"],
+                               bytes_in=m_in, bytes_out=m_out,
+                               rel_diff=d_many)
+        del got, ref, flat, raw, stims
+
+        host = dem.cpu().numpy()
+        create = {"powers": list(POWERS)}
+        reset_counts()
+        times = served_stream(cli, host, stim, "served", 0, STREAM_BLOCKS,
+                              create)
+        paths["served_stream"] = kernel_launches(read_counts())
+        served_res = cli.stream_result("served")
+        local = OnlineCaviar(N, powers=list(POWERS))
+        edges = [b * STREAM_TRIALS for b in range(STREAM_BLOCKS + 1)]
+        for a, b in zip(edges[:-1], edges[1:]):
+            local.update(host[a:b], stim[:, a:b], iters=10)
+        want = local.result()
+        d_stream = max_rel_diff(served_res, want, FIT_FIELDS)
+        steady = statistics.median(times[3:])
+        log(f"stream over HTTP, {STREAM_BLOCKS} blocks of {STREAM_TRIALS} "
+            f"trials: update ms at the client "
+            + ", ".join(f"{t:.1f}" for t in times)
+            + f"; steady median (blocks 4-10) {steady:.1f} ms against phase "
+            f"19's in-process {stream_steady_ms:.1f} ms; launches "
+            f"{paths['served_stream']}; largest relative difference from "
+            f"the in-process stream {d_stream:.3e}")
+        if d_stream > 1e-6:
+            raise AssertionError(f"served stream differs by {d_stream:.3e}")
+        if paths["served_stream"]["sweep_blocked"] != 10 * STREAM_BLOCKS:
+            raise AssertionError("the served stream must launch B1 10 times "
+                                 f"a block: {paths['served_stream']}")
+        rec["stream"] = dict(block_ms=times, steady_median_ms=steady,
+                             in_process_steady_median_ms=stream_steady_ms,
+                             rel_diff=d_stream)
+    finally:
+        served.close()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        proc, sub, line = start_cli_server(tmp)
+        try:
+            start_s = time.time() - t0
+            log(f"CLI server up in {start_s:.1f} s: {line}")
+            served_stream(sub, host, stim, "cli", 0, 5, create)
+            code, out = stop_process(proc, "sigterm")
+            saved = Path(tmp) / "cli.npz"
+            log(f"SIGTERM after 5 blocks: exit {code}; "
+                f"{[x for x in out.splitlines() if x.startswith('stream')]}")
+            if code != 0 or not saved.exists():
+                raise AssertionError("SIGTERM must exit 0 and save the "
+                                     f"stream (exit {code}, saved "
+                                     f"{saved.exists()})")
+            proc, sub, line = start_cli_server(tmp)
+            loaded = sub.stream_load("cli", create=create)
+            served_stream(sub, host, stim, "cli", 5, STREAM_BLOCKS)
+            resumed = sub.stream_result("cli")
+            sub.shutdown()
+            code, _ = stop_process(proc, "wait")
+        finally:
+            if proc.poll() is None:
+                stop_process(proc, "kill")
+    d_restart = max_rel_diff(resumed, want, FIT_FIELDS)
+    log(f"restarted server loaded {loaded}, took blocks 6-10, exit {code} "
+        f"after /shutdown; largest relative difference from the "
+        f"uninterrupted stream {d_restart:.3e}")
+    if d_restart > 1e-6 or code != 0:
+        raise AssertionError(f"restarted stream differs by {d_restart:.3e} "
+                             f"(exit {code})")
+    rec["restart"] = dict(first_start_s=start_s, rel_diff=d_restart)
+    return paths, rec
+
+
 def main():
     try:
         import torch
@@ -2157,7 +2552,7 @@ def main():
     sweep_rec["long_blocks"] = repaired["blocks"]
     laplace_rec["many_buckets"] = repaired["laplace"]
     paths = {}
-    paths["main"], sim, dem, model = phase_main_path()
+    paths["main"], sim, dem, model, main_e2e_s = phase_main_path()
     laplace_profiled_ms = phase_profile(sim, dem)
     row_rec = phase_row_sweep()
     row_rec["p16_max_abs_err"] = wide["row_p16_max_abs_err"]
@@ -2186,6 +2581,9 @@ def main():
     solvers["template_fit"] = phase_template_fit(dem)
     paths["continuous"], solvers["continuous"] = phase_continuous(trained)
     solvers["analysis"] = phase_analysis(sim, dem, model)
+    serve_paths, solvers["serve"] = phase_serve(
+        sim, dem, main_e2e_s, solvers["online"]["steady_median_ms"])
+    paths.update(serve_paths)
     log(f"solvers: {json.dumps(solvers)}")
     laplace_rec["main_path_profiled_ms"] = laplace_profiled_ms
     records = (sweep_rec, laplace_rec, row_rec)

@@ -14,15 +14,18 @@ Device rule: every entry point (``Model.fit``, ``caviar``,
 ``simulation.simulate_continuous_experiment_without_spike_failures``,
 ``demix.template_fit.fit_psc_templates`` and
 ``pipelines.connection_waveforms`` /
-``pipelines.merge_duplicate_connections``) takes ``device=None``, which
+``pipelines.merge_duplicate_connections``, the fit server's
+``serve.FitService`` / ``serve.run_server`` and ``python -m
+circuitmap_torch serve``) takes ``device=None``, which
 means ``"cuda"``. Pass ``device="cpu"`` to run on the CPU; without a
 CUDA device and without that request, the entry point raises
 RuntimeError instead of quietly running on the CPU. ``pool_design``,
 ``AdaptiveDesigner``, ``summarize``/``format_summary`` (and
 ``Model.summary``), ``demix.datagen``, ``NeuralDemixer``'s
 ``generate_training_data``, ``demix.demixer.wire_transform``, the rest
-of ``pipelines`` and ``viz`` (matplotlib, imported lazily) are host
-numpy.
+of ``pipelines`` and ``viz`` (matplotlib, imported lazily), the wire
+codecs and ``FitClient`` of ``serve``, ``utils/io.py`` and
+``utils/synthetic.py`` are host numpy.
 
 Every Pallas TPU kernel of the JAX package has a hand-written CUDA C++
 counterpart for sm_90a (``csrc/``), built with nvcc at first use

@@ -30,7 +30,7 @@ import torch
 from .._device import resolve_device, torch_dtype
 from ..ops.monotone import monotone_decay_filter
 from ..solvers._common import prepare_traces
-from ..utils.quant import _pool2, _upsample2
+from ..utils.quant import PackedInt4Traces, _pool2, _upsample2
 from . import convert
 from .datagen import generate_psc_dataset
 from .unet import NWDUNet, init_nwd_params
@@ -126,11 +126,15 @@ class NeuralDemixer:
         self.training_data = None
         self.test_data = None
 
-    def _precision(self):
+    def _precision(self, deterministic=False):
         # the JAX head runs at HIGHEST precision; cuDNN would run a
-        # float32 convolution in TF32 by default
+        # float32 convolution in TF32 by default. ``deterministic``
+        # (inference) takes cuDNN's deterministic algorithms only: the
+        # transposed convolutions' default one sums with atomics, and two
+        # demixes of one block then differ in the last bits
         if self.device.type == "cuda":
-            return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
+            return torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                              deterministic=deterministic)
         return contextlib.nullcontext()
 
     def _demix_batch(self, traces):
@@ -148,27 +152,42 @@ class NeuralDemixer:
                  transfer_dtype=None, mesh=None):
         """Demix a [K, T] (or [T]) trace block. Returns numpy, or the
         device tensor with ``keep_on_device=True`` (to feed a solver
-        without a round trip through host memory)."""
+        without a round trip through host memory).
+
+        A ``PackedInt4Traces`` block (an int4 or int4d2 body as the fit
+        server receives it) is not decoded on the host: each chunk's
+        codes go up as they are and are unpacked on the device, which is
+        what the matching ``transfer_dtype`` makes of the dense traces.
+        Only "int4d2" asked of codes that were not pooled densifies and
+        encodes again."""
         del monotone_filter_inplace  # functional; kept for API parity
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (multi-GPU demixing) is ROADMAP item A9 and not "
                 "ported yet")
-        traces = np.asarray(traces)
-        squeeze = traces.ndim == 1
-        if squeeze:
-            traces = traces[None]
-        K = traces.shape[0]
         wire = _wire_name(transfer_dtype)
+        if isinstance(traces, PackedInt4Traces):
+            traces = traces.flat()
+            if wire == "int4d2" and traces.decimate == 1:
+                traces = traces.dense()
+        squeeze = False
+        if not isinstance(traces, PackedInt4Traces):
+            traces = np.asarray(traces)
+            squeeze = traces.ndim == 1
+            if squeeze:
+                traces = traces[None]
+        K = traces.shape[0]
         self.net.eval()
 
         t0 = time.time()
         chunks = []
-        with torch.inference_mode(), self._precision():
+        with torch.inference_mode(), self._precision(deterministic=True):
             for k0 in range(0, K, chunk_size):
                 # encoded on the host, decoded (and upsampled) on the device
-                part = prepare_traces(traces[k0:k0 + chunk_size],
-                                      torch.float32, self.device,
+                rows = (traces.rows(k0, k0 + chunk_size)
+                        if isinstance(traces, PackedInt4Traces)
+                        else traces[k0:k0 + chunk_size])
+                part = prepare_traces(rows, torch.float32, self.device,
                                       trace_wire=wire)
                 out = self._demix_batch(part)
                 chunks.append(monotone_decay_filter(

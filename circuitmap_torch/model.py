@@ -5,6 +5,8 @@ Construct with a neuron count and optional prior overrides, call
 ``fit(obs, stimuli, method, fit_options, device=None)``, read the
 posteriors from ``model.state`` (numpy arrays), the per-iteration
 snapshots from ``model.history`` and the wall-clock from ``model.time``.
+The fit server's ``return_fields`` narrows which fields are pulled to
+the host (``fit(_materialize=)``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,16 @@ def _host(v):
     return v
 
 
+class DeviceField(torch.Tensor):
+    """A posterior field left on the fit's device by
+    ``Model.fit(_materialize=)``: a tensor whose ``np.asarray`` pulls it
+    to the host on access."""
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.as_subclass(torch.Tensor).detach().cpu().numpy()
+        return out if dtype is None else out.astype(dtype, copy=False)
+
+
 class Model:
     """Connectivity-mapping model: priors in, posterior ``state`` out."""
 
@@ -49,15 +61,23 @@ class Model:
         self.history = {}
         self.time = None
         self.trial_count = None
+        self._materialize = None  # see fit(_materialize=)
 
     def fit(self, obs, stimuli, method="caviar", fit_options=None,
-            device=None):
+            device=None, _materialize=None):
         """Run a fit on ``device`` (None means CUDA; ``fit_options`` may
         carry ``device`` too). ``fit_options`` takes every keyword of the
         method's solver (``caviar``, ``cavi_sns``, ``mbcs``; ``k``, ``tol``
         and ``maxiter`` for ``cosamp``); ``mesh`` (multi-GPU fits) is not
         ported yet. CoSaMP is a host numpy baseline by design: it runs on
-        the CPU whatever the device."""
+        the CPU whatever the device.
+
+        ``_materialize`` is the fit server's ``return_fields``: ``None``
+        pulls every state and history field to a host numpy array; a
+        collection of names pulls only those and leaves the rest on the
+        device as ``DeviceField`` tensors (``np.asarray`` still pulls
+        one). History fields are named ``history_<field>``, as in the
+        server's response."""
         fit_options = dict(fit_options or {})
         runner = {
             "caviar": self._fit_caviar,
@@ -75,10 +95,26 @@ class Model:
                 "and not ported yet")
         device = resolve_device(fit_options.pop("device", device))
         self.fit_method = method
+        self._materialize = (None if _materialize is None
+                             else {str(f) for f in _materialize})
         t0 = time.time()
-        runner(obs, stimuli, fit_options, device)
+        try:
+            runner(obs, stimuli, fit_options, device)
+        finally:
+            self._materialize = None
         self.time = time.time() - t0
         return self
+
+    def _pull(self, name, value):
+        """A result field under the ``_materialize`` policy (see fit)."""
+        if not isinstance(value, torch.Tensor):
+            return value
+        if self._materialize is None or name in self._materialize:
+            return _host(value)
+        return value.detach().as_subclass(DeviceField)
+
+    def _update_state(self, **fields):
+        self.state.update({k: self._pull(k, v) for k, v in fields.items()})
 
     def summary(self, stim=None, verbose=True):
         """Per-neuron posterior summary (``circuitmap_torch.summarize``);
@@ -91,7 +127,8 @@ class Model:
         return out
 
     def _set_history(self, names, hists):
-        self.history = {n: _host(h) for n, h in zip(names, hists)}
+        self.history = {n: self._pull(f"history_{n}", h)
+                        for n, h in zip(names, hists)}
 
     def _fit_caviar(self, obs, stimuli, fit_options, device):
         from .solvers.caviar import caviar
@@ -107,11 +144,10 @@ class Model:
             self.elbo_converged_at = converged_at
         (mu, beta, lam, shape, rate, phi, phi_cov, z, receptive_fields,
          *hists) = result
-        self.state.update(
-            mu=_host(mu), beta=_host(beta), lam=_host(lam),
-            shape=_host(shape), rate=_host(rate), phi=_host(phi),
-            phi_cov=_host(phi_cov), z=_host(z),
-            receptive_fields=receptive_fields)
+        self._update_state(
+            mu=mu, beta=beta, lam=lam, shape=shape, rate=rate, phi=phi,
+            phi_cov=phi_cov, z=z)
+        self.state["receptive_fields"] = receptive_fields
         self.trial_count = self.state["lam"].shape[1]
         self._set_history(["mu", "beta", "lam", "shape", "rate", "phi",
                            "phi_cov", "z"], hists)
@@ -125,10 +161,9 @@ class Model:
         mu, beta, alpha, lam, shape, rate, phi, phi_cov, *hists = cavi_sns(
             obs, stimuli, s["mu"], s["beta"], s["alpha"], s["shape"],
             s["rate"], s["phi"], s["phi_cov"], device=device, **fit_options)
-        self.state.update(
-            mu=_host(mu), beta=_host(beta), alpha=_host(alpha),
-            lam=_host(lam), shape=_host(shape), rate=_host(rate),
-            phi=_host(phi), phi_cov=_host(phi_cov))
+        self._update_state(
+            mu=mu, beta=beta, alpha=alpha, lam=lam, shape=shape, rate=rate,
+            phi=phi, phi_cov=phi_cov)
         self.trial_count = self.state["lam"].shape[1]
         self._set_history(["mu", "beta", "alpha", "lam", "shape", "rate",
                            "phi", "phi_cov"], hists)
@@ -140,10 +175,9 @@ class Model:
         mu, beta, lam, shape, rate, z, receptive_fields, *hists = mbcs(
             obs, stimuli, s["mu"], s["beta"], s["shape"], s["rate"],
             device=device, **fit_options)
-        self.state.update(
-            mu=_host(mu), beta=_host(beta), lam=_host(lam),
-            shape=_host(shape), rate=_host(rate), z=_host(z),
-            receptive_fields=_host(receptive_fields))
+        self._update_state(
+            mu=mu, beta=beta, lam=lam, shape=shape, rate=rate, z=z,
+            receptive_fields=receptive_fields)
         self.trial_count = self.state["lam"].shape[1]
         self._set_history(["mu", "beta", "lam", "shape", "rate", "z"], hists)
 

@@ -21,8 +21,8 @@ import warnings
 import numpy as np
 import torch
 
-from ..utils.quant import (_upsample2, encode_int4_traces, quantise_int8,
-                           unpack_int4_codes)
+from ..utils.quant import (PackedInt4Traces, _upsample2, encode_int4_traces,
+                           quantise_int8, unpack_int4_codes)
 
 
 class DataThinDesignWarning(UserWarning):
@@ -71,6 +71,20 @@ def _warn_data_thin(mean_stims, n, k, what):
             "targets-per-trial H.", DataThinDesignWarning, stacklevel=4)
 
 
+def unpack_int4_traces(packed, scale, t_true, decimate, device):
+    """Float32 [rows, t_true] traces on ``device`` from an int4 wire's
+    host codes: the packed bytes and scales go up, and the unpack, the
+    scale and (``decimate=2``) the linear upsample run there."""
+    n_codes = (t_true + 1) // 2 if decimate == 2 else t_true
+    codes = unpack_int4_codes(
+        torch.from_numpy(np.ascontiguousarray(packed)).to(device), n_codes)
+    traces = codes.float() * torch.from_numpy(
+        np.ascontiguousarray(scale, dtype=np.float32)).to(device)[:, None]
+    if decimate == 2:
+        traces = _upsample2(traces, t_true)
+    return traces
+
+
 def prepare_traces(y_psc, dtype, device, trace_wire=None):
     """[K, T] traces as a ``dtype`` tensor on ``device``.
 
@@ -79,6 +93,12 @@ def prepare_traces(y_psc, dtype, device, trace_wire=None):
     (per-trace peak/127 codes), "int4"/"int4d2" an eighth/sixteenth
     (peak/7 codes; d2 mean-pools by 2 and upsamples on the device).
     float64 fits keep the exact wire and reject every other.
+
+    A ``PackedInt4Traces`` (an int4 body as the fit server receives it)
+    ships its codes as they are, whatever ``trace_wire`` says, and is
+    unpacked on the device, so it is never decoded on the host; only an
+    "int4d2" wire asked of codes that were not pooled densifies and
+    encodes again. A float64 fit rejects it.
     """
     if isinstance(y_psc, torch.Tensor):
         return y_psc.to(device=device, dtype=dtype)
@@ -86,6 +106,19 @@ def prepare_traces(y_psc, dtype, device, trace_wire=None):
         raise ValueError(
             f"trace_wire must be None, 'f32', 'f16', 'int8', 'int4' or "
             f"'int4d2', got {trace_wire!r}")
+    if isinstance(y_psc, PackedInt4Traces):
+        if dtype.itemsize > 4:
+            raise ValueError(
+                "int4-wire trace bodies are incompatible with "
+                "dtype=float64 fits (the wire already quantised the "
+                "traces; parity-oracle fits need the raw float64 block)")
+        flat = y_psc.flat()
+        if trace_wire == "int4d2" and flat.decimate == 1:
+            out = prepare_traces(flat.dense(), dtype, device, trace_wire)
+        else:
+            out = unpack_int4_traces(flat.packed, flat.scale, flat.t_true,
+                                     flat.decimate, device).to(dtype)
+        return out.reshape(y_psc.shape)
     if dtype.itemsize > 4:
         if trace_wire is not None:
             raise ValueError(
@@ -103,14 +136,9 @@ def prepare_traces(y_psc, dtype, device, trace_wire=None):
                 * torch.from_numpy(scale).to(device)[:, None].to(dtype))
     if trace_wire in ("int4", "int4d2"):
         dec = 2 if trace_wire == "int4d2" else 1
-        T = arr.shape[1]
         packed, scale = encode_int4_traces(arr, decimate=dec)
-        n_codes = (T + 1) // 2 if dec == 2 else T
-        codes = unpack_int4_codes(torch.from_numpy(packed).to(device), n_codes)
-        traces = codes.float() * torch.from_numpy(scale).to(device)[:, None]
-        if dec == 2:
-            traces = _upsample2(traces, T)
-        return traces.to(dtype)
+        return unpack_int4_traces(packed, scale, arr.shape[1], dec,
+                                  device).to(dtype)
     return torch.as_tensor(np.asarray(arr, dtype=np.float32),
                            device=device).to(dtype)
 

@@ -36,6 +36,7 @@ import torch
 
 from .._device import resolve_device, torch_dtype
 from ..ops.charge import integrated_charge, prepare_observations
+from ..utils.quant import PackedInt4Traces
 from ._common import (_levels, _powers_dev, _stim_on_device, _upload_plan,
                       prepare_traces)
 from ._laplace import laplace_phi_update, resolve_laplace_impl
@@ -55,10 +56,10 @@ def _ragged_lists(y_pscs, stims, name):
     ks = [int(np.shape(a)[0]) for a in y_pscs]
     if len(set(ks)) <= 1:
         return None
-    if any(isinstance(a, torch.Tensor) for a in y_pscs):
+    if any(isinstance(a, (torch.Tensor, PackedInt4Traces)) for a in y_pscs):
         raise ValueError(
             f"{name}: ragged batches take host trace arrays; device "
-            "tensors must share one shape")
+            "tensors and int4 wire bodies must share one shape")
     if not isinstance(stims, (list, tuple)) or len(stims) != len(y_pscs):
         raise ValueError(
             f"ragged y_pscs ({len(y_pscs)} experiments) needs a "
@@ -81,11 +82,12 @@ def _ragged_lists(y_pscs, stims, name):
 
 def _same_shape_stack(y_pscs, stims, trace_wire, dtype):
     """Same-shape inputs as (traces, stims_np). A tensor stays as it is
-    (a device-resident demixer output is not pulled); host traces on the
-    exact wire go up as float32 unless the fit is wider (a float64 fit
-    keeps its mantissa in transit); compressed wires cast inside
-    prepare_traces."""
-    if isinstance(y_pscs, torch.Tensor):
+    (a device-resident demixer output is not pulled), as does an int4
+    wire body (``PackedInt4Traces``, unpacked on the device); host traces
+    on the exact wire go up as float32 unless the fit is wider (a
+    float64 fit keeps its mantissa in transit); compressed wires cast
+    inside prepare_traces."""
+    if isinstance(y_pscs, (torch.Tensor, PackedInt4Traces)):
         return y_pscs, np.asarray(stims)
     if trace_wire is None and dtype.itemsize <= 4:
         return np.asarray(y_pscs, dtype=np.float32), np.asarray(stims)
@@ -111,10 +113,12 @@ def _validate_shared_levels(stims_np, powers):
 
 def _upload_trace_stack(y_pscs, dtype, trace_wire, device):
     """[B, K, T] traces on ``device``: a tensor is moved and cast there;
-    a host array ships at its own width and widens on the device, or
-    through prepare_traces' compressed wire when one is asked for."""
-    if isinstance(y_pscs, torch.Tensor):
-        return y_pscs.to(device=device, dtype=dtype)
+    an int4 wire body goes up as its codes (one flattened device
+    unpack); a host array ships at its own width and widens on the
+    device, or through prepare_traces' compressed wire when one is asked
+    for."""
+    if isinstance(y_pscs, (torch.Tensor, PackedInt4Traces)):
+        return prepare_traces(y_pscs, dtype, device, trace_wire=trace_wire)
     if trace_wire is None:
         host = torch.from_numpy(np.ascontiguousarray(y_pscs))
         return host.to(device).to(dtype)

@@ -1,6 +1,7 @@
 """Host-side trace-wire codecs: the port's own copy of the numpy paths
 of ``circuitmap_tpu/utils/quant.py`` (per-trace peak int8 and int4
-codes, the 2x mean-pool of the int4d2 wire and its linear upsample),
+codes, the 2x mean-pool of the int4d2 wire and its linear upsample, the
+host decode and the ``PackedInt4Traces`` container of an int4 body),
 plus the torch unpack that runs on the device.
 
 Quantisation always happens in float32 whatever the input dtype, so the
@@ -91,6 +92,116 @@ def unpack_int4_codes(packed, n_codes):
     low = low - ((low >> 3) << 4)
     high = high - ((high >> 3) << 4)
     return stack([low, high], -1).reshape(w.shape[0], -1)[:, :n_codes]
+
+
+def decode_int4_traces(packed, scale, t_true, decimate=1):
+    """Dense float32 [rows, t_true] reconstruction of an int4/int4d2
+    trace wire on the host: unpack, multiply the per-trace scale and,
+    for ``decimate=2``, upsample back to ``t_true``. The same arithmetic
+    as the device unpack (``solvers/_common.unpack_int4_traces``)."""
+    th = (t_true + 1) // 2 if decimate == 2 else t_true
+    traces = unpack_int4_codes(packed, th).astype(np.float32)
+    traces = traces * np.asarray(scale, dtype=np.float32)[:, None]
+    if decimate == 2:
+        traces = _upsample2(traces, t_true)
+    return traces
+
+
+class PackedInt4Traces:
+    """A [K, T] trace block held in its int4/int4d2 wire form.
+
+    The fit server receives quantised trace bodies (``psc_q4*`` keys)
+    whose codes are exactly what the device wire would derive again from
+    their dense reconstruction (the per-row peak code is 7). The wire's
+    consumers (``NeuralDemixer.__call__``, ``_common.prepare_traces``,
+    the ``*_many`` upload) ship the codes to the device as they are;
+    every other consumer gets the dense reconstruction through
+    ``__array__`` (memoised).
+
+    ``packed``: uint8 [rows, ceil(t2/2)] nibble pairs (t2 = code count:
+    ceil(T/2) for ``decimate=2``, else T); ``scale``: float32 [rows];
+    ``t_true``: T of the reconstructed traces; ``lead``: the logical
+    leading dims, ``(rows,)`` for a [K, T] block or ``(B, K)`` for a
+    ``/fit_many`` batch (``flat()`` is the [rows, T] view).
+    """
+
+    __slots__ = ("packed", "scale", "t_true", "decimate", "lead",
+                 "_dense")
+
+    def __init__(self, packed, scale, t_true, decimate=1, lead=None):
+        packed = np.asarray(packed)
+        scale = np.asarray(scale, dtype=np.float32)
+        t_true = int(t_true)
+        if decimate not in (1, 2):
+            raise ValueError(f"decimate must be 1 or 2, got {decimate!r}")
+        t2 = (t_true + 1) // 2 if decimate == 2 else t_true
+        if (packed.ndim != 2 or packed.dtype != np.uint8
+                or t_true <= 0 or packed.shape[1] != (t2 + 1) // 2):
+            raise ValueError(
+                f"packed must be uint8 [rows, {(t2 + 1) // 2}] for "
+                f"t_true={t_true}, decimate={decimate}; got "
+                f"{packed.dtype} {packed.shape}")
+        if scale.shape != (packed.shape[0],):
+            raise ValueError(
+                f"scale must be [rows={packed.shape[0]}], got "
+                f"{scale.shape}")
+        lead = (packed.shape[0],) if lead is None \
+            else tuple(int(d) for d in lead)
+        if (not lead or any(d <= 0 for d in lead)
+                or int(np.prod(lead, dtype=np.int64)) != packed.shape[0]):
+            raise ValueError(
+                f"lead={lead} does not match {packed.shape[0]} "
+                "packed rows")
+        self.packed = packed
+        self.scale = scale
+        self.t_true = t_true
+        self.decimate = decimate
+        self.lead = lead
+        # one slot shared with flat() views: a dense() on either fills it
+        self._dense = [None]
+
+    @property
+    def shape(self):
+        return (*self.lead, self.t_true)
+
+    @property
+    def ndim(self):
+        return len(self.lead) + 1
+
+    def __len__(self):
+        return self.lead[0]
+
+    def flat(self):
+        """The [rows, T] view of the same codes (shared buffers and
+        dense memo)."""
+        if len(self.lead) == 1:
+            return self
+        out = PackedInt4Traces(self.packed, self.scale, self.t_true,
+                               self.decimate)
+        out._dense = self._dense
+        return out
+
+    def rows(self, lo, hi):
+        """The [hi - lo, T] block of rows ``lo:hi`` of the flat view."""
+        return PackedInt4Traces(self.packed[lo:hi], self.scale[lo:hi],
+                                self.t_true, self.decimate)
+
+    def dense(self):
+        """Dense float32 [*lead, T] reconstruction (memoised)."""
+        if self._dense[0] is None:
+            self._dense[0] = decode_int4_traces(
+                self.packed, self.scale, self.t_true, self.decimate)
+        if len(self.lead) == 1:
+            return self._dense[0]
+        return self._dense[0].reshape(*self.lead, self.t_true)
+
+    def __array__(self, dtype=None, copy=None):
+        d = self.dense()
+        if dtype is not None and np.dtype(dtype) != d.dtype:
+            return d.astype(dtype)
+        if copy:
+            return d.copy()
+        return d
 
 
 def quantise_int8(part, out=None):

@@ -20,15 +20,16 @@ REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "circuitmap_tpu")
 PORT_FILES = sorted((REPO / "circuitmap_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
-# the modules of the streaming, resumable and closed-loop slice and of
-# the training, continuous-simulation and analysis slice, which must be
-# among the files scanned
+# the modules of the streaming, resumable and closed-loop slice, of
+# the training, continuous-simulation and analysis slice and of the
+# serving slice, which must be among the files scanned
 SLICE_MODULES = ("utils/checkpoint.py", "solvers/resumable.py",
                  "solvers/online.py", "design.py", "summary.py",
                  "pipelines.py", "viz.py", "simulation.py",
                  "demix/unet.py", "demix/datagen.py", "demix/demixer.py",
                  "demix/convert.py", "demix/stacked.py",
-                 "demix/template_fit.py")
+                 "demix/template_fit.py", "serve.py", "__main__.py",
+                 "utils/io.py", "utils/synthetic.py", "utils/quant.py")
 
 
 def _imported_roots(path):
@@ -158,6 +159,16 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pipelines.merge_duplicate_connections(psc, stim, state,
                                               np.zeros((4, 3)))
+
+
+def test_the_fit_server_refuses_to_fall_back_to_the_cpu(no_cuda):
+    from circuitmap_torch import serve
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.FitService()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.run_server(port=0)
+    assert serve.FitService(device="cpu").platform == "cpu"
 
 
 def test_lazy_exports():

@@ -536,3 +536,25 @@ def test_build_cache_key_follows_the_sources(tmp_path, monkeypatch):
     src.write_text("// two\n")
     assert _build._digest([src]) != first
     assert [p.name for p in _build._sources()] == ["k.cu"]
+
+
+@pytest.mark.cuda
+def test_demixer_is_deterministic_on_the_card(cuda):
+    """Two demixes of one block agree bit for bit on the card, whether
+    the block comes as float traces or as its int4d2 wire body (cuDNN's
+    default transposed-convolution algorithm sums with atomics; the
+    demixer asks for the deterministic ones)."""
+    from circuitmap_torch.demix.demixer import NeuralDemixer
+    from circuitmap_torch.utils.quant import (PackedInt4Traces,
+                                              encode_int4_traces)
+
+    rng = np.random.default_rng(0)
+    raw = rng.standard_normal((5000, 900)) * rng.random((5000, 1))
+    packed, scale = encode_int4_traces(raw, decimate=2)
+    body = PackedInt4Traces(packed, scale, 900, 2)
+    ck = "demixers/nwd_ie_ChroME2f_int4d2qat.npz"
+    first = NeuralDemixer(ck, device=cuda)(
+        raw, keep_on_device=True, transfer_dtype="int4d2", verbose=False)
+    again = NeuralDemixer(ck, device=cuda)(
+        body, keep_on_device=True, transfer_dtype="int4d2", verbose=False)
+    assert torch.equal(first, again)
