@@ -64,7 +64,18 @@ name its two uses.
   subprocess: 5 blocks, SIGTERM (exit 0, the stream saved), a second
   server loads the stream and takes 5 more blocks, equal to the
   uninterrupted stream. No phase imports ``yaml``: the ``fit`` command
-  is left to the CPU tests.
+  is left to the CPU tests;
+* the multi-device layer on the one card (phase 27, ``phase_mesh``):
+  ``Model.fit(mesh=)`` over a trial mesh of two shards on cuda:0 (the
+  counterpart of JAX's virtual mesh; B2 once an iteration per distinct
+  device, no sweep kernel) with a float64 witness on two CPU shards;
+  ``caviar_sharded_distributed`` in two processes on cuda:0 joined by
+  gloo (NCCL refuses two ranks on one card), uneven halves of the
+  trials; ``caviar_many``/``sns_many(mesh=)`` on the folds;
+  ``caviar_resumable(mesh=)`` stopped and resumed;
+  ``OnlineCaviar(mesh=)`` over phase 19's stream; the demixer over the
+  mesh and a ``FitService(mesh_devices=2)`` ``/fit``. NCCL and more
+  than one card are not exercised.
 
 The sweep is held against its plain version at both schedules at
 N=1000/K=20000 and N=200/K=100000, at one row a step at N=16/K=300000
@@ -2513,6 +2524,377 @@ def phase_serve(sim, dem, main_e2e_s, stream_steady_ms):
     return paths, rec
 
 
+# phase 27: the multi-device layer (trial-sharded and multi-process fits,
+# the mesh= entry points) on one card
+WITNESS_ITERS = 5  # the float64 witnesses' depth (on CPU shards)
+MESH_OPTS = {"iters": 50, "msrmp": 0.3, "powers": list(POWERS),
+             "verbose": False, "sweep_block_size": 8}
+WITNESS = dict(iters=WITNESS_ITERS, update_order="identity",
+               analytic_mc=True, sweep_block_size=8, msrmp=0.3,
+               powers=list(POWERS), fn_scan=False, verbose=False)
+GLOO_SPLIT = 10001  # rank 0's trials; rank 1 holds the other 9,999
+CARD = "cuda:0"
+
+
+def card_mesh():
+    """Two trial shards on the one card."""
+    from circuitmap_torch.parallel import trial_mesh
+
+    return trial_mesh(devices=[CARD] * 2)
+
+
+def gloo_worker(rank, port, tmp, card):
+    """One of two processes on cuda:0 joined by gloo (NCCL refuses two
+    ranks on one card): its half of the main map's trials, the float32
+    fit at the main path's options, then the float64 identity witness on
+    a CPU shard in the same group. Rank 0 writes the gathered results."""
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(HERE))
+    from circuitmap_torch import parallel
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    data = np.load(f"{tmp}/rank{rank}.npz")
+    priors = [data[f"prior{i}"] for i in range(6)]
+    parallel.initialize_distributed(f"tcp://localhost:{port}", world_size=2,
+                                    rank=rank, backend="gloo", device=card)
+    from circuitmap_torch.ops.laplace_cuda import laplace_from_stats
+
+    mesh = parallel.global_trial_mesh(devices=[card])
+    laplace_from_stats.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = parallel.caviar_sharded_distributed(
+        data["psc"], data["stim"], *priors, mesh=mesh, **MESH_OPTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = dict(wall_s=wall, all_reduces=mesh.all_reduces,
+               all_reduce_s=mesh.all_reduce_s,
+               laplace_launches=laplace_from_stats.launches)
+    cpu = parallel.global_trial_mesh(devices=["cpu"])
+    wkw = {k: v for k, v in WITNESS.items() if k != "fn_scan"}
+    wit = parallel.caviar_sharded_distributed(
+        data["psc"].astype(np.float64), data["stim"], *priors, mesh=cpu,
+        dtype=torch.float64, **wkw)
+    if rank == 0:
+        np.savez(f"{tmp}/result.npz", **{f"f32_{f}": np.asarray(v) for f, v
+                                          in zip(FIT_FIELDS, out[:8])},
+                 **{f"f64_{f}": np.asarray(v) for f, v
+                    in zip(FIT_FIELDS, wit[:8])})
+    with open(f"{tmp}/rank{rank}.json", "w") as fh:
+        json.dump(rec, fh)
+    torch.distributed.destroy_process_group()
+
+
+def run_gloo_pair(sim, dem, limit_s=240):
+    """Phase 27b's two processes (spawned, each with its half of the
+    trials); returns (rank records, rank 0's results)."""
+    import os
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from circuitmap_torch import default_priors
+
+    p = default_priors(N)
+    priors = [p[k] for k in ("mu", "beta", "shape", "rate", "phi",
+                             "phi_cov")]
+    host = dem.cpu().numpy()
+    stim = np.asarray(sim["stim_matrix"], np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        for rank, (a, b) in enumerate(((0, GLOO_SPLIT), (GLOO_SPLIT, K))):
+            np.savez(f"{tmp}/rank{rank}.npz", psc=host[a:b],
+                     stim=stim[:, a:b],
+                     **{f"prior{i}": v for i, v in enumerate(priors)})
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        # gloo's pairs on the loopback interface only (it would otherwise
+        # take the interface the host name resolves to)
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        ctx = mp.spawn(gloo_worker, args=(port, tmp, CARD), nprocs=2,
+                       join=False)
+        deadline = time.time() + limit_s
+        while not ctx.join(timeout=1):
+            if time.time() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise AssertionError(f"the two gloo processes did not end "
+                                     f"in {limit_s} s")
+        recs = [json.load(open(f"{tmp}/rank{r}.json")) for r in range(2)]
+        res = dict(np.load(f"{tmp}/result.npz"))
+    return recs, res
+
+
+def gate_check(a, b, what, rtol=2e-3):
+    """The same gate pattern (mu != 0) and mu within ``rtol``, as the
+    JAX package's sharded test holds a mesh fit to the single one."""
+    ma, mb = (np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+              for x in (a, b))
+    flips = int(np.sum((ma != 0) != (mb != 0)))
+    close = np.allclose(ma, mb, rtol=rtol, atol=rtol)
+    log(f"{what}: {flips} gate flips; mu within rtol {rtol}: {close}")
+    if flips or not close:
+        raise AssertionError(f"{what}: {flips} gate flips, mu close {close}")
+
+
+def witness_floor(host64, sim, single64):
+    """How far the unsharded float64 witness fit moves when only the
+    order of its trial sums changes: the same fit over the trials in a
+    fixed random order (lam and z put back), as ``max_rel_diff`` over
+    mu, lam, phi. The Gram's Cholesky and the Laplace Hessian amplify
+    float64 rounding to ~1e-9 at N=1000, so a sharded fit, which sums
+    the trials in shards, can be held no tighter than this."""
+    import torch
+    from circuitmap_torch import caviar
+
+    perm = np.random.default_rng(1).permutation(K)
+    sim_p = dict(sim, stim_matrix=sim["stim_matrix"][:, perm])
+    out = fit_dict(caviar(*caviar_args(host64[perm], sim_p), device="cpu",
+                          dtype=torch.float64, **WITNESS))
+    out["lam"] = out["lam"][:, np.argsort(perm)]
+    return max_rel_diff(out, single64, ("mu", "lam", "phi"))
+
+
+def phase_mesh(sim, dem, main, online_steady_ms):
+    """Phase 27: the multi-device layer on one card (cuda:0), N=1000,
+    K=20000, the demixed main map.
+
+    (a) ``Model.fit(mesh=)`` over two shards of the card, 50 iterations
+    at block 8 (phase 5's fit, ``main``, on the same random stream and
+    schedule): truth-R2 within 0.003 of phase 5's, its gate pattern and
+    mu beside phase 5's, B2 once an iteration (plus the reconnection
+    refit), the sweep kernels never; the collectives; the warm wall
+    time; one iteration under the profiler (idle share); the float64
+    identity witness on two CPU shards equal to the unsharded float64
+    fit to max(1e-9, 3x the unsharded fit's own reassociation spread:
+    the same fit over the trials in another order, ``witness_floor``).
+    (b) two processes on cuda:0
+    joined by gloo, uneven halves (10,001 and 9,999 trials): the float32
+    fit against (a)'s mesh fit without the reconnection scan (gate
+    pattern, mu within 2e-3), their all-reduces, and the float64 witness
+    (CPU shards) to (a)'s bound. (c) ``caviar_many`` (batched, block 1) and
+    ``sns_many`` on phase 10's 4 folds over the two shards against their
+    unsharded batched fits: the same gates, 1e-5 (float32 sums grouped
+    by the stack's size). (d) ``caviar_resumable(mesh=)`` in
+    segments of 10, resumed from 20, against the straight sharded fit
+    bit for bit; ``OnlineCaviar(mesh=)`` over phase 19's 10 blocks with
+    the per-block latency, against the unsharded stream. (e) the
+    demixer's meshed call against its unsharded call (1e-6) and a
+    ``FitService(mesh_devices=2, device="cuda:0")`` served ``/fit``
+    against (a)."""
+    import json as _json
+    import tempfile
+
+    import torch
+    from circuitmap_torch import (Model, NeuralDemixer, OnlineCaviar,
+                                  caviar, caviar_many, caviar_resumable,
+                                  default_priors, serve as ts, sns_many)
+    from circuitmap_torch.parallel import caviar_sharded, trial_mesh
+    from circuitmap_torch.utils.metrics import r2_score
+
+    log("phase 27: trial-sharded and multi-process fits on one card "
+        "(2 shards on cuda:0; 2 gloo processes on cuda:0)")
+    paths, rec = {}, {}
+    stim = sim["stim_matrix"]
+    mesh = card_mesh()
+
+    # (a) the trial-sharded main-path fit
+    def fit():
+        return Model(N).fit(dem, stim, fit_options=dict(MESH_OPTS, mesh=mesh))
+
+    reset_counts()
+    mesh.reset_counts()
+    model, first_s = timed(fit)
+    paths["mesh_fit"] = kernel_launches(read_counts())
+    psums, n_ar = mesh.psums, mesh.all_reduces
+    r2 = r2_score(sim["weights"], model.state["mu"])
+    main_r2 = r2_score(sim["weights"], main.state["mu"])
+    warm = timed(fit)[1]
+    log(f"(a) Model.fit(mesh=2 shards on cuda:0), 50 iterations at block 8:"
+        f" first {first_s:.3f} s, warm {warm:.3f} s; launches "
+        f"{paths['mesh_fit']};"
+        f" {psums} psums ({psums / 50:.1f} an iteration), {n_ar} all-reduces;"
+        f" truth-R2 {r2:.6f} against phase 5's {main_r2:.6f}")
+    if abs(r2 - main_r2) > 0.003:
+        raise AssertionError(f"sharded truth-R2 {r2:.4f} is not within 0.003"
+                             f" of the unsharded {main_r2:.4f}")
+    flips = int(np.sum((model.state["mu"] != 0) != (main.state["mu"] != 0)))
+    d_main = max_rel_diff(model.state, main.state, ("mu",))
+    log(f"(a) beside phase 5's fit (the cluster kernel's sums): {flips} "
+        f"gate flips, mu {d_main:.3e} relative")
+    lp = paths["mesh_fit"]
+    if lp["laplace"] not in (50, 51) or lp["sweep_blocked"] or \
+            lp["sweep_row"]:
+        raise AssertionError(f"the sharded fit must launch B2 50 or 51 "
+                             f"times and no sweep kernel: {lp}")
+    one = dict(MESH_OPTS, iters=1, mesh=mesh)
+    rows = profiled(lambda: Model(N).fit(dem, stim, fit_options=one),
+                    "sharded_fit_1_iteration")
+    rec["a"] = dict(first_s=first_s, warm_s=warm, r2=r2, main_r2=main_r2,
+                    gate_flips_vs_main=flips, mu_rel_diff_vs_main=d_main,
+                    psums_per_iter=psums / 50,
+                    profiled=rows is not None)
+
+    host64 = dem.cpu().double().numpy()
+    args64 = caviar_args(host64, sim)
+    single64, s64_s = timed(lambda: caviar(
+        *args64, device="cpu", dtype=torch.float64, **WITNESS))
+    single64 = fit_dict(single64)
+    shard64, m64_s = timed(lambda: caviar_sharded(
+        *args64, mesh=trial_mesh(devices=["cpu"] * 2), dtype=torch.float64,
+        **WITNESS))
+    d64 = max_rel_diff(fit_dict(shard64), single64, ("mu", "lam", "phi"))
+    floor = witness_floor(host64, sim, single64)
+    bound = max(1e-9, 3 * floor)
+    log(f"(a) float64 identity witness, {WITNESS_ITERS} iterations on 2 CPU "
+        f"shards ({m64_s:.1f} s) against the unsharded CPU fit "
+        f"({s64_s:.1f} s): largest relative difference {d64:.3e}; the "
+        f"unsharded fit over the trials in another order differs from "
+        f"itself by {floor:.3e}; bound {bound:.3e}")
+    if d64 > bound:
+        raise AssertionError(f"float64 sharded witness differs by {d64:.3e}")
+    rec["a"].update(witness64_rel_diff=d64, witness64_floor=floor)
+
+    # (b) two processes on the card under gloo
+    nosc, _ = timed(lambda: caviar_sharded(
+        *caviar_args(dem, sim), mesh=mesh, fn_scan=False, **MESH_OPTS))
+    (r0, r1), res = run_gloo_pair(sim, dem)
+    got = {f: res[f"f32_{f}"] for f in FIT_FIELDS}
+    gate_check(got["mu"], nosc[0], "(b) 2 gloo processes vs (a)'s mesh fit")
+    d_b = max_rel_diff(got, fit_dict(nosc), FIT_FIELDS)
+    wit = {f: res[f"f64_{f}"] for f in FIT_FIELDS}
+    d_b64 = max_rel_diff(wit, single64, ("mu", "lam", "phi"))
+    log(f"(b) ranks' fit {r0['wall_s']:.3f} / {r1['wall_s']:.3f} s; "
+        f"all-reduces {r0['all_reduces']} ({r0['all_reduces'] / 50:.1f} an "
+        f"iteration), {r0['all_reduce_s']:.3f} / {r1['all_reduce_s']:.3f} s "
+        f"in them ({r0['all_reduce_s'] / r0['all_reduces'] * 1e6:.1f} us "
+        f"each on rank 0); B2 launches {r0['laplace_launches']} / "
+        f"{r1['laplace_launches']}; largest relative difference from (a)'s "
+        f"mesh fit {d_b:.3e}; float64 witness {d_b64:.3e}")
+    if d_b64 > bound:
+        raise AssertionError(f"float64 gloo witness differs by {d_b64:.3e}")
+    rec["b"] = dict(ranks=[r0, r1], rel_diff=d_b, witness64_rel_diff=d_b64)
+
+    # (c) experiment-sharded fits
+    ys, stims = fold_stack(sim, dem)
+    p = default_priors(N)
+    cp = [p[k] for k in ("mu", "beta", "shape", "rate", "phi", "phi_cov")]
+    sp = [p[k] for k in ("mu", "beta", "alpha", "shape", "rate", "phi",
+                         "phi_cov")]
+    mkw = dict(iters=50, msrmp=0.3, powers=list(POWERS), verbose=False,
+               compile_mode="batched", device=CARD)
+    skw = dict(iters=SNS_MANY_ITERS, powers=list(POWERS), verbose=False,
+               compile_mode="batched", device=CARD)
+    want = caviar_many(ys, stims, *cp, **mkw)
+    reset_counts()
+    got, many_s = timed(lambda: caviar_many(ys, stims, *cp, mesh=mesh,
+                                            **mkw))
+    paths["caviar_many_mesh"] = kernel_launches(read_counts())
+    d_many = max(max_rel_diff(g, w, FIT_FIELDS) for g, w in zip(got, want))
+    many_flips = sum(int(np.sum((g["mu"] != 0) != (w["mu"] != 0)))
+                     for g, w in zip(got, want))
+    want = sns_many(ys, stims, *sp, **skw)
+    reset_counts()
+    got, sns_s = timed(lambda: sns_many(ys, stims, *sp, mesh=mesh, **skw))
+    paths["sns_many_mesh"] = kernel_launches(read_counts())
+    d_sns = max(max_rel_diff(g, w, g.keys()) for g, w in zip(got, want))
+    log(f"(c) caviar_many(mesh=), 4 folds over 2 shards, batched block 1: "
+        f"{many_s:.3f} s, launches {paths['caviar_many_mesh']}, largest "
+        f"relative difference {d_many:.3e}, {many_flips} gate flips; "
+        f"sns_many(mesh=) ({SNS_MANY_ITERS} iterations) {sns_s:.3f} s, "
+        f"launches {paths['sns_many_mesh']}, {d_sns:.3e}")
+    # a chunk of 2 experiments runs the batched algebra at E=2 where the
+    # unsharded fit runs it at E=4: batched GEMMs and reductions group
+    # their float32 sums by the stack's size (PERF.md §6)
+    if many_flips or max(d_many, d_sns) > 1e-5:
+        raise AssertionError(f"experiment-sharded fits differ: {d_many:.3e},"
+                             f" {d_sns:.3e}, {many_flips} gate flips")
+    rec["c"] = dict(caviar_many_s=many_s, sns_many_s=sns_s,
+                    caviar_many_rel_diff=d_many, sns_many_rel_diff=d_sns)
+    del ys, got, want
+
+    # (d) resumable and streaming fits over the mesh
+    args = caviar_args(dem, sim)
+    rkw = {k: v for k, v in MESH_OPTS.items() if k != "iters"}
+    straight = caviar_sharded(*args, mesh=mesh, iters=30, **rkw)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        caviar_resumable(*args, f"{tmp}/fit", mesh=mesh, iters=20,
+                         checkpoint_every=10, **rkw)
+        resumed, res_s = timed(lambda: caviar_resumable(
+            *args, f"{tmp}/fit", mesh=mesh, iters=30, checkpoint_every=10,
+            **rkw))
+        paths["resumable_mesh"] = kernel_launches(read_counts())
+    same = all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+               for a, b in zip(resumed[:8], straight[:8]))
+    log(f"(d) caviar_resumable(mesh=) stopped after 20 iterations and "
+        f"resumed to 30 ({res_s:.3f} s for the last 10): bit for bit the "
+        f"straight fit: {same}; launches {paths['resumable_mesh']}")
+    if not same:
+        raise AssertionError("the resumed sharded fit is not the straight "
+                             "one bit for bit")
+
+    host = dem.cpu().numpy()
+    edges = [b * STREAM_TRIALS for b in range(STREAM_BLOCKS + 1)]
+    okw = dict(powers=list(POWERS), update_order="identity",
+               analytic_mc=True, device=CARD)
+
+    def stream(**kw):
+        oc, times = OnlineCaviar(N, **okw, **kw), []
+        for a, b in zip(edges[:-1], edges[1:]):
+            t0 = time.perf_counter()
+            oc.update(host[a:b], stim[:, a:b], iters=10)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return oc.result(), times
+
+    plain, _ = stream()
+    reset_counts()
+    meshed, times = stream(mesh=mesh)
+    paths["online_mesh"] = kernel_launches(read_counts())
+    d_stream = max_rel_diff(meshed, plain, FIT_FIELDS)
+    steady = statistics.median(times[3:])
+    log(f"(d) OnlineCaviar(mesh=) over phase 19's 10 blocks (identity "
+        f"order, exact means): update ms per block "
+        + ", ".join(f"{t:.1f}" for t in times)
+        + f"; steady median {steady:.1f} ms against phase 19's unsharded "
+        f"{online_steady_ms:.1f} ms; launches {paths['online_mesh']}; "
+        f"largest relative difference from the unsharded stream "
+        f"{d_stream:.3e}")
+    gate_check(meshed["mu"], plain["mu"], "(d) meshed vs unsharded stream")
+    rec["d"] = dict(resumed_bitwise=same, stream_block_ms=times,
+                    stream_steady_ms=steady, stream_rel_diff=d_stream)
+
+    # (e) the demixer and the server over the mesh
+    demixer = NeuralDemixer(str(CHECKPOINT), device=CARD)
+    reset_counts()
+    dm, dm_s = timed(lambda: demixer(
+        sim["psc"], keep_on_device=True, transfer_dtype="int4d2",
+        verbose=False, mesh=mesh))
+    d_dm = max_rel_diff({"x": dm}, {"x": dem}, ("x",))
+    svc = ts.FitService(mesh_devices=2, device=CARD)
+    body = ts._npz_bytes(psc=host, stim=stim)
+    opts = {k: v for k, v in MESH_OPTS.items() if k != "verbose"}
+    reset_counts()
+    served, srv_s = timed(lambda: ts._load_npz(svc.do_fit(
+        body, _json.dumps(dict(opts, demix=False)))[1]))
+    paths["served_mesh_fit"] = kernel_launches(read_counts())
+    d_srv = max_rel_diff(served, model.state, FIT_FIELDS)
+    log(f"(e) demixer(mesh=) {dm_s:.3f} s, largest relative difference "
+        f"from the unsharded demix {d_dm:.3e}; FitService(mesh_devices=2) "
+        f"/fit {srv_s:.3f} s, launches {paths['served_mesh_fit']}, largest "
+        f"relative difference from (a) {d_srv:.3e}")
+    if max(d_dm, d_srv) > 1e-6:
+        raise AssertionError(f"meshed demix / served fit differ: {d_dm:.3e}"
+                             f", {d_srv:.3e}")
+    rec["e"] = dict(demix_s=dm_s, demix_rel_diff=d_dm, served_s=srv_s,
+                    served_rel_diff=d_srv)
+    return paths, rec
+
+
 def main():
     try:
         import torch
@@ -2584,6 +2966,9 @@ def main():
     serve_paths, solvers["serve"] = phase_serve(
         sim, dem, main_e2e_s, solvers["online"]["steady_median_ms"])
     paths.update(serve_paths)
+    mesh_paths, solvers["mesh"] = phase_mesh(
+        sim, dem, model, solvers["online"]["steady_median_ms"])
+    paths.update(mesh_paths)
     log(f"solvers: {json.dumps(solvers)}")
     laplace_rec["main_path_profiled_ms"] = laplace_profiled_ms
     records = (sweep_rec, laplace_rec, row_rec)

@@ -56,8 +56,9 @@ def serve_main(argv=None):
     parser.add_argument("--max-mb", type=float, default=2048,
                         help="largest accepted request body, MB")
     parser.add_argument("--mesh", type=int, default=0, metavar="N",
-                        help="shard fits over an N-GPU mesh (not ported "
-                             "yet: N > 0 raises)")
+                        help="shard fits over a mesh of N shards: the "
+                             "first N GPUs, or N shards on --device when "
+                             "one is named")
     parser.add_argument("--warm", type=parse_shape, nargs="*", default=[],
                         metavar="NxK",
                         help="run the pipeline once at these shapes "

@@ -97,6 +97,18 @@ def wire_transform(traces, bits=4, decimate=1):
     return np.ascontiguousarray(_upsample2(q, T), dtype=np.float32)
 
 
+def mesh_compatible(mesh):
+    """True iff ``NeuralDemixer.__call__(mesh=mesh)`` can shard rows: a
+    power-of-two shard count up to 1024, the JAX package's rule (there
+    every row buffer pads to a power-of-two bucket that the mesh must
+    divide). The fit server asks this before it demixes over its
+    mesh."""
+    if mesh is None:
+        return False
+    n = int(mesh.size)
+    return 0 < n <= 1024 and (n & (n - 1)) == 0
+
+
 class NeuralDemixer:
     """Load (or train) a demixer and apply it to PSC trace blocks on
     ``device``.
@@ -123,6 +135,7 @@ class NeuralDemixer:
                 torch.Generator().manual_seed(int(seed))))
         dtype = torch_dtype(dtype if compute_dtype is None else compute_dtype)
         self.net = net.to(device=self.device, dtype=dtype).eval()
+        self._mesh_nets = None  # (mesh, weights' versions, {device: net})
         self.training_data = None
         self.test_data = None
 
@@ -137,14 +150,33 @@ class NeuralDemixer:
                                               deterministic=deterministic)
         return contextlib.nullcontext()
 
-    def _demix_batch(self, traces):
-        """Peak-normalise -> forward -> rescale -> monotone filter
-        (filter start is bound by the caller). traces: [B, T] f32."""
+    def _demix_batch(self, traces, net=None):
+        """Peak-normalise -> forward -> rescale (the monotone filter is
+        the caller's). traces: [B, T] f32; ``net``: the network copy on
+        the traces' device (the module's own by default)."""
+        net = self.net if net is None else net
         tmax = torch.max(traces, dim=1, keepdim=True).values
         safe = torch.where(tmax != 0, tmax, torch.ones_like(tmax))
-        net_dtype = next(self.net.parameters()).dtype
+        net_dtype = next(net.parameters()).dtype
         x = (traces / safe)[:, None, :].to(net_dtype)
-        return self.net(x)[:, 0, :].float() * tmax
+        return net(x)[:, 0, :].float() * tmax
+
+    def _nets(self, mesh):
+        """The network on each of the mesh's devices: the module itself
+        on its own device, copies elsewhere. The copies are cached on
+        the mesh (by equality) and on the weights' in-place versions, so
+        training invalidates them."""
+        import copy
+
+        versions = tuple(p._version for p in self.net.parameters())
+        cached = self._mesh_nets
+        if cached is not None and cached[0] == mesh and \
+                cached[1] == versions:
+            return cached[2]
+        nets = {d: self.net if d == self.device else
+                copy.deepcopy(self.net).to(d).eval() for d in mesh.distinct}
+        self._mesh_nets = (mesh, versions, nets)
+        return nets
 
     def __call__(self, traces, monotone_filter_start=500,
                  monotone_filter_inplace=True, verbose=True,
@@ -159,12 +191,25 @@ class NeuralDemixer:
         codes go up as they are and are unpacked on the device, which is
         what the matching ``transfer_dtype`` makes of the dense traces.
         Only "int4d2" asked of codes that were not pooled densifies and
-        encodes again."""
+        encodes again.
+
+        ``mesh`` (a ``parallel.TrialMesh`` of this process that
+        :func:`mesh_compatible` accepts) splits each chunk's rows over
+        the mesh's shards, each demixed on its shard's device (rows are
+        independent: the network runs in eval mode); the output is
+        gathered on the mesh's first device."""
         del monotone_filter_inplace  # functional; kept for API parity
+        nets, home = None, self.device
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-GPU demixing) is ROADMAP item A9 and not "
-                "ported yet")
+            from ..parallel.sharded import _require_local
+
+            _require_local(mesh, "NeuralDemixer(mesh=)")
+            if not mesh_compatible(mesh):
+                raise ValueError(
+                    f"mesh size {mesh.size} does not divide the demixer's "
+                    "row buckets; use a power-of-two mesh (<= 1024 "
+                    "devices)")
+            nets, home = self._nets(mesh), mesh.devices[0]
         wire = _wire_name(transfer_dtype)
         if isinstance(traces, PackedInt4Traces):
             traces = traces.flat()
@@ -183,15 +228,29 @@ class NeuralDemixer:
         chunks = []
         with torch.inference_mode(), self._precision(deterministic=True):
             for k0 in range(0, K, chunk_size):
-                # encoded on the host, decoded (and upsampled) on the device
-                rows = (traces.rows(k0, k0 + chunk_size)
-                        if isinstance(traces, PackedInt4Traces)
-                        else traces[k0:k0 + chunk_size])
-                part = prepare_traces(rows, torch.float32, self.device,
-                                      trace_wire=wire)
-                out = self._demix_batch(part)
-                chunks.append(monotone_decay_filter(
-                    out, start=int(monotone_filter_start)))
+                k1 = min(K, k0 + chunk_size)
+                if nets is None:
+                    spans = [(k0, k1, self.device)]
+                else:  # contiguous rows per shard, on its device
+                    edges = [k0 + (k1 - k0) * s // mesh.n_local
+                             for s in range(mesh.n_local + 1)]
+                    spans = [(a, b, d) for a, b, d in zip(
+                        edges[:-1], edges[1:], mesh.devices) if b > a]
+                outs = []
+                for a, b, dev in spans:
+                    # encoded on the host, decoded (and upsampled) on
+                    # the device
+                    rows = (traces.rows(a, b)
+                            if isinstance(traces, PackedInt4Traces)
+                            else traces[a:b])
+                    part = prepare_traces(rows, torch.float32, dev,
+                                          trace_wire=wire)
+                    out = self._demix_batch(
+                        part, None if nets is None else nets[dev])
+                    outs.append(monotone_decay_filter(
+                        out, start=int(monotone_filter_start)).to(home))
+                chunks.append(outs[0] if len(outs) == 1 else
+                              torch.cat(outs, dim=0))
         dev = chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=0)
         if verbose:
             if self.device.type == "cuda":
@@ -253,12 +312,13 @@ class NeuralDemixer:
         epoch's step losses and the eval-mode loss on the test set
         afterwards. With ``save_path`` the weights are written (in-repo
         ``.npz``) every ``save_every`` epochs and at the end. ``mesh=``
-        (data-parallel multi-GPU training) is not ported yet.
+        (data-parallel multi-GPU training) is ROADMAP item A9b, not
+        ported yet.
         """
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (data-parallel multi-GPU training) is ROADMAP item "
-                "A9 and not ported yet")
+                "A9b and not ported yet")
         if data_path is not None:
             data = np.load(data_path)
             train = (data["training_inputs"], data["training_targets"])

@@ -68,9 +68,12 @@ class Model:
         """Run a fit on ``device`` (None means CUDA; ``fit_options`` may
         carry ``device`` too). ``fit_options`` takes every keyword of the
         method's solver (``caviar``, ``cavi_sns``, ``mbcs``; ``k``, ``tol``
-        and ``maxiter`` for ``cosamp``); ``mesh`` (multi-GPU fits) is not
-        ported yet. CoSaMP is a host numpy baseline by design: it runs on
-        the CPU whatever the device.
+        and ``maxiter`` for ``cosamp``). ``mesh`` (a
+        ``parallel.TrialMesh``) runs the trial-sharded solver of the
+        method over the mesh's devices instead (``parallel.sharded``;
+        ``device`` is then not used); CoSaMP has no mesh path and raises.
+        CoSaMP is a host numpy baseline by design: it runs on the CPU
+        whatever the device.
 
         ``_materialize`` is the fit server's ``return_fields``: ``None``
         pulls every state and history field to a host numpy array; a
@@ -89,11 +92,10 @@ class Model:
             raise ValueError(
                 f"unknown method {method!r}; expected "
                 "caviar | cavi_sns | mbcs | cosamp")
-        if fit_options.pop("mesh", None) is not None:
-            raise NotImplementedError(
-                "mesh= (trial-sharded multi-GPU fits) is ROADMAP item A9 "
-                "and not ported yet")
-        device = resolve_device(fit_options.pop("device", device))
+        device = fit_options.pop("device", device)
+        if fit_options.get("mesh") is None:
+            fit_options.pop("mesh", None)
+            device = resolve_device(device)
         self.fit_method = method
         self._materialize = (None if _materialize is None
                              else {str(f) for f in _materialize})
@@ -135,9 +137,15 @@ class Model:
 
         s = self.state
         track_elbo = bool(fit_options.get("track_elbo"))
-        result = caviar(obs, stimuli, s["mu"], s["beta"], s["shape"],
-                        s["rate"], s["phi"], s["phi_cov"], device=device,
-                        **fit_options)
+        priors = (s["mu"], s["beta"], s["shape"], s["rate"], s["phi"],
+                  s["phi_cov"])
+        if "mesh" in fit_options:
+            from .parallel import caviar_sharded
+
+            result = caviar_sharded(obs, stimuli, *priors, **fit_options)
+        else:
+            result = caviar(obs, stimuli, *priors, device=device,
+                            **fit_options)
         if track_elbo:
             *result, (elbos, converged_at) = result
             self.elbo = np.asarray(elbos)
@@ -158,9 +166,16 @@ class Model:
         from .solvers.cavi_sns import cavi_sns
 
         s = self.state
-        mu, beta, alpha, lam, shape, rate, phi, phi_cov, *hists = cavi_sns(
-            obs, stimuli, s["mu"], s["beta"], s["alpha"], s["shape"],
-            s["rate"], s["phi"], s["phi_cov"], device=device, **fit_options)
+        priors = (s["mu"], s["beta"], s["alpha"], s["shape"], s["rate"],
+                  s["phi"], s["phi_cov"])
+        if "mesh" in fit_options:
+            from .parallel import cavi_sns_sharded
+
+            result = cavi_sns_sharded(obs, stimuli, *priors, **fit_options)
+        else:
+            result = cavi_sns(obs, stimuli, *priors, device=device,
+                              **fit_options)
+        mu, beta, alpha, lam, shape, rate, phi, phi_cov, *hists = result
         self._update_state(
             mu=mu, beta=beta, alpha=alpha, lam=lam, shape=shape, rate=rate,
             phi=phi, phi_cov=phi_cov)
@@ -172,9 +187,15 @@ class Model:
         from .solvers.mbcs import mbcs
 
         s = self.state
-        mu, beta, lam, shape, rate, z, receptive_fields, *hists = mbcs(
-            obs, stimuli, s["mu"], s["beta"], s["shape"], s["rate"],
-            device=device, **fit_options)
+        priors = (s["mu"], s["beta"], s["shape"], s["rate"])
+        if "mesh" in fit_options:
+            from .parallel import mbcs_sharded
+
+            result = mbcs_sharded(obs, stimuli, *priors, **fit_options)
+        else:
+            result = mbcs(obs, stimuli, *priors, device=device,
+                          **fit_options)
+        mu, beta, lam, shape, rate, z, receptive_fields, *hists = result
         self._update_state(
             mu=mu, beta=beta, lam=lam, shape=shape, rate=rate, z=z,
             receptive_fields=receptive_fields)
@@ -190,6 +211,11 @@ class Model:
         from .solvers.cosamp import cosamp
 
         del device
+        if fit_options.pop("mesh", None) is not None:
+            raise ValueError(
+                "cosamp has no mesh path (it is a host-side greedy "
+                "baseline) — drop mesh= or use method='caviar'/"
+                "'cavi_sns'/'mbcs'")
         stim = np.asarray(_host(stimuli), dtype=float)
         y = np.trapezoid(np.asarray(_host(obs), dtype=float), axis=-1)
         A = (stim > 0).T.astype(float)

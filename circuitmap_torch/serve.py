@@ -58,8 +58,13 @@ own thread and port (``GET /health`` → ``status_payload()``, never
 touches torch or the device) so probes keep working while the main port
 is busy; ``--request-timeout-s`` arms a watchdog that turns a request
 stuck past that bound into exit code 86 (a supervisor restart) after a
-bounded stream auto-save. ``--mesh N > 0`` (fits sharded over several
-GPUs) is ROADMAP item A9 and raises NotImplementedError.
+bounded stream auto-save. ``--mesh N > 0`` shards every fit over a
+trial mesh of N shards (``parallel.trial_mesh``): the first N visible
+GPUs, or N shards on ``--device`` when one is named (a card, or the
+CPU). Batch fits then run the trial-sharded solvers, ``/fit_many`` the
+experiment-sharded ones, streams ``OnlineCaviar(mesh=)``, and the
+demixer splits its rows over the mesh when ``mesh_compatible`` allows;
+a request opts out with ``{"sharded": false}``.
 """
 
 from __future__ import annotations
@@ -89,8 +94,8 @@ _FIT_OPTION_KEYS = frozenset((
 ))
 
 # batched-solver knobs for POST /fit_many (solvers/batched.py —
-# JSON-safe only; "sharded" names the server's --mesh, which this
-# package does not run yet). The union across methods: each *_many
+# JSON-safe only; mesh= comes from the server's --mesh, opt out per
+# request with {"sharded": false}). The union across methods: each *_many
 # signature rejects knobs foreign to the chosen method (400).
 _FIT_MANY_OPTION_KEYS = frozenset((
     "method",
@@ -522,12 +527,18 @@ class FitService:
 
         from ._device import resolve_device
 
-        if mesh_devices:
-            raise NotImplementedError(
-                "--mesh (fits sharded over several GPUs) is ROADMAP item "
-                "A9 and not ported yet")
         self._t0 = time.time()
         self.torch_device = resolve_device(device)
+        # mesh_devices > 0: batch fits dispatch the trial-sharded
+        # solvers over the mesh (per-request opt-out: {"sharded": false})
+        # and streams run OnlineCaviar(mesh=)
+        self.mesh = None
+        if mesh_devices:
+            from .parallel import trial_mesh
+
+            self.mesh = (trial_mesh(int(mesh_devices)) if device is None
+                         else trial_mesh(devices=[self.torch_device]
+                                         * int(mesh_devices)))
         # plain strings, cached here: the status sidecar reads them
         # without touching torch
         if self.torch_device.type == "cuda":
@@ -611,8 +622,24 @@ class FitService:
         wire = self._wire_token(opts)
         self._require_demixer()
         self.n_demixes += 1
+        # a --mesh server demixes sharded too (rows split over the
+        # mesh), but only for a request whose resolved options carry the
+        # mesh: a {"sharded": false} opt-out or a cosamp fit runs the
+        # single-device solver
         return self.demixer(psc, verbose=False, keep_on_device=True,
-                            transfer_dtype=wire)
+                            transfer_dtype=wire,
+                            mesh=self._demix_mesh(opts))
+
+    @staticmethod
+    def _demix_mesh(opts):
+        """The mesh the demixer may shard over for this request: the
+        request's resolved solver mesh (``opts['mesh']``), and only when
+        the demixer says it can shard over it
+        (``demix.demixer.mesh_compatible``)."""
+        from .demix.demixer import mesh_compatible
+
+        mesh = opts.get("mesh")
+        return mesh if mesh_compatible(mesh) else None
 
     # -- endpoints ----------------------------------------------------------
 
@@ -624,7 +651,8 @@ class FitService:
         payload.pop("busy", None)
         payload.pop("inflight", None)
         payload["demixer"] = self.demixer_path
-        payload["mesh_devices"] = 0
+        payload["mesh_devices"] = (self.mesh.size if self.mesh is not None
+                                   else 0)
         return "application/json", json.dumps(payload).encode()
 
     def status_payload(self):
@@ -723,9 +751,20 @@ class FitService:
             raise _BadRequest(
                 f"unknown method {method!r}; expected "
                 "caviar | cavi_sns | mbcs | cosamp")
-        if bool(opts.pop("sharded", None)):
-            raise _BadRequest("sharded fit requested but the server "
-                              "has no mesh (start it with --mesh N)")
+        sharded = opts.pop("sharded", None)
+        if sharded is not None:
+            sharded = bool(sharded)  # JSON 0/1 behave like false/true
+        if sharded:
+            if self.mesh is None:
+                raise _BadRequest("sharded fit requested but the server "
+                                  "has no mesh (start it with --mesh N)")
+            if method == "cosamp":
+                raise _BadRequest("cosamp has no sharded path (it is a "
+                                  "host-side greedy baseline) — drop "
+                                  "sharded or pick another method")
+        if (self.mesh is not None and sharded is not False
+                and method != "cosamp"):  # cosamp is host-side: no mesh path
+            opts["mesh"] = self.mesh
         obs = self._maybe_demix(psc, opts)
         if method != "cosamp":  # the host baseline takes no verbose
             opts.setdefault("verbose", False)
@@ -778,14 +817,20 @@ class FitService:
         flat_in = (pscs.flat() if isinstance(pscs, PackedInt4Traces)
                    else np.asarray(pscs).reshape(b * k, t))
         flat = self.demixer(flat_in, verbose=False, keep_on_device=True,
-                            transfer_dtype=wire)
+                            transfer_dtype=wire,
+                            mesh=self._demix_mesh(opts))
         return flat.reshape(b, k, flat.shape[-1])
 
     def _resolve_many_mesh(self, opts):
         """Shared /fit_many handling of the sharded= knob."""
-        if bool(opts.pop("sharded", None)):
+        sharded = opts.pop("sharded", None)
+        if sharded is not None:
+            sharded = bool(sharded)
+        if sharded and self.mesh is None:
             raise _BadRequest("sharded fit_many requested but the server "
                               "has no mesh (start it with --mesh N)")
+        if self.mesh is not None and sharded is not False:
+            opts["mesh"] = self.mesh
 
     def _run_many(self, obs, stims, opts, method="caviar", **extra):
         """Shared /fit_many solver call: method dispatch over the
@@ -903,6 +948,7 @@ class FitService:
             import torch
 
             self._resolve_many_mesh(opts)
+            opts.pop("mesh", None)
             obs_flat = self._maybe_demix(psc, opts)
             obs_flat = (obs_flat.cpu().numpy()
                         if isinstance(obs_flat, torch.Tensor)
@@ -1148,7 +1194,8 @@ class FitService:
                     f"N={designer.N} but this block carries "
                     f"{stim.shape[0]} neurons")
             stream = OnlineCaviar(stim.shape[0], priors=self.priors,
-                                  device=self.torch_device, **create)
+                                  device=self.torch_device, mesh=self.mesh,
+                                  **create)
         elif create:
             raise _BadRequest(
                 f"stream {name!r} already exists; 'create' options only "
@@ -1357,7 +1404,7 @@ class FitService:
         try:
             stream = OnlineCaviar.load(
                 path, priors=self.priors, device=self.torch_device,
-                **create)
+                mesh=self.mesh, **create)
         except (ValueError, TypeError) as exc:
             # bad create knobs are the request's fault, not the file's
             raise _BadRequest(f"stream restore rejected: {exc}") from None

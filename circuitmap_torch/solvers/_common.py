@@ -48,16 +48,17 @@ def warn_data_thin_design(power_counts_np, k, what="this fit"):
     _warn_data_thin(float(per_neuron.mean()), per_neuron.size, k, what)
 
 
-def warn_data_thin_design_dense(stim_np, what="this fit"):
+def warn_data_thin_design_dense(stim_np, k_true=None, what="this fit"):
     """The same preflight for the solvers that keep no per-neuron counts
-    (CAVI-SnS, MBCS): one host ``count_nonzero`` pass, paid only from
-    N >= 2000."""
+    (CAVI-SnS, MBCS, the sharded fits): one host ``count_nonzero`` pass,
+    paid only from N >= 2000. ``k_true``: the real trial count when the
+    stim carries padded columns (the message's trial count)."""
     stim_np = np.asarray(stim_np)
     n = stim_np.shape[0]
     if n < _DATA_THIN_MIN_N:
         return
-    _warn_data_thin(float(np.count_nonzero(stim_np)) / n, n,
-                    stim_np.shape[1], what)
+    k = stim_np.shape[1] if k_true is None else k_true
+    _warn_data_thin(float(np.count_nonzero(stim_np)) / n, n, k, what)
 
 
 def _warn_data_thin(mean_stims, n, k, what):
@@ -261,14 +262,15 @@ def stim_upload_plan(stim, powers):
     return stim_np, _upload_plan(stim_np, powers)
 
 
-def prepare_stim(stim, dtype, device, plan=None):
+def prepare_stim(stim, dtype, device, plan=None, powers=None):
     """The stim upload without CAVIaR's mask and lam init. Returns
     (stim_dev, stim_np, powers_np, powers_dev_np), as
     :func:`prepare_stim_and_init` does. ``plan``: the stim's
-    :func:`stim_upload_plan` (its second element) when already made."""
+    :func:`stim_upload_plan` (its second element) when already made;
+    else ``powers`` (the rig's levels) skips the level scan."""
     stim_np = np.asarray(stim)
     if plan is None:
-        plan = _upload_plan(stim_np, None)
+        plan = _upload_plan(stim_np, powers)
     powers_np, levels_np, kind, payload = plan
     stim_dev = _stim_on_device(stim_np, levels_np, kind, payload, dtype,
                                device)

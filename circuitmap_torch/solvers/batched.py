@@ -27,6 +27,10 @@ MBCS. Their batched loops are the single fits' loops with an experiment
 axis (``cavi_sns._run_sns``: the batched row kernel and one batched
 Laplace launch an iteration; ``mbcs._run_mbcs``: FISTA over [E, N, N]).
 A ragged list runs each experiment's own single fit at its true shape.
+
+All three take ``mesh=`` (a ``parallel.TrialMesh``): the experiment
+axis shards over the mesh's devices, each running the batched loop on
+its chunk with no collective.
 """
 
 from __future__ import annotations
@@ -167,17 +171,53 @@ def _many_init_ragged(ys, actives, stim_dev, kts):
 
 
 def _resolve_mode(compile_mode, mesh):
-    """The mode that runs: 'auto' is 'sequential'. ``mesh`` (experiment
-    sharding over devices) is not ported."""
+    """The mode that runs: 'auto' is 'sequential' without a mesh and
+    'batched' under one; 'sequential' has no mesh path (experiment
+    sharding runs the batched loop on each shard's chunk)."""
     if compile_mode not in ("auto", "sequential", "batched"):
         raise ValueError(
             f"compile_mode must be 'auto', 'sequential' or 'batched'; "
             f"got {compile_mode!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (experiment sharding over GPUs) is ROADMAP item A9 and "
-            "not ported yet")
-    return "sequential" if compile_mode == "auto" else compile_mode
+    if compile_mode == "sequential" and mesh is not None:
+        raise ValueError(
+            "compile_mode='sequential' has no mesh path — experiment "
+            "sharding needs the batched loop; drop mesh= or use "
+            "compile_mode='batched'")
+    if compile_mode == "auto":
+        return "sequential" if mesh is None else "batched"
+    return compile_mode
+
+
+def _fit_device(mesh, device):
+    """The device the stack is uploaded to: the mesh's first device, or
+    ``device`` (the package's device rule) without a mesh."""
+    if mesh is None:
+        return resolve_device(device)
+    from ..parallel.sharded import _require_local
+
+    _require_local(mesh, "*_many(mesh=)")
+    return mesh.devices[0]
+
+
+def _mesh_chunks(mesh, B, run):
+    """The experiment axis sharded over the mesh, with no collective:
+    shard s fits a contiguous chunk of the B experiments on its device
+    (``run(indices, device)`` -> a sequence of [chunk, ...] tensors; B is
+    padded to a multiple of the shard count by repeating the last
+    experiment). Returns each result stacked over the B experiments on
+    the mesh's first device."""
+    n = mesh.n_local
+    per = -(-B // n)
+    idx = np.minimum(np.arange(per * n), B - 1).reshape(n, per)
+    outs = [run(torch.as_tensor(idx[s]), d)
+            for s, d in enumerate(mesh.devices)]
+    dev0 = mesh.devices[0]
+    return [torch.cat([o[f].to(dev0) for o in outs])[:B]
+            for f in range(len(outs[0]))]
+
+
+def _on(device, *arrays):
+    return tuple(a.to(device) for a in arrays)
 
 
 def _device_stack(y_pscs, stims_np, k_trues, powers_np, y_xcorr_thresh,
@@ -227,7 +267,7 @@ def caviar_many(
     matches its single fit to the inert-padding tolerance (sums over
     more columns round differently), not bit for bit.
 
-    ``compile_mode``: "sequential" (and "auto") runs the single fit's
+    ``compile_mode``: "sequential" ("auto" without a mesh) runs the single fit's
     loop per experiment, "batched" one loop over the stack. Under
     ``sweep_block_size="auto"`` the batched loop runs the strictly
     sequential sweep (block 1, the batched row kernel on CUDA) and the
@@ -238,8 +278,14 @@ def caviar_many(
     After the fits, ``fn_scan`` runs the reconnection scan per
     experiment on the device and one batched Laplace refit over the
     experiments it changed.
+
+    ``mesh`` (a ``parallel.TrialMesh``) shards the *experiment* axis:
+    each shard runs the batched loop on a contiguous chunk of the
+    experiments on its device, with no collective ("auto" is then
+    "batched"; "sequential" raises). Results come back on the host as
+    without a mesh.
     """
-    dev = resolve_device(device)
+    dev = _fit_device(mesh, device)
     dtype = torch_dtype(dtype)
     if dev.type == "cuda" and dtype != torch.float32:
         raise NotImplementedError(
@@ -305,8 +351,8 @@ def caviar_many(
         mu_prior, beta_prior, shape_prior, rate_prior, phi_prior,
         phi_cov_prior))
     counts = power_counts_of(stim_dev, powers_t, dtype)
-    gens = [seeded_generator(s, dev)
-            for s in (np.arange(B) if seeds is None else seeds)]
+    seeds = np.arange(B) if seeds is None else seeds
+    gens = [seeded_generator(s, dev) for s in seeds]
     loop = dict(
         iters=int(iters), num_mc_samples=int(num_mc_samples),
         minimum_spike_count=int(minimum_spike_count),
@@ -322,9 +368,15 @@ def caviar_many(
             hyper, [gens[b]], k_true=None if kts is None else kts[b],
             **loop)[0] for b in range(B)]
         final = [torch.stack(xs) for xs in zip(*finals)]
-    else:
+    elif mesh is None:
         final = _run_caviar(ys, stim_dev, lam0, lam_masks, powers_t,
                             counts, hyper, gens, k_true=kts, **loop)[0]
+    else:
+        final = _mesh_chunks(mesh, B, lambda ix, d: _run_caviar(
+            *_on(d, ys[ix], stim_dev[ix], lam0[ix], lam_masks[ix],
+                 powers_t, counts[ix]), _on(d, *hyper),
+            [seeded_generator(seeds[b], d) for b in ix.tolist()],
+            k_true=None if kts is None else kts[ix].to(d), **loop)[0])
 
     results, reconnected = [], []
     for b in range(B):
@@ -372,8 +424,8 @@ def _ragged_sequential_guard(name, mesh, compile_mode, powers):
             "powers= applies only to same-shape stacks")
 
 
-def _float_device(device, dtype):
-    dev = resolve_device(device)
+def _float_device(device, dtype, mesh=None):
+    dev = _fit_device(mesh, device)
     dtype = torch_dtype(dtype)
     if dev.type == "cuda" and dtype != torch.float32:
         raise NotImplementedError(
@@ -407,7 +459,7 @@ def sns_many(
     rule). Priors are shared. Returns a list of B dicts of numpy arrays
     with keys mu/beta/alpha/lam/shape/rate/phi/phi_cov.
 
-    ``compile_mode``: "sequential" (and "auto") runs the single fit's
+    ``compile_mode``: "sequential" ("auto" without a mesh) runs the single fit's
     loop per experiment; "batched" one loop over the stack, whose lam
     sweep is one launch of the batched row kernel and whose refit one
     Laplace launch an iteration. Experiment b draws its row orders and
@@ -420,11 +472,12 @@ def sns_many(
     """
     from .cavi_sns import _run_sns, cavi_sns
 
-    dev, dtype = _float_device(device, dtype)
-    resolve_laplace_impl(laplace_impl)
     ragged_in = _ragged_lists(y_pscs, stims, "sns_many")
     if ragged_in is not None:
         _ragged_sequential_guard("sns_many", mesh, compile_mode, powers)
+    dev, dtype = _float_device(device, dtype, mesh)
+    resolve_laplace_impl(laplace_impl)
+    if ragged_in is not None:
         ys_list, st_list, ks = ragged_in
         seeds = np.arange(len(ys_list)) if seeds is None else seeds
         if verbose:
@@ -459,8 +512,8 @@ def sns_many(
     hyper = tuple(_as(a, dtype, dev) for a in (
         mu_prior, beta_prior, alpha_prior, shape_prior, rate_prior,
         phi_prior, phi_cov_prior))
-    gens = [seeded_generator(sd, dev)
-            for sd in (np.arange(B) if seeds is None else seeds)]
+    seeds = np.arange(B) if seeds is None else seeds
+    gens = [seeded_generator(sd, dev) for sd in seeds]
     loop = dict(iters=int(iters), num_mc_samples=int(num_mc_samples),
                 minimum_spike_count=int(minimum_spike_count),
                 analytic_mc=bool(analytic_mc), save_histories=False,
@@ -469,9 +522,14 @@ def sns_many(
         finals = [_run_sns(ys[b], stim_dev[b], lam0[b], masks[b], powers_t,
                            hyper, [gens[b]], **loop)[0] for b in range(B)]
         final = [torch.stack(xs) for xs in zip(*finals)]
-    else:
+    elif mesh is None:
         final = _run_sns(ys, stim_dev, lam0, masks, powers_t, hyper, gens,
                          **loop)[0]
+    else:
+        final = _mesh_chunks(mesh, B, lambda ix, d: _run_sns(
+            *_on(d, ys[ix], stim_dev[ix], lam0[ix], masks[ix], powers_t),
+            _on(d, *hyper), [seeded_generator(seeds[b], d)
+                             for b in ix.tolist()], **loop)[0])
     return _split(final, SNS_FIELDS)
 
 
@@ -513,7 +571,7 @@ def mbcs_many(
     mu/beta/lam/shape/rate/z/receptive_fields.
 
     The activity masks are computed on the device (:func:`_mbcs_mask_init`).
-    ``compile_mode``: "sequential" (and "auto") runs the single fit's
+    ``compile_mode``: "sequential" ("auto" without a mesh) runs the single fit's
     loop per experiment; "batched" one loop over the stack (FISTA over
     [B, N, N] with a stopping flag per experiment; the spike sweep over
     the union of the experiments' connected rows, each row kept only
@@ -525,7 +583,10 @@ def mbcs_many(
     """
     from .mbcs import _run_mbcs, fit_params, mbcs as mbcs_single
 
-    dev, dtype = _float_device(device, dtype)
+    ragged_in = _ragged_lists(y_pscs, stims, "mbcs_many")
+    if ragged_in is not None:
+        _ragged_sequential_guard("mbcs_many", mesh, compile_mode, powers)
+    dev, dtype = _float_device(device, dtype, mesh)
     params = fit_params(
         penalty=penalty, scale_factor=scale_factor,
         max_penalty_iters=max_penalty_iters, max_lasso_iters=max_lasso_iters,
@@ -537,9 +598,7 @@ def mbcs_many(
         analytic_noise=analytic_noise, outlier_penalty=outlier_penalty,
         minimum_maximal_spike_prob=minimum_maximal_spike_prob,
         outlier_tol=outlier_tol, noise_scale=noise_scale)
-    ragged_in = _ragged_lists(y_pscs, stims, "mbcs_many")
     if ragged_in is not None:
-        _ragged_sequential_guard("mbcs_many", mesh, compile_mode, powers)
         if trace_wire is not None:
             raise ValueError(
                 "ragged mbcs_many has no trace_wire path (the single fit "
@@ -592,9 +651,19 @@ def mbcs_many(
                 for b in range(B)]
         final = [torch.stack(xs) for xs in zip(
             *[(*carry[:6], rf) for carry, rf, _ in outs])]
-    else:
+    elif mesh is None:
         carry, rf, _ = _run_mbcs(ys, stim_dev, lam0, masks, powers_with_zero,
                                  mu0, beta_p, shape0, rate0, spont0, gens,
                                  params, **loop)
         final = [*carry[:6], rf]
+    else:
+        def chunk(ix, d):
+            carry, rf, _ = _run_mbcs(
+                *_on(d, ys[ix], stim_dev[ix], lam0[ix], masks[ix],
+                     powers_with_zero, mu0[ix], beta_p, shape0[ix],
+                     rate0[ix], spont0[ix]),
+                [seeded_generator(seeds[b], d) for b in ix.tolist()],
+                params, **loop)
+            return [*carry[:6], rf]
+        final = _mesh_chunks(mesh, B, chunk)
     return _split(final, MBCS_FIELDS)

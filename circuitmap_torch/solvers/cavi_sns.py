@@ -248,7 +248,7 @@ def _iteration(state, data, hyper, orders, generators, *, num_mc_samples,
         powercurve_logit_means(
             g, state.phi if b is None else state.phi[b],
             state.phi_cov if b is None else state.phi_cov[b],
-            num_mc_samples, analytic_mc))).unbind(-2)
+            num_mc_samples, analytic_mc)), many).unbind(-2)
     if many:
         w, beta_eff = row_sweep_weights(mu, beta, alpha)
         lam = sweep_spikes_row_batched(
@@ -292,7 +292,7 @@ def _run_sns(y, stim, lam0, lam_mask, powers, hyper, generators, *, iters,
         if update_order == "identity":
             return torch.arange(N, device=y.device).expand(*lead, N)
         return _each_stream(generators, lambda g, b: torch.randperm(
-            N, generator=g, device=y.device))
+            N, generator=g, device=y.device), bool(lead))
 
     snaps = []
     for _ in range(iters):

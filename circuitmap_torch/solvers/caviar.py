@@ -224,10 +224,11 @@ def update_spontaneous(y, mu, lam, z, it, penalty, lam_mask, scale_factor,
 # ---------------------------------------------------------------------------
 
 
-def _each_stream(generators, fn):
+def _each_stream(generators, fn, stacked):
     """``fn(generator, b)`` for each experiment's random stream, stacked
-    on a leading axis; one stream (a single fit) is not stacked."""
-    if len(generators) == 1:
+    on a leading axis when ``stacked`` (a stack of experiments, of any
+    count); a single fit's one stream is not stacked."""
+    if not stacked:
         return fn(generators[0], None)
     return torch.stack([fn(g, b) for b, g in enumerate(generators)])
 
@@ -299,12 +300,12 @@ def _run_caviar(y, stim, lam0, lam_mask, powers, power_counts, hyper,
             order = torch.arange(n_slots, device=dev).expand(*lead, n_slots)
         else:
             order = _each_stream(generators, lambda g, b: torch.randperm(
-                n_slots, generator=g, device=dev))
+                n_slots, generator=g, device=dev), bool(lead))
         m0, m1 = _each_stream(generators, lambda g, b: torch.stack(
             powercurve_logit_means(
                 g, phi if b is None else phi[b],
                 phi_cov if b is None else phi_cov[b], num_mc_samples,
-                analytic_mc))).unbind(-2)
+                analytic_mc)), bool(lead)).unbind(-2)
         sig = shape / rate
         gate_active = float(it > delay_spont_est)
         lam = sweep(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,

@@ -389,7 +389,7 @@ def _run_mbcs(y, stim, lam0, lam_mask, powers_with_zero, mu0, beta_prior,
     snaps = []
     for it in range(iters):
         order = _each_stream(generators, lambda g, b: torch.randperm(
-            N, generator=g, device=y.device))
+            N, generator=g, device=y.device), y.dim() > 1)
         carry, rf = _iteration(carry, it, data, params, order, generators)
         if save_histories:
             snaps.append(carry[:6])

@@ -12,6 +12,12 @@ acquisition (``design.py``).
   (``_run_caviar``'s ``k_true``). The capacity is a multiple of 4 (the
   cluster sweep's column quads) and doubles when a block does not fit,
   so a stream of B blocks allocates O(log B) times.
+* **Meshes.** With ``mesh`` (a ``parallel.TrialMesh``) the capacity is
+  also a multiple of the shard count, the buffers and lam/z are kept as
+  per-shard lists of the trial axis, and each update runs the
+  trial-sharded loop (``parallel.sharded.run_sharded``); a block's
+  insertion, a growth and the reconnection scan work on the gathered
+  tensors and split them again.
 * **Warm starts.** Each update resumes from the current state, numbers
   its iterations from the stream's running count (gate delays behave as
   in one long fit) and continues the stream's one ``torch.Generator``.
@@ -35,6 +41,8 @@ without it).
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -49,10 +57,6 @@ from .caviar import (CaviarState, _as, _reconnect_and_refit, _resolve_sweep,
                      seeded_generator)
 
 ALIGN = 4  # capacity granule: the cluster sweep's column quads
-
-
-def _ceil(n):
-    return -(-int(n) // ALIGN) * ALIGN
 
 
 def _insert_block(bufs, levels, y_blk, bucket_blk, active_blk, k0):
@@ -89,8 +93,9 @@ class OnlineCaviar:
     ``priors`` is the Model facade's prior dict (the reference defaults
     when omitted). ``powers`` should be the rig's stimulation levels;
     when omitted the level table comes from the first block, and a later
-    block with an unseen level raises. ``mesh=`` (a stream sharded over
-    devices) is ROADMAP item A9, not ported yet.
+    block with an unseen level raises. ``mesh`` shards the stream's
+    trials over a ``parallel.TrialMesh`` (``device`` is then the mesh's
+    first device; see the module docstring).
 
     Usage::
 
@@ -109,11 +114,16 @@ class OnlineCaviar:
                  analytic_mc=False, sweep_impl="auto",
                  sweep_block_size="auto", laplace_impl="auto",
                  update_order="random", mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (a stream sharded over GPUs) is ROADMAP item A9 and "
-                "not ported yet")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._granule = ALIGN
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            from ..parallel.sharded import _require_local
+
+            _require_local(mesh, "OnlineCaviar(mesh=)")
+            self.device = mesh.devices[0]
+            self._granule = math.lcm(ALIGN, mesh.n_local)
         self.dtype = torch_dtype(dtype)
         if self.device.type == "cuda" and self.dtype != torch.float32:
             raise NotImplementedError(
@@ -153,7 +163,7 @@ class OnlineCaviar:
         self.k = 0               # true trials seen
         self.it = 0              # CAVI iterations run
         self._n_reconnected = 0  # by the latest update's fn-scan
-        self._C = _ceil(max(int(capacity), ALIGN))
+        self._C = self._ceil(max(int(capacity), ALIGN))
         self._bufs = None        # (y, stim, mask) at capacity
         self._state = None       # CaviarState at capacity
 
@@ -164,6 +174,19 @@ class OnlineCaviar:
         self._levels_t = (None if levels_np is None else
                           _as(levels_np, self.dtype, self.device))
 
+    def _ceil(self, n):
+        return -(-int(n) // self._granule) * self._granule
+
+    def _full(self, a):
+        """A trial-axis tensor whole: a mesh's per-shard list gathered on
+        the first device."""
+        return self.mesh.gather(a) if isinstance(a, list) else a
+
+    def _part(self, a):
+        """A trial-axis tensor as kept between updates: split over the
+        mesh's shards, or whole without a mesh."""
+        return a if self.mesh is None else self.mesh.split(a)
+
     def _zeros(self, *shape):
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
@@ -171,12 +194,15 @@ class OnlineCaviar:
         """Grow the buffers (by doubling) to hold ``k_needed`` trials."""
         if k_needed <= self._C:
             return
-        new_c = _ceil(max(2 * self._C, k_needed))
+        new_c = self._ceil(max(2 * self._C, k_needed))
         if self._bufs is not None:
             pad = new_c - self._C
-            self._bufs = tuple(_grow(a, pad) for a in self._bufs)
+
+            def grow(a):
+                return self._part(_grow(self._full(a), pad))
+            self._bufs = tuple(grow(a) for a in self._bufs)
             self._state = self._state._replace(
-                lam=_grow(self._state.lam, pad), z=_grow(self._state.z, pad))
+                lam=grow(self._state.lam), z=grow(self._state.z))
         self._C = new_c
 
     # -- streaming API -----------------------------------------------------
@@ -242,17 +268,18 @@ class OnlineCaviar:
         bucket = torch.from_numpy(_bucketise_dense(stim_np, self._levels_np))
         self._ensure_capacity(self.k + kb)
         if self._bufs is None:
-            self._bufs = (self._zeros(self._C), self._zeros(self.N, self._C),
-                          self._zeros(self._C))
+            self._bufs = tuple(self._part(a) for a in (
+                self._zeros(self._C), self._zeros(self.N, self._C),
+                self._zeros(self._C)))
         traces = prepare_traces(psc, self.dtype, self.device,
                                 trace_wire=trace_wire)
         y_blk, active_blk = prepare_observations(traces,
                                                  self._y_xcorr_thresh)
         lam = (self._zeros(self.N, self._C) if self._state is None
-               else self._state.lam)
+               else self._full(self._state.lam))
         y, stim, mask, lam = _insert_block(
-            (*self._bufs, lam), self._levels_t, y_blk,
-            bucket.to(self.device), active_blk, self.k)
+            (*(self._full(b) for b in self._bufs), lam), self._levels_t,
+            y_blk, bucket.to(self.device), active_blk, self.k)
         if self._state is None:
             mu_p, beta_p, shape_p, rate_p, phi_p, phi_cov_p = self._priors
             state = CaviarState(mu_p, beta_p, lam, shape_p, rate_p,
@@ -260,14 +287,18 @@ class OnlineCaviar:
                                 phi_cov_p.expand(self.N, 2, 2),
                                 self._zeros(self._C), self._zeros())
         else:
-            state = self._state._replace(lam=lam)
+            state = self._state._replace(lam=lam, z=self._full(self._state.z))
         k_new = self.k + kb
         powers = self._levels_t[1:]
-        state = _run_caviar(
-            y, stim, None, mask, powers,
-            power_counts_of(stim, powers, self.dtype), self._priors,
-            [self._generator], iters=iters, start_iter=self.it,
-            init_state=state, k_true=k_new, **self._loop)[0]
+        if self.mesh is None:
+            state = _run_caviar(
+                y, stim, None, mask, powers,
+                power_counts_of(stim, powers, self.dtype), self._priors,
+                [self._generator], iters=iters, start_iter=self.it,
+                init_state=state, k_true=k_new, **self._loop)[0]
+        else:
+            state = self._run_sharded(y, stim, mask, powers, state, k_new,
+                                      iters)
         n_rec = self._n_reconnected
         if fn_scan:
             mu, beta, lam, z, phi, phi_cov, n_rec = self._reconnect(
@@ -275,16 +306,35 @@ class OnlineCaviar:
             state = state._replace(mu=mu, beta=beta, lam=lam, z=z, phi=phi,
                                    phi_cov=phi_cov)
         # commit: the fit and the scan succeeded, the block is in
-        self._bufs = (y, stim, mask)
-        self._state = state
+        self._bufs = tuple(self._part(a) for a in (y, stim, mask))
+        self._state = state._replace(lam=self._part(state.lam),
+                                     z=self._part(state.z))
         self.k = k_new
         self.it += iters
         self._n_reconnected = n_rec
         return self
 
+    def _run_sharded(self, y, stim, mask, powers, state, k_new, iters):
+        """``iters`` iterations of the trial-sharded loop from the whole
+        ``state``; returns the whole state."""
+        from ..parallel.sharded import run_sharded, shard_tensors
+
+        mesh = self.mesh
+        st = CaviarState(*(
+            mesh.split(v) if f in ("lam", "z") else mesh.replicate(v)
+            for f, v in state._asdict().items()))
+        st = run_sharded(
+            mesh, shard_tensors(mesh, y, stim, mask, k_new, powers),
+            tuple(mesh.replicate(p) for p in self._priors), self._generator,
+            iters=iters, start_iter=self.it, init_state=st, **self._loop)[0]
+        return CaviarState(*(mesh.gather(v) if f in ("lam", "z") else v[0]
+                             for f, v in st._asdict().items()))
+
     def _reconnect(self, state, stim, k):
+        state = state._replace(lam=self._full(state.lam),
+                               z=self._full(state.z))
         return _reconnect_and_refit(
-            stim, state.lam, state.mu, state.beta, state.z,
+            self._full(stim), state.lam, state.mu, state.beta, state.z,
             self._levels_t[1:], state.phi, state.phi_cov, self._priors[4],
             self._priors[5], self._msrmp, float(self._min_spike_count),
             total_trials=k)
@@ -316,8 +366,8 @@ class OnlineCaviar:
         is left as it was, so acquisition can go on after a readout."""
         self._require_state()
         s = self._state
-        mu, beta, lam, z, phi, phi_cov = (s.mu, s.beta, s.lam, s.z, s.phi,
-                                          s.phi_cov)
+        mu, beta, lam, z, phi, phi_cov = (s.mu, s.beta, self._full(s.lam),
+                                          self._full(s.z), s.phi, s.phi_cov)
         n_rec = 0
         if fn_scan:
             mu, beta, lam, z, phi, phi_cov, n_rec = self._reconnect(
@@ -344,12 +394,13 @@ class OnlineCaviar:
         where this one stopped (pass it the same fit options: they are
         configuration, not state)."""
         self._require_state()
-        y, stim, mask = self._bufs
+        y, stim, mask = (self._full(b) for b in self._bufs)
         save_state(path, {
             "k": np.asarray(self.k), "it": np.asarray(self.it),
             "levels": self._levels_np, "powers_host": self._powers_np,
             "y": y, "stim": stim, "mask": mask,
-            "state": self._state._asdict(),
+            "state": {f: self._full(v)
+                      for f, v in self._state._asdict().items()},
             GENERATOR_KEY: generator_state(self._generator)})
 
     @classmethod
@@ -369,10 +420,17 @@ class OnlineCaviar:
                          np.asarray(ck["levels"], np.float32))
         self.k = int(ck["k"])
         self.it = int(ck["it"])
-        self._C = int(ck["stim"].shape[1])
+        # a checkpoint's capacity may not divide this stream's mesh: grow
+        # to the alignment (inert columns)
+        c_ck = int(ck["stim"].shape[1])
+        self._C = self._ceil(c_ck)
         dt, dev = self.dtype, self.device
-        self._bufs = tuple(_as(ck[f], dt, dev) for f in ("y", "stim", "mask"))
+
+        def load(a):
+            return self._part(_grow(_as(a, dt, dev), self._C - c_ck))
+        self._bufs = tuple(load(ck[f]) for f in ("y", "stim", "mask"))
         st = ck["state"]
-        self._state = CaviarState(**{f: _as(st[f], dt, dev)
-                                     for f in CaviarState._fields})
+        self._state = CaviarState(**{
+            f: load(st[f]) if f in ("lam", "z") else _as(st[f], dt, dev)
+            for f in CaviarState._fields})
         return self

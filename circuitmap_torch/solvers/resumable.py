@@ -28,14 +28,18 @@ from .caviar import (CaviarState, _as, _reconnect_and_refit, _resolve_sweep,
                      _run_caviar, power_counts_of, seeded_generator)
 
 
+def _check_shape(ck, N, K):
+    lam_shape = np.shape(ck["lam"])
+    if lam_shape != (N, K):
+        raise ValueError(
+            f"checkpoint holds a fit of {lam_shape[0]} neurons over "
+            f"{lam_shape[1]} trials; this fit has N={N}, K={K}")
+
+
 def _state_from_checkpoint(ck, dtype, device, N, K):
     """The CaviarState of a checkpoint's arrays, checked against the
     fit's N and K."""
-    lam = np.asarray(ck["lam"])
-    if lam.shape != (N, K):
-        raise ValueError(
-            f"checkpoint holds a fit of {lam.shape[0]} neurons over "
-            f"{lam.shape[1]} trials; this fit has N={N}, K={K}")
+    _check_shape(ck, N, K)
     return CaviarState(**{f: _as(ck[f], dtype, device)
                           for f in CaviarState._fields})
 
@@ -64,22 +68,38 @@ def caviar_resumable(
     and the eight histories None: histories are not kept across
     segments).
 
-    ``mesh=`` (the trial-sharded multi-device fit) is ROADMAP item A9,
-    not ported yet.
+    With ``mesh`` (a ``parallel.TrialMesh``) the segments run the
+    trial-sharded fit (``parallel.caviar_sharded``'s loop and schedule;
+    ``device`` is then not used); the checkpoint holds the gathered
+    state at the true trial count, so a fit may resume on another mesh.
     """
     if int(checkpoint_every) < 1:
         raise ValueError(
             f"checkpoint_every must be >= 1, got {checkpoint_every}")
     if int(iters) < 1:
         raise ValueError(f"iters must be >= 1, got {iters}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the trial-sharded resumable fit) is ROADMAP item A9 and "
-            "not ported yet")
     # np.savez appends .npz; normalise so that the resume finds the file
     checkpoint_path = str(checkpoint_path)
     if not checkpoint_path.endswith(".npz"):
         checkpoint_path += ".npz"
+    if mesh is not None:
+        return _caviar_resumable_sharded(
+            y_psc, stim, (mu_prior, beta_prior, shape_prior, rate_prior,
+                          phi_prior, phi_cov_prior), checkpoint_path, mesh,
+            iters=int(iters), checkpoint_every=int(checkpoint_every),
+            seed=seed, y_xcorr_thresh=y_xcorr_thresh, fn_scan=fn_scan,
+            dtype=dtype, powers=powers, sweep_impl=sweep_impl,
+            sweep_block_size=sweep_block_size, laplace_impl=laplace_impl,
+            trace_wire=trace_wire, verbose=verbose,
+            loop=dict(num_mc_samples=int(num_mc_samples),
+                      minimum_spike_count=int(minimum_spike_count),
+                      delay_spont_est=int(delay_spont_est),
+                      msrmp=float(msrmp), scale_factor=float(scale_factor),
+                      penalty=float(penalty),
+                      max_backtrack_iters=int(max_backtrack_iters),
+                      tol=float(tol),
+                      spont_orthogonality=float(spont_orthogonality),
+                      analytic_mc=bool(analytic_mc)))
     dev = resolve_device(device)
     dtype = torch_dtype(dtype)
     if dev.type == "cuda" and dtype != torch.float32:
@@ -142,3 +162,58 @@ def caviar_resumable(
             print(f"Reconnected {n_rec} neurons previously attributed to "
                   "spontaneous activity.")
     return (mu, beta, lam, shape, rate, phi, phi_cov, z, None, *[None] * 8)
+
+
+def _caviar_resumable_sharded(y_psc, stim, priors, checkpoint_path, mesh, *,
+                              iters, checkpoint_every, seed, y_xcorr_thresh,
+                              fn_scan, dtype, powers, sweep_impl,
+                              sweep_block_size, laplace_impl, trace_wire,
+                              verbose, loop):
+    """The segmented fit over a trial mesh: each segment runs
+    ``parallel.sharded.run_sharded`` with global iteration numbers and
+    the one generator; after it the gathered state, trimmed to the true
+    K, and the generator state go to the checkpoint. A resume re-pads
+    the checkpoint's trials for this mesh."""
+    from ..parallel.distributed import state_from_host
+    from ..parallel.sharded import (_fit_dtype, _hyper, _lam0, _prep,
+                                    _require_local, _trim, finish,
+                                    run_sharded)
+
+    _require_local(mesh, "caviar_resumable(mesh=)")
+    dtype = _fit_dtype(mesh, dtype)
+    block = _resolve_sweep(sweep_impl, sweep_block_size, mesh.devices[0])
+    resolve_laplace_impl(laplace_impl)
+    d, K = _prep(y_psc, stim, mesh, dtype, y_xcorr_thresh, powers=powers,
+                 trace_wire=trace_wire, what="caviar_resumable()")
+    width = d.valid[0].shape[0] * mesh.n_local
+    hyper = _hyper(mesh, dtype, *priors)
+    generator = seeded_generator(seed, mesh.devices[0])
+    start, state = 0, None
+    if os.path.exists(checkpoint_path):
+        ck = load_state(checkpoint_path)
+        restore_generator(generator, ck.get(GENERATOR_KEY), checkpoint_path)
+        start = int(ck["completed_iters"])
+        _check_shape(ck, d.stim[0].shape[0], K)
+        state = state_from_host(mesh, ck, slice(0, K), width, dtype)
+        if verbose:
+            print(f"Resuming sharded CAVIaR from iteration {start} "
+                  f"({checkpoint_path}).")
+    lam0 = _lam0(mesh, d, 0.95)
+    while start < iters:
+        seg = min(checkpoint_every, iters - start)
+        state = run_sharded(mesh, d, hyper, generator, lam0, iters=seg,
+                            start_iter=start, init_state=state,
+                            sweep_block_size=block, **loop)[0]
+        start += seg
+        host = {f: v[0] for f, v in state._asdict().items()}
+        host.update(lam=_trim(mesh, state.lam, K), z=_trim(mesh, state.z, K))
+        save_state(checkpoint_path, {
+            **host, GENERATOR_KEY: generator_state(generator),
+            "completed_iters": np.asarray(start)})
+        if verbose:
+            print(f"checkpointed after iteration {start}/{iters}")
+    mu, beta, lam, z, phi, phi_cov = finish(
+        mesh, state, d, K, hyper, fn_scan, loop["msrmp"],
+        loop["minimum_spike_count"], verbose)
+    return (mu, beta, lam, state.shape[0], state.rate[0], phi, phi_cov, z,
+            None, *[None] * 8)

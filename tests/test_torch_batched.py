@@ -229,8 +229,13 @@ def test_option_validation(sims):
     args = (*_stack(sims), *PRIORS)
     with pytest.raises(ValueError, match="compile_mode"):
         caviar_many(*args, compile_mode="bogus", **CPU)
-    with pytest.raises(NotImplementedError, match="A9"):
+    from circuitmap_torch.parallel import trial_mesh
+
+    with pytest.raises(TypeError, match="TrialMesh"):
         caviar_many(*args, mesh=object(), **CPU)
+    with pytest.raises(ValueError, match="sequential.*no mesh path"):
+        caviar_many(*args, mesh=trial_mesh(devices=["cpu"] * 2),
+                    compile_mode="sequential", **CPU)
     with pytest.raises(ValueError, match="auto.*cuda"):
         caviar_many(*args, laplace_impl="pallas", **CPU)
     stims = _stack(sims)[1].copy()

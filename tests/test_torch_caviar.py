@@ -286,10 +286,28 @@ def test_model_fit_runs_every_method_as_the_jax_facade(method):
 
 @pytest.mark.parametrize("method", METHODS)
 def test_mesh_waits_for_a9_for_every_method(method):
+    """Since A9 every method but CoSaMP fits over a trial mesh (its
+    sharded solver, the single fit's state layout); CoSaMP raises the
+    JAX facade's error."""
+    from circuitmap_torch.parallel import trial_mesh
+
     N, psc, stim = _tiny()
-    with pytest.raises(NotImplementedError, match="A9"):
-        Model(N).fit(psc, stim, method=method, device="cpu",
-                     fit_options={"mesh": object()})
+    mesh = trial_mesh(devices=["cpu"] * 2)
+    if method == "cosamp":
+        with pytest.raises(ValueError, match="no mesh path"):
+            Model(N).fit(psc, stim, method=method, device="cpu",
+                         fit_options={"mesh": mesh})
+        return
+    opts = {"iters": 2, "verbose": False}
+    sharded = Model(N).fit(psc, stim, method=method,
+                           fit_options={**opts, "mesh": mesh})
+    single = Model(N).fit(psc, stim, method=method, device="cpu",
+                          fit_options=opts)
+    assert sharded.state.keys() == single.state.keys()
+    assert sharded.history.keys() == single.history.keys()
+    for key, want in single.state.items():
+        assert np.shape(sharded.state[key]) == np.shape(want), key
+    assert sharded.trial_count == stim.shape[1]
 
 
 def test_unknown_method_raises():
@@ -299,7 +317,7 @@ def test_unknown_method_raises():
 
 
 @pytest.mark.parametrize("opts,exc,match", [
-    ({"mesh": object()}, NotImplementedError, "A9"),
+    ({"mesh": object()}, TypeError, "TrialMesh"),
     ({"sweep_impl": "pallas_interpret"}, ValueError, "auto.*cuda"),
     ({"laplace_impl": "pallas_interpret"}, ValueError, "auto.*cuda"),
     ({"sweep_impl": "pallas"}, ValueError, "auto.*cuda"),

@@ -179,9 +179,9 @@ def test_help_unknown_command_and_mesh(capsys):
     listing = capsys.readouterr().out
     assert "serve" in listing and "fit" in listing
     assert cli_main.main(["nope"]) == 2
-    with pytest.raises(NotImplementedError, match="A9"):
-        cli_main.main(["serve", "--device", "cpu", "--port", "0",
-                       "--mesh", "2"])
+    meshed = json.loads(ts.FitService(mesh_devices=2,
+                                      device="cpu").do_health()[1])
+    assert meshed["mesh_devices"] == 2  # what `serve --mesh 2` builds
     with pytest.raises(SystemExit):
         cli_main.main(["serve", "--warm", "1000-20000"])
     health = json.loads(ts.FitService(device="cpu").do_health()[1])

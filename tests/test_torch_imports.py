@@ -21,15 +21,18 @@ FORBIDDEN = ("jax", "jaxlib", "circuitmap_tpu")
 PORT_FILES = sorted((REPO / "circuitmap_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
 # the modules of the streaming, resumable and closed-loop slice, of
-# the training, continuous-simulation and analysis slice and of the
-# serving slice, which must be among the files scanned
+# the training, continuous-simulation and analysis slice, of the
+# serving slice and of the multi-device slice, which must be among the
+# files scanned
 SLICE_MODULES = ("utils/checkpoint.py", "solvers/resumable.py",
                  "solvers/online.py", "design.py", "summary.py",
                  "pipelines.py", "viz.py", "simulation.py",
                  "demix/unet.py", "demix/datagen.py", "demix/demixer.py",
                  "demix/convert.py", "demix/stacked.py",
                  "demix/template_fit.py", "serve.py", "__main__.py",
-                 "utils/io.py", "utils/synthetic.py", "utils/quant.py")
+                 "utils/io.py", "utils/synthetic.py", "utils/quant.py",
+                 "parallel/mesh.py", "parallel/sharded.py",
+                 "parallel/distributed.py", "parallel/sweep.py")
 
 
 def _imported_roots(path):
@@ -159,6 +162,18 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pipelines.merge_duplicate_connections(psc, stim, state,
                                               np.zeros((4, 3)))
+
+
+def test_the_mesh_refuses_to_fall_back_to_the_cpu(no_cuda):
+    """A mesh without ``devices=`` is over the GPUs, and a process group
+    without ``device=`` is a CUDA rank's: both raise without one."""
+    from circuitmap_torch import parallel
+
+    for call in (parallel.trial_mesh, lambda: parallel.trial_mesh(2),
+                 lambda: parallel.initialize_distributed(
+                     "tcp://localhost:1", world_size=1, rank=0)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_the_fit_server_refuses_to_fall_back_to_the_cpu(no_cuda):

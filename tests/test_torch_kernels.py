@@ -558,3 +558,42 @@ def test_demixer_is_deterministic_on_the_card(cuda):
     again = NeuralDemixer(ck, device=cuda)(
         body, keep_on_device=True, transfer_dtype="int4d2", verbose=False)
     assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+def test_two_shard_mesh_on_one_card_matches_the_unsharded_fit(cuda):
+    """A trial mesh of two shards on one card (the counterpart of JAX's
+    virtual mesh) fits N=200, K=2,000 to the unsharded fit's gate
+    pattern at the card's default 8 rows a block (the same random
+    stream and schedule; the kernel's sums against the shards' plain
+    ones, reassociated). The Laplace kernel launches once an
+    iteration per distinct device; the sweep kernels not at all (the
+    sharded sweep is plain PyTorch, its gate needs the global sums)."""
+    from circuitmap_torch import default_priors, simulate
+    from circuitmap_torch.parallel import caviar_sharded, trial_mesh
+    from circuitmap_torch.solvers.caviar import caviar
+
+    np.random.seed(2)
+    sim = simulate(N=200, trials=2000, H=10, connection_prob=0.1,
+                   verbose=False, device="cpu")
+    p = default_priors(200)
+    args = (sim["psc"], sim["stim_matrix"], p["mu"], p["beta"], p["shape"],
+            p["rate"], p["phi"], p["phi_cov"])
+    kw = dict(iters=10, seed=0, analytic_mc=True, fn_scan=False,
+              verbose=False, sweep_block_size=8)
+    single = caviar(*args, device=cuda, **kw)
+    for fn in (laplace_cuda.laplace_from_stats, sweep_cuda.sweep_spikes_blocked,
+               sweep_row_cuda.sweep_spikes_row):
+        fn.launches = 0
+    mesh = trial_mesh(devices=[cuda, cuda])
+    sharded = caviar_sharded(*args, mesh=mesh, **kw)
+    assert laplace_cuda.laplace_from_stats.launches == 10
+    assert sweep_cuda.sweep_spikes_blocked.launches == 0
+    assert sweep_row_cuda.sweep_spikes_row.launches == 0
+    # one psum a block of 8 rows from iteration 2 on (the gate is off,
+    # and the sweep psums nothing, up to delay_spont_est=1), besides the
+    # other updates' psums
+    assert mesh.psums >= (10 - 2) * 25
+    assert torch.equal(single[0] != 0, sharded[0] != 0)
+    np.testing.assert_allclose(sharded[0].cpu().numpy(),
+                               single[0].cpu().numpy(), rtol=2e-3, atol=2e-3)

@@ -192,7 +192,12 @@ def test_ragged_guards(ragged):
 
 
 def test_same_shape_stack_mesh_and_mode_rejected(stack):
-    with pytest.raises(NotImplementedError, match="A9"):
+    from circuitmap_torch.parallel import trial_mesh
+
+    with pytest.raises(TypeError, match="TrialMesh"):
         sns_many(*stack, *SNS_PRIORS, mesh=object(), **PORT)
+    with pytest.raises(ValueError, match="sequential.*no mesh path"):
+        mbcs_many(*stack, *MBCS_PRIORS, compile_mode="sequential",
+                  mesh=trial_mesh(devices=["cpu"] * 2), **PORT)
     with pytest.raises(ValueError, match="compile_mode"):
         mbcs_many(*stack, *MBCS_PRIORS, compile_mode="vmap", **PORT)

@@ -224,5 +224,7 @@ def test_empty_zero_and_shape_mismatch_errors(sim):
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="A9"):
+    """A mesh must be a TrialMesh of this process (a stream over a
+    process group has no per-process feeding contract)."""
+    with pytest.raises(TypeError, match="TrialMesh"):
         OnlineCaviar(N, mesh=object(), **PORT)

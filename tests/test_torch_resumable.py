@@ -112,7 +112,7 @@ def test_bad_segmenting_and_mesh_rejected(sim, tmp_path):
                          **PORT)
     with pytest.raises(ValueError, match="iters"):
         caviar_resumable(*_args(sim), path, iters=0, **PORT)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="TrialMesh"):
         caviar_resumable(*_args(sim), path, iters=4, mesh=object(), **PORT)
     assert not os.listdir(tmp_path)
 

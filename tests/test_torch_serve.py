@@ -502,10 +502,15 @@ def test_sharded_requests_get_the_unmeshed_400(svc, sim):
 
 
 def test_a_mesh_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A9"):
-        ts.FitService(mesh_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        ts.run_server(port=0, mesh_devices=2, device="cpu")
+    """Since A9 a server takes a mesh: N shards on the named device, or
+    the first N GPUs, which without one raises the device rule's
+    error."""
+    svc = ts.FitService(mesh_devices=2, device="cpu")
+    assert json.loads(svc.do_health()[1])["mesh_devices"] == 2
+    assert svc.mesh.devices == (torch.device("cpu"),) * 2
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ts.FitService(mesh_devices=2)
 
 
 def test_stream_creation_rules(svc, sim):
