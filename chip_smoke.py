@@ -75,7 +75,18 @@ name its two uses.
   ``caviar_resumable(mesh=)`` stopped and resumed;
   ``OnlineCaviar(mesh=)`` over phase 19's stream; the demixer over the
   mesh and a ``FitService(mesh_devices=2)`` ``/fit``. NCCL and more
-  than one card are not exercised.
+  than one card are not exercised;
+* the workflow commands of ``python -m circuitmap_torch`` (phase 28,
+  ``phase_workflows``) at the main map's width, each through its
+  ``main(argv)`` in process and held against its in-process
+  counterpart: ``loho-cv``, ``fanout-jobs`` (the emitted bash script
+  run over the same 2 folds, each a ``loho-cv --fold I`` worker in a
+  subprocess), ``pipeline-1v10`` (its fits and export),
+  ``distributed-fit`` (two gloo processes on cuda:0),
+  ``train-qat-demixer`` and ``export-ckpt``, ``denoise-grids``,
+  ``simulations``, ``downsampling``, ``signal-fidelity`` and
+  ``design-study``. ``continuous`` (YAML) and ``pipeline-1v10``'s figure
+  (matplotlib) are left to the CPU tests.
 
 The sweep is held against its plain version at both schedules at
 N=1000/K=20000 and N=200/K=100000, at one row a step at N=16/K=300000
@@ -1179,13 +1190,16 @@ def phase_solver_mappings():
     return out
 
 
-# cut for the call's time when phases 22-25 came (PERF.md §4): the SnS
-# float64 witness (was 50 iterations), the profiled SnS fit (was 10; ~16,000
-# launches an iteration, and the profiler takes ~1 ms of host time per
-# device operation to process) and the SnS parts of sns_many (was 10)
-WITNESS_ITERS = 20
+# cut for the call's time (PERF.md §4): the SnS float64 witness (was 50
+# iterations, then 20; 5 by choice: it holds B3 against the float64 plain
+# sweep on the first 5 sweep inputs of the fit, ~1.4 s of the call an
+# iteration), the profiled SnS fit
+# (was 10; ~16,000 launches an iteration, and the profiler takes ~1 ms of
+# host time per device operation to process) and the SnS parts of
+# sns_many (was 10, then 5; 3 since phase 28 came)
+SNS_WITNESS_ITERS = 5
 SNS_PROFILE_ITERS = 2
-SNS_MANY_ITERS = 5
+SNS_MANY_ITERS = 3
 
 
 def phase_sns(sim, dem):
@@ -1193,11 +1207,11 @@ def phase_sns(sim, dem):
     100 Monte Carlo samples), 50 iterations without histories, warmed up
     by a 2-iteration fit under the profiler: B3 and B2 once an
     iteration each; truth-R2 of mu*alpha and of mu. Then the float64
-    witness: the same fit, cut to its first 20 iterations for the call's
-    time, with the lam sweep swapped for its plain version in float64, on
-    the same card and random streams (the sweep draws none), and on each
-    of its 20 sweeps the kernel held against that plain version on the same
-    inputs: at most 0.5% of the gate decisions may differ, and a sweep
+    witness: the same fit, cut to its first SNS_WITNESS_ITERS (5)
+    iterations for the call's time, with the lam sweep swapped for its
+    plain version in float64, on the same card and random streams (the
+    sweep draws none), and on each of its sweeps the kernel held against
+    that plain version on the same inputs: at most 0.5% of the gate decisions may differ, and a sweep
     with none differing must agree to 1e-4. The two fits' truth-R2 are
     printed, not compared: the SnS gate is absorbing (a row it zeroes
     stays zero), so one decision at the spike-count threshold that falls
@@ -1256,14 +1270,14 @@ def phase_sns(sim, dem):
 
     sns_mod.sweep_spikes_row = plain64
     try:
-        witness, wit_s = timed(lambda: fit(iters=WITNESS_ITERS,
+        witness, wit_s = timed(lambda: fit(iters=SNS_WITNESS_ITERS,
                                            save_histories=False))
     finally:
         sns_mod.sweep_spikes_row = kernel_sweep
     r2_wit = r2_score(w, witness.state["mu"] * witness.state["alpha"])
     flips = [h[0] for h in held]
     clean = [h[1] for h in held if h[0] == 0]
-    log(f"float64 plain lam sweep, {WITNESS_ITERS} iterations ({wit_s:.1f} "
+    log(f"float64 plain lam sweep, {SNS_WITNESS_ITERS} iterations ({wit_s:.1f} "
         f"s): truth-R2 of mu*alpha "
         f"{r2_wit:.4f} (kernel fit {r2_w:.4f}), of mu "
         f"{r2_score(w, witness.state['mu']):.4f}")
@@ -1272,7 +1286,7 @@ def phase_sns(sim, dem):
         f"plain| in the {len(clean)} sweeps with none differing "
         f"{max(clean, default=0.0):.3e}; rows gated off in the last sweep "
         f"{held[-1][2]}")
-    if len(held) != WITNESS_ITERS or max(flips) > 0.005 * N:
+    if len(held) != SNS_WITNESS_ITERS or max(flips) > 0.005 * N:
         raise AssertionError(f"SnS: the kernel's gate decisions differ from "
                              f"the float64 plain sweep's beyond 0.5%: {flips}")
     if max(clean, default=0.0) > 1e-4:
@@ -2243,13 +2257,11 @@ def served_stream(served, host, stim, name, lo, hi, create=None):
 def start_cli_server(state_dir):
     """``python -m circuitmap_torch serve --port 0 --state-dir`` (CUDA);
     returns (Popen, FitClient, SERVING line)."""
-    import os
     import select
 
     from circuitmap_torch import serve as ts
 
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(HERE) + os.pathsep + env.get("PYTHONPATH", "")
+    env = cli_env()
     err = open(Path(state_dir) / "server_stderr.log", "a")
     proc = subprocess.Popen(
         [sys.executable, "-m", "circuitmap_torch", "serve", "--port", "0",
@@ -2526,7 +2538,9 @@ def phase_serve(sim, dem, main_e2e_s, stream_steady_ms):
 
 # phase 27: the multi-device layer (trial-sharded and multi-process fits,
 # the mesh= entry points) on one card
-WITNESS_ITERS = 5  # the float64 witnesses' depth (on CPU shards)
+WITNESS_ITERS = 3  # phase 27's float64 witnesses' depth (on CPU shards)
+GLOO_ITERS = 20    # phase 27 (b)'s fit in two gloo processes
+MESH_STREAM_BLOCKS = 5  # phase 27 (d)'s stream: the first 5 of phase 19's blocks
 MESH_OPTS = {"iters": 50, "msrmp": 0.3, "powers": list(POWERS),
              "verbose": False, "sweep_block_size": 8}
 WITNESS = dict(iters=WITNESS_ITERS, update_order="identity",
@@ -2567,7 +2581,8 @@ def gloo_worker(rank, port, tmp, card):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = parallel.caviar_sharded_distributed(
-        data["psc"], data["stim"], *priors, mesh=mesh, **MESH_OPTS)
+        data["psc"], data["stim"], *priors, mesh=mesh,
+        **dict(MESH_OPTS, iters=GLOO_ITERS))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rec = dict(wall_s=wall, all_reduces=mesh.all_reduces,
@@ -2673,15 +2688,17 @@ def phase_mesh(sim, dem, main, online_steady_ms):
     the same fit over the trials in another order, ``witness_floor``).
     (b) two processes on cuda:0
     joined by gloo, uneven halves (10,001 and 9,999 trials): the float32
-    fit against (a)'s mesh fit without the reconnection scan (gate
+    fit (GLOO_ITERS iterations) against (a)'s mesh fit at as many
+    iterations without the reconnection scan (gate
     pattern, mu within 2e-3), their all-reduces, and the float64 witness
     (CPU shards) to (a)'s bound. (c) ``caviar_many`` (batched, block 1) and
     ``sns_many`` on phase 10's 4 folds over the two shards against their
     unsharded batched fits: the same gates, 1e-5 (float32 sums grouped
     by the stack's size). (d) ``caviar_resumable(mesh=)`` in
     segments of 10, resumed from 20, against the straight sharded fit
-    bit for bit; ``OnlineCaviar(mesh=)`` over phase 19's 10 blocks with
-    the per-block latency, against the unsharded stream. (e) the
+    bit for bit; ``OnlineCaviar(mesh=)`` over the first
+    MESH_STREAM_BLOCKS of phase 19's blocks with the per-block latency,
+    against the unsharded stream over the same blocks. (e) the
     demixer's meshed call against its unsharded call (1e-6) and a
     ``FitService(mesh_devices=2, device="cuda:0")`` served ``/fit``
     against (a)."""
@@ -2760,7 +2777,8 @@ def phase_mesh(sim, dem, main, online_steady_ms):
 
     # (b) two processes on the card under gloo
     nosc, _ = timed(lambda: caviar_sharded(
-        *caviar_args(dem, sim), mesh=mesh, fn_scan=False, **MESH_OPTS))
+        *caviar_args(dem, sim), mesh=mesh, fn_scan=False,
+        **dict(MESH_OPTS, iters=GLOO_ITERS)))
     (r0, r1), res = run_gloo_pair(sim, dem)
     got = {f: res[f"f32_{f}"] for f in FIT_FIELDS}
     gate_check(got["mu"], nosc[0], "(b) 2 gloo processes vs (a)'s mesh fit")
@@ -2768,7 +2786,8 @@ def phase_mesh(sim, dem, main, online_steady_ms):
     wit = {f: res[f"f64_{f}"] for f in FIT_FIELDS}
     d_b64 = max_rel_diff(wit, single64, ("mu", "lam", "phi"))
     log(f"(b) ranks' fit {r0['wall_s']:.3f} / {r1['wall_s']:.3f} s; "
-        f"all-reduces {r0['all_reduces']} ({r0['all_reduces'] / 50:.1f} an "
+        f"all-reduces {r0['all_reduces']} "
+        f"({r0['all_reduces'] / GLOO_ITERS:.1f} an "
         f"iteration), {r0['all_reduce_s']:.3f} / {r1['all_reduce_s']:.3f} s "
         f"in them ({r0['all_reduce_s'] / r0['all_reduces'] * 1e6:.1f} us "
         f"each on rank 0); B2 launches {r0['laplace_launches']} / "
@@ -2838,7 +2857,7 @@ def phase_mesh(sim, dem, main, online_steady_ms):
                              "one bit for bit")
 
     host = dem.cpu().numpy()
-    edges = [b * STREAM_TRIALS for b in range(STREAM_BLOCKS + 1)]
+    edges = [b * STREAM_TRIALS for b in range(MESH_STREAM_BLOCKS + 1)]
     okw = dict(powers=list(POWERS), update_order="identity",
                analytic_mc=True, device=CARD)
 
@@ -2857,7 +2876,8 @@ def phase_mesh(sim, dem, main, online_steady_ms):
     paths["online_mesh"] = kernel_launches(read_counts())
     d_stream = max_rel_diff(meshed, plain, FIT_FIELDS)
     steady = statistics.median(times[3:])
-    log(f"(d) OnlineCaviar(mesh=) over phase 19's 10 blocks (identity "
+    log(f"(d) OnlineCaviar(mesh=) over the first {MESH_STREAM_BLOCKS} of "
+        f"phase 19's blocks (identity "
         f"order, exact means): update ms per block "
         + ", ".join(f"{t:.1f}" for t in times)
         + f"; steady median {steady:.1f} ms against phase 19's unsharded "
@@ -2892,6 +2912,769 @@ def phase_mesh(sim, dem, main, online_steady_ms):
                              f", {d_srv:.3e}")
     rec["e"] = dict(demix_s=dm_s, demix_rel_diff=d_dm, served_s=srv_s,
                     served_rel_diff=d_srv)
+    return paths, rec
+
+
+# -- phase 28: the workflow commands ------------------------------------
+
+WF_FIELDS = ("mu", "beta", "lam", "phi")  # a command's posterior, held
+WF_RTOL = 1e-6
+GRID_SIDE = (25, 20)     # phase 28's grid: 2 planes of 25 x 20 locations
+MIN_SPIKES = 3           # caviar's minimum_spike_count: the gate's floor
+FANOUT_JOBS = 2
+
+
+def cli_command(name, argv):
+    """``python -m circuitmap_torch <name> argv`` in this process (what
+    it prints is kept aside). Returns (printed text, seconds, launches
+    per kernel from 0)."""
+    import contextlib
+    import io
+
+    import torch
+    from circuitmap_torch.__main__ import main as cli
+
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli([name, *map(str, argv)])
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = kernel_launches(read_counts())
+    if rc != 0:
+        raise AssertionError(f"{name} exited {rc}: {buf.getvalue()[-2000:]}")
+    return buf.getvalue(), secs, launches
+
+
+def cli_env():
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(HERE) + os.pathsep + env.get("PYTHONPATH", "")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    return env
+
+
+def hold_fit_launches(launches, what, fits, iters, sns_fits=0):
+    """``fits`` CAVIaR fits of ``iters`` iterations at 8 rows a step
+    (B1 once an iteration, B2 once an iteration and once more when the
+    reconnection scan refits) and ``sns_fits`` CAVI-SnS fits (B3 and B2
+    once an iteration)."""
+    b1, b2, b3 = (launches[k] for k in ("sweep_blocked", "laplace",
+                                        "sweep_row"))
+    lo = (fits + sns_fits) * iters
+    require_launches(
+        b1 == fits * iters and b3 == sns_fits * iters and
+        lo <= b2 <= lo + fits, what, launches,
+        f"B1 {fits * iters}, B3 {sns_fits * iters}, B2 {lo}..{lo + fits}")
+
+
+def require_launches(ok, what, launches, expected):
+    if not ok:
+        raise AssertionError(f"{what}: launches {launches}, expected "
+                             f"{expected}")
+
+
+def hold_equal(got, want, what, fields=WF_FIELDS):
+    """A command's posterior against its in-process counterpart's, and
+    no NaN in it."""
+    for f in fields:
+        if np.isnan(np.asarray(got[f], np.float64)).any():
+            raise AssertionError(f"{what}: {f} holds a NaN")
+    d = max_rel_diff(got, want, fields)
+    same = all(np.array_equal(np.asarray(got[f]), np.asarray(want[f]))
+               for f in fields)
+    if d > WF_RTOL:
+        raise AssertionError(f"{what}: {d:.3e} from its in-process "
+                             f"counterpart (> {WF_RTOL})")
+    return d, same
+
+
+def hold_r2(weights, mu, what, floor=0.98):
+    from circuitmap_torch.utils.metrics import r2_score
+
+    r2 = r2_score(weights, mu)
+    if floor is not None and r2 < floor:
+        raise AssertionError(f"{what}: truth-R2 {r2:.4f} < {floor}")
+    return r2
+
+
+def save_expt(path, psc, stim, key="stimulus_matrix"):
+    np.savez(path, psc=np.asarray(psc, np.float32),
+             **{key: np.asarray(stim, np.float32)})
+
+
+LOHO_OPTS = {"iters": 50, "msrmp": 0.3, "save_histories": False,
+             "verbose": False}  # loho-cv's fit at its defaults
+
+
+def loho_mse(state, psc_test, stim_test):
+    """The held-out charges' MSE under a fold's fit, as the JAX script
+    computes it (scripts_tpu/run_loho_cv.py:68-82)."""
+    mu, phi = state["mu"], state["phi"]
+    drive = phi[:, 0:1] * stim_test - phi[:, 1:2]
+    y_hat = mu @ (1.0 / (1.0 + np.exp(-drive)) * (stim_test > 0))
+    return float(np.mean((np.trapezoid(psc_test, axis=-1) - y_hat) ** 2))
+
+
+def wf_loho(tmp, rec, paths):
+    """loho-cv (2 folds in process) and fanout-jobs (bash, its script cut
+    to the same 2 folds: each fold a ``python -m circuitmap_torch loho-cv
+    --fold I`` worker in a subprocess) on an experiment whose holograms
+    repeat twice."""
+    from circuitmap_torch import Model, NeuralDemixer, simulate
+    from circuitmap_torch.parallel.sweep import loho_folds
+    from circuitmap_torch.simulation import blockwise_design
+
+    np.random.seed(1)
+    stim = blockwise_design(N, H, K, POWERS, nreps=2)
+    lsim = simulate(N=N, trials=K, H=H, connection_prob=0.05,
+                    stim_matrix=stim, batch_size=1000, verbose=False)
+    data = f"{tmp}/loho.npz"
+    save_expt(data, lsim["psc"], stim)
+    folds = list(loho_folds(np.asarray(stim, np.float32).astype(float)))
+    common = ["--data", data, "--demixer", CHECKPOINT]
+    out, secs, launches = cli_command(
+        "loho-cv", common + ["--max_folds", 2, "--out", f"{tmp}/cv.json"])
+    paths["cmd_loho_cv"] = launches
+    hold_fit_launches(launches, "loho-cv", fits=2, iters=50)
+    sweep = json.load(open(f"{tmp}/cv.json"))
+    # each fold in process: the library's demix and fit of the same trials
+    psc = np.load(data)["psc"].astype(float)
+    dem = NeuralDemixer(str(CHECKPOINT))(psc, verbose=False)
+    for (holo, train, test), got in zip(folds, sweep):
+        model = Model(N).fit(dem[train], stim[:, train] * 1.0,
+                             fit_options=LOHO_OPTS)
+        mse = loho_mse(model.state, dem[test], stim[:, test])
+        if got["hologram"] != holo or abs(got["held_out_mse"] - mse) > \
+                WF_RTOL * abs(mse) or got["n_connections"] != int(
+                    (model.state["mu"] != 0).sum()):
+            raise AssertionError(f"loho-cv fold {holo} {got} is not the "
+                                 f"in-process fit's (mse {mse})")
+    log(f"loho-cv --max_folds 2 in process: {secs:.3f} s (load, int4d2-"
+        f"checkpoint demix of {K} traces on the f32 wire, 2 fits); "
+        f"launches {launches}; {len(folds)} folds in all; records "
+        f"{[(r['hologram'], r['test_trials'], round(r['held_out_mse'], 6)) for r in sweep]};"
+        f" each equal to the in-process fit's held-out MSE and connections")
+    fout, fsecs, flaunch = cli_command(
+        "fanout-jobs", common + ["--backend", "bash", "--out",
+                                 f"{tmp}/fan.json", "--out-dir",
+                                 f"{tmp}/jobs", "--jobs", FANOUT_JOBS])
+    script = Path(f"{tmp}/jobs/run_loho_cv_fanout.sh")
+    text = script.read_text()
+    head = f"seq 0 {len(folds) - 1} |"
+    if head not in text or "-m circuitmap_torch loho-cv" not in text:
+        raise AssertionError(f"unexpected fan-out script:\n{text}")
+    # the emitted script over the same 2 folds as the in-process sweep
+    cut = Path(f"{tmp}/jobs/first_2_folds.sh")
+    cut.write_text(text.replace(head, "seq 0 1 |"))
+    t0 = time.time()
+    proc = subprocess.run(["bash", str(cut)], cwd=tmp, env=cli_env(),
+                          capture_output=True, text=True, timeout=300)
+    bsecs = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"fan-out script failed: {proc.stderr[-3000:]}")
+    fanned = [json.load(open(f"{tmp}/fan.json.fold_{i}.json"))
+              for i in range(2)]
+    if [len(f) for f in fanned] != [1, 1]:
+        raise AssertionError(f"a --fold worker writes one record: {fanned}")
+    hold_records([f[0] for f in fanned], sweep, "fan-out fold files")
+    log(f"fanout-jobs --backend bash: {fsecs:.3f} s ({len(folds)} folds; "
+        f"launches {flaunch}); the emitted script cut to folds 0-1 over "
+        f"{FANOUT_JOBS} workers (`python -m circuitmap_torch loho-cv --fold "
+        f"I` in subprocesses): {bsecs:.3f} s; their fold files equal the "
+        f"sweep's records")
+    require_launches(not any(flaunch.values()), "fanout-jobs", flaunch,
+                     "none")
+    rec.update(loho_cv_s=secs, fanout_s=fsecs, fanout_script_s=bsecs,
+               loho_folds=len(folds),
+               loho_mse=[r["held_out_mse"] for r in sweep])
+    return secs + fsecs + bsecs
+
+
+def hold_records(got, want, what):
+    for g, w in zip(got, want):
+        for key in ("hologram", "test_trials", "n_connections"):
+            if g[key] != w[key]:
+                raise AssertionError(f"{what}: {key} {g[key]} != {w[key]}")
+        if not np.isfinite(g["held_out_mse"]) or abs(
+                g["held_out_mse"] - w["held_out_mse"]) > WF_RTOL * abs(
+                    w["held_out_mse"]):
+            raise AssertionError(f"{what}: {g} against {w}")
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} records, not {len(want)}")
+
+
+ONE_V_TEN_OPTS = {"msrmp": 0.3, "save_histories": False, "verbose": False}
+
+
+def plain64_blocked_fit(psc, stim, opts):
+    """``Model.fit`` at 8 rows a step with the cluster kernel swapped for
+    the plain blocked sweep run in float64, on the same card and the
+    same random streams (the sweep draws none); asserts that no sweep
+    kernel launched."""
+    import importlib
+
+    import torch
+    from circuitmap_torch import Model
+    from circuitmap_torch.ops.sweep_cuda import sweep_spikes_blocked_torch
+
+    cav = importlib.import_module("circuitmap_torch.solvers.caviar")
+
+    def plain64(*a, **kw):
+        wide = [x.double() if torch.is_tensor(x) and x.is_floating_point()
+                else x for x in a]
+        return sweep_spikes_blocked_torch(*wide, **kw).float()
+
+    key = (False, False)  # the single fit's blocked sweep
+    kernel_sweep, cav._SWEEPS[key] = cav._SWEEPS[key], plain64
+    reset_counts()
+    try:
+        model = Model(N).fit(psc, stim, fit_options=opts)
+    finally:
+        cav._SWEEPS[key] = kernel_sweep
+    launches = kernel_launches(read_counts())
+    require_launches(not launches["sweep_blocked"], "the plain float64 fit",
+                     launches, "no B1")
+    return model
+
+
+def wf_1v10(tmp, rec, paths):
+    """pipeline-1v10's run step on a .mat of 10,000 single-target and
+    10,000 10-target trials at N=1000, and its .mat export.
+
+    Truth-R2 >= 0.98 holds for the ensemble fit (100 trials a cell). The
+    single-target fit has 10 trials a cell: a connected cell of low
+    excitability spikes in fewer than ``minimum_spike_count`` (3) of
+    them, and the gate cannot pass it whatever the solver. The witness:
+    the same fit with the plain blocked sweep in float64. When the
+    witness too scores below 0.98, the single-target fit is held >= 0.98
+    over the cells the data can reveal (those with at least 3 simulated
+    spikes among its trials); otherwise it is held >= 0.98 over all."""
+    from scipy.io import savemat
+
+    from circuitmap_torch import Model, simulate
+    from circuitmap_torch.scripts import run_1v10_pipeline as p1v10
+    from circuitmap_torch.simulation import blockwise_design
+    from circuitmap_torch.utils.metrics import r2_score
+
+    np.random.seed(2)
+    stim = np.hstack([blockwise_design(N, 1, K // 2, POWERS),
+                      blockwise_design(N, H, K // 2, POWERS)])
+    stim = stim[:, np.random.permutation(stim.shape[1])]
+    psim = simulate(N=N, trials=stim.shape[1], H=H, connection_prob=0.05,
+                    stim_matrix=stim, batch_size=1000, verbose=False)
+    data = f"{tmp}/expt1v10.mat"
+    savemat(data, {"pscs": np.asarray(psim["psc"], np.float32),
+                   "stimulus_matrix": stim.astype(np.float32)})
+    args = p1v10.parse_args(["--data", data, "--demixer", str(CHECKPOINT),
+                             "--out", f"{tmp}/out1v10"])
+    import contextlib
+    import io
+
+    import torch
+
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        fits, psc_dem, stim_m = p1v10.run(args)
+        p1v10.export(args, fits)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    paths["cmd_pipeline_1v10"] = launches = kernel_launches(read_counts())
+    hold_fit_launches(launches, "pipeline-1v10", fits=2, iters=50)
+    out = {}
+    w = psim["weights"]
+    for name in ("single", "ensemble"):
+        model, locs = fits[name]
+        want = Model(N).fit(psc_dem[locs], stim_m[:, locs] * 1.0,
+                            fit_options=ONE_V_TEN_OPTS)
+        d, same = hold_equal(model.state, want.state, f"pipeline-1v10 {name}")
+        mu = model.state["mu"]
+        seen = np.asarray(psim["spks"])[:, locs].sum(axis=1) >= MIN_SPIKES
+        out[name] = dict(trials=int(len(locs)), r2=r2_score(w, mu),
+                         r2_revealed=r2_score(w[seen], mu[seen]),
+                         hidden_connected=int(np.sum((w != 0) & ~seen)),
+                         rel_diff=d, bitwise=same, fit_s=model.time)
+        if name == "single":
+            t1 = time.time()
+            wit = plain64_blocked_fit(psc_dem[locs], stim_m[:, locs] * 1.0,
+                                      ONE_V_TEN_OPTS).state["mu"]
+            out[name].update(
+                witness_s=time.time() - t1,
+                witness_r2=r2_score(w, wit),
+                witness_r2_revealed=r2_score(w[seen], wit[seen]),
+                witness_flips=int(np.sum((wit != 0) != (mu != 0))))
+        # the narrowed hold only where the witness cannot pass either
+        revealed_only = out[name].get("witness_r2", 1.0) < 0.98
+        hold_r2(w[seen] if revealed_only else w, mu[seen] if revealed_only
+                else mu, f"pipeline-1v10 {name}"
+                + (f" (cells with >= {MIN_SPIKES} spikes)" if revealed_only
+                   else ""))
+    wit = out["single"]
+    log(f"pipeline-1v10 run + export: {secs:.3f} s (demix of {K} traces, "
+        f"2 fits); launches {launches}; "
+        + "; ".join(f"{n}: {o['trials']} trials, truth-R2 {o['r2']:.6f} "
+                    f"({o['r2_revealed']:.6f} over the cells with >= "
+                    f"{MIN_SPIKES} spikes; {o['hidden_connected']} connected "
+                    f"cells with fewer), fit {o['fit_s']:.3f} s, against "
+                    f"Model.fit "
+                    f"{o['rel_diff']:.3e} (bit for bit: {o['bitwise']})"
+                    for n, o in out.items())
+        + f"; single-target witness (plain blocked sweep in float64, "
+        f"{wit['witness_s']:.1f} s): truth-R2 {wit['witness_r2']:.6f} "
+        f"({wit['witness_r2_revealed']:.6f} over the cells with >= "
+        f"{MIN_SPIKES} spikes), {wit['witness_flips']} cells connected in "
+        f"one fit and not the other; single-target fit held over "
+        + ("the revealed cells" if wit["witness_r2"] < 0.98
+           else "all cells")
+        + "; " + " | ".join(ln for ln in buf.getvalue().splitlines()
+                            if ln.startswith(("trials:", "single-vs",
+                                              "Wrote"))))
+    rec.update(pipeline_1v10_s=secs, pipeline_1v10=out)
+    return secs
+
+
+def wf_distributed(tmp, dem, sim, rec, paths):
+    """distributed-fit: two processes on cuda:0 (gloo), uneven halves of
+    the demixed main map, 10 iterations at 8 rows a block, against the
+    unsharded caviar_sharded fit of the same trials."""
+    import socket
+
+    from circuitmap_torch.parallel import caviar_sharded, trial_mesh
+
+    host = dem.cpu().numpy()
+    stim = np.asarray(sim["stim_matrix"], np.float32)
+    for rank, (a, b) in enumerate(((0, GLOO_SPLIT), (GLOO_SPLIT, K))):
+        np.savez(f"{tmp}/shard{rank}.npz", psc=host[a:b], stim=stim[:, a:b])
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    # each rank through the command's main, then its kernels' launches
+    wrapper = ("import json, sys\n"
+               "from circuitmap_torch.__main__ import main\n"
+               "from circuitmap_torch.ops import laplace_cuda, sweep_cuda, "
+               "sweep_row_cuda\n"
+               "rc = main(['distributed-fit', *sys.argv[1:]])\n"
+               "print('LAUNCHES', json.dumps({"
+               "'sweep_blocked': sweep_cuda.sweep_spikes_blocked.launches, "
+               "'laplace': laplace_cuda.laplace_from_stats.launches, "
+               "'sweep_row': sweep_row_cuda.sweep_spikes_row.launches}))\n"
+               "sys.exit(rc)\n")
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", wrapper, "--coordinator", f"localhost:{port}",
+         "--num-processes", "2", "--process-id", str(rank), "--data",
+         f"{tmp}/shard{rank}.npz", "--out", f"{tmp}/dist{rank}.npz",
+         "--iters", "10", "--sweep-block-size", "8", "--powers",
+         *map(str, POWERS)], cwd=tmp, env=cli_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    secs = time.time() - t0
+    for p, text in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"distributed-fit rank failed:\n"
+                                 f"{text[-3000:]}")
+    lines = [json.loads([ln for ln in text.splitlines()
+                         if ln.startswith("{")][-1]) for text in logs]
+    counts = [json.loads([ln for ln in text.splitlines()
+                          if ln.startswith("LAUNCHES")][-1].split(" ", 1)[1])
+              for text in logs]
+    ranks = [dict(np.load(f"{tmp}/dist{r}.npz")) for r in range(2)]
+    if not all(np.array_equal(ranks[0][k], ranks[1][k]) for k in ranks[0]):
+        raise AssertionError("the ranks' gathered outputs differ")
+    require_launches(
+        [c["laplace"] for c in counts] == [10, 10] and not any(
+            c["sweep_blocked"] or c["sweep_row"] for c in counts),
+        "distributed-fit", counts, "B2 once an iteration a rank, no sweep "
+        "kernel")
+    paths["cmd_distributed_fit"] = {
+        k: sum(c[k] for c in counts) for k in counts[0]}
+    from circuitmap_torch import default_priors
+
+    p = default_priors(N)
+    want = caviar_sharded(
+        dem, sim["stim_matrix"], p["mu"], p["beta"], p["shape"], p["rate"],
+        p["phi"], p["phi_cov"], mesh=trial_mesh(devices=[CARD]), iters=10,
+        msrmp=0.3, powers=list(POWERS), sweep_block_size=8, fn_scan=False,
+        verbose=False)
+    got = ranks[0]
+    for f in FIT_FIELDS:
+        if np.isnan(got[f]).any():
+            raise AssertionError(f"distributed-fit: {f} holds a NaN")
+    gate_check(got["mu"], want[0], "distributed-fit (2 gloo ranks on "
+               "cuda:0) vs the unsharded caviar_sharded fit")
+    d = max_rel_diff(got, fit_dict(want), FIT_FIELDS)
+    log(f"distributed-fit, 2 processes on cuda:0 (gloo), {GLOO_SPLIT} / "
+        f"{K - GLOO_SPLIT} trials, 10 iterations at block 8: {secs:.3f} s "
+        f"for both (process start included); JSON lines {lines}; launches "
+        f"per rank {counts}; the ranks' outputs bit for bit equal; largest "
+        f"relative difference from the unsharded fit {d:.3e}")
+    rec.update(distributed_fit_s=secs, distributed_rel_diff=d,
+               distributed_lines=lines)
+    return secs
+
+
+QAT_RTOL = 1e-4  # training on the card sums in another order each run
+
+
+def wf_demixer(tmp, rec, paths):
+    """train-qat-demixer (int4d2, 5,000 pairs, 1 epoch) against the same
+    fine-tune in process (the pairs drawn with the same seeds, the wire
+    rule applied, ``train``): the epoch's losses and the trained state
+    within QAT_RTOL (state-wide, as phase 22). Then export-ckpt of what
+    the command wrote, reloaded. Neither launches a fit kernel."""
+    import torch
+    from circuitmap_torch.demix import convert
+    from circuitmap_torch.demix.demixer import NeuralDemixer, wire_transform
+
+    np.random.seed(0)
+    qat = f"{tmp}/qat.npz"
+    out, secs, launches = cli_command(
+        "train-qat-demixer", ["--decimate", 2, "--size", 5000, "--epochs", 1,
+                              "--pretrained", TRAIN_BASE, "--out", qat])
+    paths["cmd_train_qat_demixer"] = launches
+    meta = json.loads(out.strip().splitlines()[-1])
+    if meta["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"train-qat-demixer record {meta}")
+    np.random.seed(0)
+    dm = NeuralDemixer(str(TRAIN_BASE), seed=0)
+    dm.generate_training_data(**dict(QAT_DATA, size=5000))
+    dm.training_data, dm.test_data = (
+        (wire_transform(x, bits=4, decimate=2), y)
+        for x, y in (dm.training_data, dm.test_data))
+    (hist,) = dm.train(epochs=1, learning_rate=2e-3, seed=0, verbose=False)
+    loss_d = max(abs(meta[f"final_{k}"] - hist[k]) / abs(hist[k])
+                 for k in ("train_loss", "val_loss"))
+    state_d = state_rel_diff(convert.load_params(qat), dm.net.state_dict())
+    if not loss_d <= QAT_RTOL or not state_d <= QAT_RTOL:
+        raise AssertionError(
+            f"train-qat-demixer {meta} against the in-process fine-tune "
+            f"{hist}: losses {loss_d:.3e}, state {state_d:.3e} apart "
+            f"(> {QAT_RTOL})")
+    eout, esecs, elaunch = cli_command(
+        "export-ckpt", [qat, f"{tmp}/qat.ckpt", "--epoch", 1])
+    paths["cmd_export_ckpt"] = elaunch
+    for what, counts in (("train-qat-demixer", launches),
+                         ("export-ckpt", elaunch)):
+        require_launches(not any(counts.values()), what, counts, "none")
+    back, trained = (convert.load_params(p) for p in (f"{tmp}/qat.ckpt", qat))
+    if not all(torch.equal(back[k], v) for k, v in trained.items()):
+        raise AssertionError("the exported checkpoint does not reload bit "
+                             "for bit")
+    NeuralDemixer(f"{tmp}/qat.ckpt")  # the .ckpt loads as a demixer
+    log(f"train-qat-demixer --decimate 2 --size 5000 --epochs 1: {secs:.3f} s"
+        f" (host data generation included); record {meta}; against the "
+        f"in-process fine-tune: losses {loss_d:.3e}, state {state_d:.3e} "
+        f"relative; export-ckpt {esecs:.3f} s: {eout.strip()}; reloaded bit "
+        f"for bit")
+    rec.update(train_qat_s=secs, train_qat=meta, export_ckpt_s=esecs,
+               train_qat_loss_rel_diff=loss_d,
+               train_qat_state_rel_diff=state_d)
+    return secs + esecs
+
+
+def wf_grids(tmp, rec, paths):
+    """denoise-grids on a single-spot grid of 1,000 locations (2 planes
+    of 25 x 20), each location 20 times over the 3 powers."""
+    from circuitmap_torch import Model, NeuralDemixer, simulate
+    from circuitmap_torch.scripts.denoise_grids import (
+        make_plane_stim_matrices, weight_map_image)
+
+    nx, ny = GRID_SIDE
+    xs, ys = np.meshgrid(np.arange(nx) * 10.0, np.arange(ny) * 10.0,
+                         indexing="ij")
+    locs = np.array([(x, y, z) for z in (0.0, 30.0)
+                     for x, y in zip(xs.ravel(), ys.ravel())])
+    n = len(locs)
+    rng = np.random.default_rng(5)
+    target = np.tile(np.arange(n), K // n)
+    power = np.asarray(POWERS)[rng.integers(0, 3, target.size)]
+    stim = np.zeros((n, target.size), np.float32)
+    stim[target, np.arange(target.size)] = power
+    np.random.seed(3)
+    gsim = simulate(N=n, trials=target.size, H=1, connection_prob=0.05,
+                    stim_matrix=stim, batch_size=1000, verbose=False)
+    data = f"{tmp}/grid.npz"
+    np.savez(data, psc=np.asarray(gsim["psc"], np.float32), I=power,
+             L=locs[target])
+    out, secs, launches = cli_command(
+        "denoise-grids", ["--data", data, "--demixer", CHECKPOINT, "--out",
+                          f"{tmp}/grids"])
+    paths["cmd_denoise_grids"] = launches
+    hold_fit_launches(launches, "denoise-grids", fits=2, iters=30)
+    maps = np.load(f"{tmp}/grids/weight_maps.npz")
+    dem = NeuralDemixer(str(CHECKPOINT))(
+        np.asarray(gsim["psc"], np.float32).astype(float), verbose=False)
+    worst, r2s = 0.0, []
+    for z, pstim, trials, plane_locs in make_plane_stim_matrices(
+            power, locs[target]):
+        model = Model(pstim.shape[0]).fit(
+            dem[trials], pstim, fit_options={"iters": 30, "msrmp": 0.2,
+                                             "save_histories": False,
+                                             "verbose": False})
+        want = weight_map_image(plane_locs, model.state["mu"])
+        d, _ = hold_equal({"mu": maps[f"plane_{z:g}"]}, {"mu": want},
+                          f"denoise-grids plane {z:g}", fields=("mu",))
+        worst = max(worst, d)
+        on_plane = locs[:, 2] == z
+        r2s.append(hold_r2(gsim["weights"][on_plane],
+                           model.state["mu"], f"plane {z:g}", floor=None))
+    log(f"denoise-grids ({n} locations, {target.size} single-spot trials, "
+        f"2 planes, 30 iterations): {secs:.3f} s; launches {launches}; "
+        f"maps against Model.fit {worst:.3e}; truth-R2 per plane "
+        f"{[round(r, 6) for r in r2s]}; "
+        + " | ".join(ln for ln in out.splitlines() if ln.startswith("plane")))
+    rec.update(denoise_grids_s=secs, denoise_grids_r2=r2s,
+               denoise_grids_rel_diff=worst)
+    return secs
+
+
+def wf_studies(tmp, sim, dem, model, rec, paths):
+    """simulations (defaults), downsampling (fractions 0.25 and 1.0 of
+    the demixed main map), signal-fidelity (defaults) and design-study
+    (1 seed)."""
+    import bz2
+    import pickle
+
+    import torch
+    from circuitmap_torch import Model, NeuralDemixer, simulate
+    from circuitmap_torch.utils.metrics import r2_score
+
+    total = 0.0
+    # simulations
+    out, secs, launches = cli_command("simulations", ["--out", tmp])
+    total += secs
+    paths["cmd_simulations"] = launches
+    hold_fit_launches(launches, "simulations", fits=1, iters=50, sns_fits=1)
+    with bz2.BZ2File(f"{tmp}/simulation_results_sim_N300_K2000.pkl.bz2") as fh:
+        res = pickle.load(fh)
+    np.random.seed(0)
+    ssim = simulate(N=300, trials=2000, H=10, connection_prob=0.05,
+                    spont_prob=0.05, verbose=False)
+    diffs = {}
+    for method, opts in (("caviar", {"msrmp": 0.3}), ("cavi_sns", {})):
+        want = Model(300).fit(ssim["psc"], ssim["stim_matrix"], method=method,
+                              fit_options=dict(opts, iters=50,
+                                               verbose=False))
+        diffs[method] = hold_equal(res[method]["state"], want.state,
+                                   f"simulations {method}")
+    log(f"simulations (N=300, 2000 trials, 50 iterations): {secs:.3f} s; "
+        f"launches {launches}; truth-R2 caviar {res['caviar']['r2']:.6f}, "
+        f"cavi_sns {res['cavi_sns']['r2']:.6f}, cosamp "
+        f"{res['cosamp']['r2']:.6f}; against Model.fit (relative, bit for "
+        f"bit) {diffs}")
+    rec.update(simulations_s=secs, simulations_r2={
+        m: res[m]["r2"] for m in ("caviar", "cavi_sns", "cosamp")})
+
+    # downsampling on phase 5's demixed traces
+    data = f"{tmp}/main.npz"
+    save_expt(data, dem.cpu().numpy(), sim["stim_matrix"])
+    out, secs, launches = cli_command(
+        "downsampling", ["--data", data, "--fractions", 0.25, 1.0,
+                         "--repeats", 1, "--out", f"{tmp}/ds.npz"])
+    total += secs
+    paths["cmd_downsampling"] = launches
+    hold_fit_launches(launches, "downsampling", fits=2, iters=50)
+    ds = np.load(f"{tmp}/ds.npz")
+    d_main, same = hold_equal({"mu": ds["weights"][1, 0]}, model.state,
+                              "downsampling at 1.0 vs phase 5", ("mu",))
+    r2 = hold_r2(sim["weights"], ds["weights"][1, 0], "downsampling 1.0")
+    host = dem.cpu().numpy().astype(float)
+    sel = np.sort(np.random.default_rng(0).choice(K, K // 4, replace=False))
+    quarter = Model(N).fit(host[sel], sim["stim_matrix"][:, sel],
+                           fit_options={"iters": 50, "msrmp": 0.3,
+                                        "verbose": False})
+    d_q, _ = hold_equal({"mu": ds["weights"][0, 0]}, quarter.state,
+                        "downsampling at 0.25", ("mu",))
+    log(f"downsampling --fractions 0.25 1.0 --repeats 1: {secs:.3f} s; "
+        f"launches {launches}; at 1.0 against phase 5's fit {d_main:.3e} "
+        f"(bit for bit: {same}), truth-R2 {r2:.6f}; at 0.25 against "
+        f"Model.fit {d_q:.3e}, truth-R2 "
+        f"{r2_score(sim['weights'], ds['weights'][0, 0]):.6f}")
+    rec.update(downsampling_s=secs, downsampling_r2=r2,
+               downsampling_rel_diff_vs_main=d_main)
+
+    # signal-fidelity
+    out, secs, launches = cli_command(
+        "signal-fidelity", ["--demixer", CHECKPOINT, "--out",
+                            f"{tmp}/sf.npz"])
+    total += secs
+    paths["cmd_signal_fidelity"] = launches
+    require_launches(not any(launches.values()), "signal-fidelity",
+                     launches, "none (no fit)")
+    sf = dict(np.load(f"{tmp}/sf.npz"))
+    if any(np.isnan(v).any() for v in sf.values()):
+        raise AssertionError("signal-fidelity output holds a NaN")
+    demixer = NeuralDemixer(str(CHECKPOINT))
+    d_sf = max(max_rel_diff({"x": demixer(sf[f"obs_{f}"], verbose=False)},
+                            {"x": sf[f"demixed_{f}"]}, ("x",))
+               for f in (10, 30, 50))
+    if d_sf > WF_RTOL:
+        raise AssertionError(f"signal-fidelity demix differs by {d_sf:.3e}")
+    log(f"signal-fidelity (N=100, 60 s, 10/30/50 Hz): {secs:.3f} s; "
+        f"launches {launches}; demixed against the in-process demixer "
+        f"{d_sf:.3e}; " + " | ".join(ln for ln in out.splitlines()
+                                     if ln.startswith("stim_freq")))
+    rec.update(signal_fidelity_s=secs)
+
+    # design-study
+    out, secs, launches = cli_command(
+        "design-study", ["--seeds", 1, "--out", f"{tmp}/design.json"])
+    total += secs
+    paths["cmd_design_study"] = launches
+    study = json.load(open(f"{tmp}/design.json"))
+    seed0 = study["per_seed"][0]
+    reset_counts()
+    arms = replay_design_study()
+    replay_launches = kernel_launches(read_counts())
+    rounds = seed0["static_rounds"] + seed0["adaptive_rounds"]
+    require_launches(
+        launches == replay_launches and launches["sweep_blocked"] ==
+        8 * rounds and not launches["sweep_row"], "design-study", launches,
+        f"the replay's {replay_launches}, B1 8 an update over {rounds} "
+        f"rounds")
+    stop = arms["adaptive"][-1]["trials"]
+    matched = max((h for h in arms["static"] if h["trials"] <= stop),
+                  key=lambda h: h["trials"])
+    worst = 0.0
+    for arm, want in (("adaptive_final", arms["adaptive"][-1]),
+                      ("static_full_budget", arms["static"][-1]),
+                      ("static_at_matched_budget", matched)):
+        got = seed0[arm]
+        worst = max(worst, abs(got["r2"] - want["r2"]) / abs(want["r2"]))
+        if sorted(got) != sorted(want) or any(
+                got[k] != want[k] for k in want if k != "r2") or not \
+                np.isfinite(got["r2"]) or worst > WF_RTOL:
+            raise AssertionError(f"design-study {arm} {got} against the "
+                                 f"library's replay {want}")
+    if (seed0["static_rounds"], seed0["adaptive_rounds"]) != (
+            len(arms["static"]), len(arms["adaptive"])):
+        raise AssertionError(f"design-study rounds {seed0} against the "
+                             f"replay's {len(arms['static'])}, "
+                             f"{len(arms['adaptive'])}")
+    torch.cuda.synchronize()
+    log(f"design-study --seeds 1: {secs:.3f} s; launches {launches} (the "
+        f"library's replay: {replay_launches}); "
+        + out.strip().splitlines()[-1]
+        + f"; both arms equal the replay's (R2 within {worst:.3e})")
+    rec.update(design_study_s=secs, design_study=seed0)
+    return total
+
+
+def replay_design_study(N=120, H=5, block=360, rounds=10,
+                        connection_prob=0.08, powers=(45.0, 55.0, 65.0)):
+    """Seed 0 of design-study at its defaults rebuilt from the library
+    (``simulate``, ``blockwise_design``, ``OnlineCaviar``,
+    ``AdaptiveDesigner``, the metrics), drawing from ``np.random`` in the
+    command's order: the circuit, the designs, the static arm, then the
+    adaptive arm. Returns each arm's per-round records."""
+    from circuitmap_torch import OnlineCaviar, simulate
+    from circuitmap_torch.design import AdaptiveDesigner
+    from circuitmap_torch.simulation import blockwise_design
+    from circuitmap_torch.utils.metrics import (precision_recall_connections,
+                                                r2_score)
+
+    powers = list(powers)
+    np.random.seed(100)
+    truth = simulate(N=N, trials=8, H=H, powers=powers,
+                     connection_prob=connection_prob, verbose=False)
+    designs = [blockwise_design(N, H, block, powers) for _ in range(rounds)]
+    arms = {}
+    for adaptive in (False, True):
+        oc = OnlineCaviar(N, powers=powers)
+        designer = AdaptiveDesigner(N, H, powers, null_trials=18,
+                                    conn_trials=30)
+        history = []
+        for r, stim in enumerate(designs):
+            if adaptive and r > 0:
+                stim = designer.next_design(stim.shape[1])
+            psc = simulate(N=N, stim_matrix=stim, weights=truth["weights"],
+                           phi_0=truth["phi_0"], phi_1=truth["phi_1"],
+                           kernel=(truth["tau_r"], truth["tau_d"]),
+                           powers=powers, verbose=False)["psc"]
+            oc.update(psc, stim, iters=8)
+            post = oc.posterior()
+            designer.observe(stim, post)
+            prec, rec = precision_recall_connections(truth["weights"],
+                                                     post["mu"])
+            history.append({"trials": int(oc.trial_count),
+                            "r2": float(r2_score(truth["weights"],
+                                                 post["mu"])),
+                            "precision": float(prec), "recall": float(rec),
+                            "unresolved": int(designer.pool.size)})
+            if adaptive and designer.resolved:
+                break
+        arms["adaptive" if adaptive else "static"] = history
+    return arms
+
+
+def phase_workflows(sim, dem, model):
+    """Phase 28: the workflow commands of ``python -m circuitmap_torch``
+    on the card, at the main map's width (N=1000, K=20000, powers 45 /
+    55 / 65; the commands' demixer is the int4d2 QAT checkpoint on their
+    default f32 wire), each driven in process through ``main(argv)`` and
+    held against its in-process counterpart (1e-6 relative; the
+    posterior where the command writes one), with its B1/B2/B3 launches
+    counted from 0:
+
+    ``loho-cv`` (2 of 10,000 folds of an experiment whose holograms
+    repeat twice), ``fanout-jobs`` (bash; the emitted script cut to the
+    same 2 folds and run, each fold a ``python -m circuitmap_torch
+    loho-cv --fold I`` worker in a subprocess: its fold files equal the
+    sweep's records), ``pipeline-1v10``'s run and export steps (10,000
+    single-target and 10,000 10-target trials; truth-R2 >= 0.98 for the
+    ensemble fit, and for the single-target fit over all cells or, where
+    its float64 plain-sweep witness also falls below 0.98, over the
+    cells its trials reveal), ``distributed-fit`` (two processes on
+    cuda:0 under gloo, 10 iterations, against the unsharded
+    ``caviar_sharded``), ``train-qat-demixer`` (int4d2, 5,000 pairs, 1
+    epoch; losses and state within 1e-4 of the same fine-tune in
+    process) and ``export-ckpt`` (reloaded bit for bit), ``denoise-grids``
+    (1,000 locations), ``simulations`` (defaults), ``downsampling``
+    (0.25 and 1.0 of the demixed main map: 1.0 equals phase 5's fit),
+    ``signal-fidelity`` (defaults) and ``design-study`` (1 seed; both
+    arms and the launches equal the library's replay of the protocol).
+    The commands that fit nothing (``fanout-jobs``,
+    ``train-qat-demixer``, ``export-ckpt``, ``signal-fidelity``) must
+    launch no fit kernel.
+
+    Not here: ``continuous`` (it reads YAML) and ``pipeline-1v10``'s
+    figure (matplotlib): neither package is known to be on the card's
+    machine, so the CPU tests hold them (tests/test_torch_cli_*.py), as
+    ``pipeline-pair-patch`` and ``train-demixer``, whose paths these
+    commands share."""
+    import tempfile
+
+    log("phase 28: the workflow commands of python -m circuitmap_torch "
+        "(N=1000, K=20000, the int4d2 QAT checkpoint)")
+    paths, rec = {}, {}
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        steps = [("loho-cv + fanout-jobs", lambda: wf_loho(tmp, rec, paths)),
+                 ("pipeline-1v10", lambda: wf_1v10(tmp, rec, paths)),
+                 ("distributed-fit",
+                  lambda: wf_distributed(tmp, dem, sim, rec, paths)),
+                 ("train-qat-demixer + export-ckpt",
+                  lambda: wf_demixer(tmp, rec, paths)),
+                 ("denoise-grids", lambda: wf_grids(tmp, rec, paths)),
+                 ("studies", lambda: wf_studies(tmp, sim, dem, model, rec,
+                                                paths))]
+        for name, step in steps:
+            t1 = time.time()
+            step()
+            rec[f"step_s_{name}"] = time.time() - t1
+    rec["phase_s"] = time.time() - t0
+    log(f"phase 28 took {rec['phase_s']:.1f} s; launches by command "
+        f"{paths}")
     return paths, rec
 
 
@@ -2969,6 +3752,8 @@ def main():
     mesh_paths, solvers["mesh"] = phase_mesh(
         sim, dem, model, solvers["online"]["steady_median_ms"])
     paths.update(mesh_paths)
+    wf_paths, solvers["workflows"] = phase_workflows(sim, dem, model)
+    paths.update(wf_paths)
     log(f"solvers: {json.dumps(solvers)}")
     laplace_rec["main_path_profiled_ms"] = laplace_profiled_ms
     records = (sweep_rec, laplace_rec, row_rec)

@@ -1,28 +1,91 @@
 """Command line: ``python -m circuitmap_torch <command> [args...]``.
 
-* ``serve``: the persistent fit server (``serve.run_server``): one
-  resident process owns the GPU and serves demix/fit/stream requests
-  over HTTP, speaking the JAX package's wire, so either package's
-  ``FitClient`` talks to it.
-* ``fit``: demix + CAVIaR on an experiment file (.mat/.npy/.npz/.h5),
-  exporting the weights (the reference's run_circuitmap_main.py), in
-  this process or, with ``--server URL``, on a resident fit server.
+The JAX package's workflow commands (``python -m circuitmap_tpu``), in
+its groups, each in process:
 
+* ``fit`` and ``serve`` are this module's: ``serve`` runs the persistent
+  fit server (``serve.run_server``), which speaks the JAX package's
+  wire, so either package's ``FitClient`` talks to it; ``fit`` runs
+  demix + CAVIaR on an experiment file and exports the weights, in this
+  process or, with ``--server URL``, on a resident fit server;
+* every other command is ``circuitmap_torch.scripts.<module>.main``,
+  the port of ``scripts_tpu/<module>.py`` (same flags, output files and
+  printed lines).
+
+Each command runs on the GPU unless given ``--device cpu``.
 ``python -m circuitmap_torch`` (or ``help``) lists the commands;
-``<command> --help`` gives each one's flags.
+``<command> --help`` gives each one's flags; ``version`` prints the
+package version.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import sys
 
-_COMMANDS = {
-    "serve": "persistent fit server: one resident process owns the GPU, "
-             "fits arrive over HTTP",
-    "fit": "demix + CAVIaR on an experiment file (.mat/.npy/.npz), "
-           "export weights",
-}
+# (command, module of circuitmap_torch.scripts or None for this
+# module's own, one-line help), in the JAX package's groups
+_GROUPS = [
+    ("Mapping workflows", [
+        ("fit", None,
+         "demix + CAVIaR on an experiment file (.mat/.npy/.npz), "
+         "export weights"),
+        ("pipeline-1v10", "run_1v10_pipeline",
+         "1-vs-10 ground-truth pipeline (patched-cell validation)"),
+        ("pipeline-pair-patch", "run_pair_patch_pipeline",
+         "paired-patch ground-truth pipeline"),
+        ("continuous", "run_continuous_experiment",
+         "continuous-stimulation benchmark harness (YAML config)"),
+        ("loho-cv", "run_loho_cv",
+         "leave-one-hologram-out cross-validation (one fold per call)"),
+        ("fanout-jobs", "generate_fanout_jobs",
+         "emit SLURM/bash fan-out scripts for LOHO-CV folds"),
+        ("distributed-fit", "run_distributed_fit",
+         "multi-process (multi-host) sharded CAVIaR worker"),
+    ]),
+    ("Demixer", [
+        ("train-demixer", "train_demixer",
+         "train a neural waveform demixer (per-opsin presets)"),
+        ("train-qat-demixer", "train_qat_demixer",
+         "quantisation-aware training for the int4/int4d2 trace wires"),
+        ("denoise-grids", "denoise_grids",
+         "batch-denoise grid experiment files with a demixer"),
+        ("export-ckpt", "export_lightning",
+         "export a trained demixer as a reference-compatible "
+         "Lightning .ckpt"),
+    ]),
+    ("Simulation studies", [
+        ("simulations", "run_simulations",
+         "simulation benchmark sweep (recovery vs trials/noise)"),
+        ("downsampling", "run_downsampling",
+         "trial-count downsampling experiment"),
+        ("signal-fidelity", "run_signal_fidelity",
+         "demixing fidelity vs stimulation frequency"),
+        ("design-study", "design_study",
+         "adaptive closed-loop vs static design policy "
+         "(DESIGN_STUDY.json)"),
+    ]),
+    ("Operations", [
+        ("serve", None,
+         "persistent fit server: one resident process owns the GPU, "
+         "fits arrive over HTTP"),
+    ]),
+]
+
+_COMMANDS = {name: module for _, rows in _GROUPS for name, module, _ in rows}
+
+
+def usage() -> str:
+    lines = ["usage: python -m circuitmap_torch <command> [args...]",
+             "       python -m circuitmap_torch <command> --help", ""]
+    for title, rows in _GROUPS:
+        lines.append(title + ":")
+        for name, _module, blurb in rows:
+            lines.append(f"  {name:<22}{blurb}")
+        lines.append("")
+    lines.append("version: print the package version")
+    return "\n".join(lines)
 
 
 def serve_main(argv=None):
@@ -186,18 +249,24 @@ def fit_main(argv=None):
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv or argv[0] in ("help", "-h", "--help"):
-        print("usage: python -m circuitmap_torch <command> [args...]\n")
-        for name, text in _COMMANDS.items():
-            print(f"  {name:<6} {text}")
+        print(usage())
         return 0
     cmd, rest = argv[0], argv[1:]
-    if cmd == "serve":
-        return serve_main(rest)
-    if cmd == "fit":
-        return fit_main(rest)
-    print(f"unknown command {cmd!r}; expected one of {sorted(_COMMANDS)}",
-          file=sys.stderr)
-    return 2
+    if cmd == "version":
+        from . import __version__
+
+        print(__version__)
+        return 0
+    if cmd not in _COMMANDS:
+        print(f"unknown command {cmd!r}\n\n{usage()}", file=sys.stderr)
+        return 2
+    module = _COMMANDS[cmd]
+    if module is None:
+        run = {"fit": fit_main, "serve": serve_main}[cmd]
+    else:
+        run = importlib.import_module(f"{__package__}.scripts.{module}").main
+    rc = run(rest)
+    return 0 if rc is None else rc
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Evaluation metrics (the port's copy of utils/metrics.py:14)."""
+"""Evaluation metrics (the port's copy of ``circuitmap_tpu/utils/metrics.py``)."""
 
 from __future__ import annotations
 
@@ -19,3 +19,24 @@ def r2_score(y_true, y_pred):
         np.where(ss_res == 0, 1.0, 0.0),
     )
     return float(np.mean(scores))
+
+
+def correlation(a, b):
+    """Pearson correlation between flattened arrays (0 when either is
+    constant)."""
+    a = np.asarray(a, dtype=float).ravel()
+    b = np.asarray(b, dtype=float).ravel()
+    if a.std() == 0 or b.std() == 0:
+        return 0.0
+    return float(np.corrcoef(a, b)[0, 1])
+
+
+def precision_recall_connections(w_true, w_est):
+    """Connection-detection (precision, recall) of the nonzero entries of
+    ``w_est`` against those of ``w_true``."""
+    t = np.asarray(w_true) != 0
+    e = np.asarray(w_est) != 0
+    tp = np.sum(t & e)
+    precision = tp / max(np.sum(e), 1)
+    recall = tp / max(np.sum(t), 1)
+    return float(precision), float(recall)

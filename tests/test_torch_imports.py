@@ -1,8 +1,8 @@
 """circuitmap_torch stands on its own.
 
-The port and ``chip_smoke.py`` import neither JAX nor circuitmap_tpu (an
-AST scan, and a subprocess that runs a CPU fit and then inspects
-``sys.modules``); every entry point runs on the GPU unless asked for the
+The port and ``chip_smoke.py`` import neither JAX nor circuitmap_tpu nor
+the JAX package's scripts (an AST scan, and subprocesses that run a CPU
+fit, or import every command module, and then inspect ``sys.modules``); every entry point runs on the GPU unless asked for the
 CPU, and raises rather than falling back when there is no GPU.
 """
 
@@ -17,7 +17,7 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "circuitmap_tpu")
+FORBIDDEN = ("jax", "jaxlib", "circuitmap_tpu", "scripts_tpu")
 PORT_FILES = sorted((REPO / "circuitmap_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
 # the modules of the streaming, resumable and closed-loop slice, of
@@ -33,6 +33,14 @@ SLICE_MODULES = ("utils/checkpoint.py", "solvers/resumable.py",
                  "utils/io.py", "utils/synthetic.py", "utils/quant.py",
                  "parallel/mesh.py", "parallel/sharded.py",
                  "parallel/distributed.py", "parallel/sweep.py")
+
+
+# the workflow commands, one module per script of scripts_tpu/
+SCRIPT_MODULES = ("run_loho_cv", "generate_fanout_jobs", "run_1v10_pipeline",
+                  "run_pair_patch_pipeline", "run_continuous_experiment",
+                  "run_distributed_fit", "train_demixer", "train_qat_demixer",
+                  "denoise_grids", "export_lightning", "run_simulations",
+                  "run_downsampling", "run_signal_fidelity", "design_study")
 
 
 def _imported_roots(path):
@@ -62,6 +70,37 @@ def test_slice_modules_are_scanned(module):
     assert path in PORT_FILES
     assert "torch" in _imported_roots(path) or "numpy" in _imported_roots(
         path)
+
+
+@pytest.mark.parametrize("module", SCRIPT_MODULES)
+def test_command_modules_are_scanned_and_stand_alone(module):
+    """Each command module is among the scanned files, has the JAX
+    script's file name and a ``main``, and imports nothing of JAX, the
+    JAX package or its scripts (its relative imports stay in the
+    port)."""
+    path = REPO / "circuitmap_torch" / "scripts" / f"{module}.py"
+    assert path in PORT_FILES
+    assert (REPO / "scripts_tpu" / f"{module}.py").exists()
+    assert not _imported_roots(path) & set(FORBIDDEN)
+    tree = ast.parse(path.read_text())
+    assert "main" in {n.name for n in tree.body
+                      if isinstance(n, ast.FunctionDef)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level:
+            assert node.level <= 2, (module, node.module)
+
+
+def test_command_modules_load_no_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {SCRIPT_MODULES!r}:\n"
+            "    importlib.import_module('circuitmap_torch.scripts.' + m)\n"
+            "import circuitmap_torch.__main__\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "[]"
 
 
 _CPU_RUN = r"""
