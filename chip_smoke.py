@@ -86,7 +86,19 @@ name its two uses.
   ``train-qat-demixer`` and ``export-ckpt``, ``denoise-grids``,
   ``simulations``, ``downsampling``, ``signal-fidelity`` and
   ``design-study``. ``continuous`` (YAML) and ``pipeline-1v10``'s figure
-  (matplotlib) are left to the CPU tests.
+  (matplotlib) are left to the CPU tests;
+* float64 on the card (phase 29, ``phase_float64``): the sweep at 8
+  rows (also off chip), at one row and batched (E=4), and the Laplace
+  refit, each in float64 against its float64 plain version; a float64
+  ``Model.fit`` of the main map (50 float64 B1 and 51 float64 B2
+  launches) against the same fit with the float64 plain sweep; a
+  float64 CAVI-SnS fit;
+* the Operations and Measurement commands (phase 30,
+  ``phase_commands``): ``doctor``, ``hw-smoke``, ``warm-cache``,
+  ``memory-cliff --quick`` and ``compile-study --warm-only`` in
+  processes of their own, ``profile-fit``, ``profile-demixer``,
+  ``profile-online``, ``scaling-study --quick`` and ``wire-study`` (one
+  seed) in process, every output in a temporary directory.
 
 The sweep is held against its plain version at both schedules at
 N=1000/K=20000 and N=200/K=100000, at one row a step at N=16/K=300000
@@ -105,7 +117,8 @@ operations, the Laplace total, the device's idle share), and one warm
 2-iteration CAVI-SnS fit (phase 13).
 
 Every kernel's launch count is set to 0 just before each path and read
-just after it. Phases print ``# ...`` lines; any failure raises and the
+just after it, float32 and float64 launches apart (each float64
+instance has its own record). Phases print ``# ...`` lines; any failure raises and the
 exit code is non-zero. The line before the last is a JSON record of
 every kernel (launches on each path, error against the plain version,
 times, bound and the share of it, cluster shape); the last line is
@@ -260,21 +273,39 @@ def counters():
 
 
 def reset_counts():
+    from circuitmap_torch.ops._counts import reset_launches
+
     for fns in counters().values():
-        for fn in fns:
-            fn.launches = 0
+        reset_launches(*fns)
 
 
 def read_counts():
-    """Launches per wrapper since the last reset."""
-    return {fn.__name__: fn.launches
-            for fns in counters().values() for fn in fns}
+    """Launches per wrapper since the last reset: ``name`` in float32,
+    ``name_f64`` in float64."""
+    out = {}
+    for fns in counters().values():
+        for fn in fns:
+            out[fn.__name__] = fn.launches - fn.launches_f64
+            out[fn.__name__ + "_f64"] = fn.launches_f64
+    return out
 
 
 def kernel_launches(counts):
-    """Launches per kernel from read_counts()."""
-    return {kernel: sum(counts[fn.__name__] for fn in fns)
-            for kernel, fns in counters().items()}
+    """Launches per kernel from read_counts(): ``kernel`` the float32
+    instances', ``kernel_f64`` the float64 ones'."""
+    out = {}
+    for kernel, fns in counters().items():
+        out[kernel] = sum(counts[fn.__name__] for fn in fns)
+        out[kernel + "_f64"] = sum(counts[fn.__name__ + "_f64"] for fn in fns)
+    return out
+
+
+def launch_dict(b1, b2, b3, f64=(0, 0, 0)):
+    """kernel_launches()'s dict of B1, B2 and B3 launches in float32,
+    and in float64 ``f64``."""
+    return {"sweep_blocked": b1, "laplace": b2, "sweep_row": b3,
+            "sweep_blocked_f64": f64[0], "laplace_f64": f64[1],
+            "sweep_row_f64": f64[2]}
 
 
 def cluster_fields(E, K, rows, P=len(POWERS)):
@@ -1244,7 +1275,7 @@ def phase_sns(sim, dem):
         f"truth-R2 of mu*alpha {r2_w:.4f}, of mu {r2_mu:.4f}; "
         f"{int((alpha > 0.5).sum())} cells at alpha > 0.5 "
         f"({int((w != 0).sum())} connected)")
-    if launches != {"sweep_blocked": 0, "laplace": 50, "sweep_row": 50}:
+    if launches != launch_dict(0, 50, 50):
         raise AssertionError("a 50-iteration SnS fit must launch the row "
                              f"kernel and the Laplace kernel 50 times each: "
                              f"{launches}")
@@ -1352,7 +1383,7 @@ def phase_ard(sim, dem):
     r2 = r2_score(sim["weights"], mu * (np.abs(mu) > 0.5))
     log(f"fit {fit_s:.3f} s; launches {launches}; truth-R2 of "
         f"mu*(|mu|>0.5) {r2:.4f}; {int((np.abs(mu) > 0.5).sum())} kept")
-    if launches != {"sweep_blocked": 0, "laplace": 0, "sweep_row": 30}:
+    if launches != launch_dict(0, 0, 30):
         raise AssertionError(f"a 30-iteration ARD fit must launch the row "
                              f"kernel 30 times and nothing else: {launches}")
     return launches, dict(s=fit_s, r2=r2)
@@ -1714,9 +1745,8 @@ def phase_many_baselines(sim, dem):
         paths[f"sns_many_{mode}"] = kernel_launches(read_counts())
         log(f"sns_many {mode} (identity order, exact means) "
             f"{out[f'sns_{mode}_s']:.3f} s; launches {read_counts()}")
-    if paths["sns_many_batched"] != {"sweep_blocked": 0,
-                                     "laplace": SNS_MANY_ITERS,
-                                     "sweep_row": SNS_MANY_ITERS}:
+    if paths["sns_many_batched"] != launch_dict(0, SNS_MANY_ITERS,
+                                                SNS_MANY_ITERS):
         raise AssertionError(f"batched sns_many must launch B5 and B2 "
                              f"{SNS_MANY_ITERS} times each: "
                              f"{paths['sns_many_batched']}")
@@ -2577,7 +2607,7 @@ def gloo_worker(rank, port, tmp, card):
     from circuitmap_torch.ops.laplace_cuda import laplace_from_stats
 
     mesh = parallel.global_trial_mesh(devices=[card])
-    laplace_from_stats.launches = 0
+    laplace_from_stats.launches = laplace_from_stats.launches_f64 = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = parallel.caviar_sharded_distributed(
@@ -3678,6 +3708,411 @@ def phase_workflows(sim, dem, model):
     return paths, rec
 
 
+F64_RTOL = 1e-10      # a float64 kernel against its float64 plain version
+F64_FIT_RTOL = 1e-8   # phase 29's float64 fit against its plain-sweep witness
+F64_SNS_ITERS = 3     # phase 29's float64 CAVI-SnS fit
+OFF_CHIP_F64 = (200, 60000)  # past the float64 sweep's on-chip K (41,344)
+
+
+def hold_f64(ker, plain, what):
+    """A float64 kernel's output against its float64 plain version's on
+    the same inputs: within F64_RTOL of the largest entry, and with the
+    gate on not one gate decision apart (a row all zero in one and not
+    in the other). Returns the largest difference."""
+    import torch
+
+    if ker.dtype != torch.float64:
+        raise AssertionError(f"{what}: the kernel returned {ker.dtype}")
+    err = (ker - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    flips = int(((ker.sum(-1) == 0) != (plain.sum(-1) == 0)).sum())
+    log(f"{what}: max |kernel - plain| = {err:.3e} ({err / scale:.3e} of "
+        f"the largest entry); {flips} gate decisions differ")
+    if err > F64_RTOL * scale or flips:
+        raise AssertionError(f"{what}: the float64 kernel is not within "
+                             f"{F64_RTOL} of its plain version with 0 gate "
+                             "flips")
+    return err
+
+
+def laplace_ulp_spread(S, C, levels, pp, pc):
+    """How far the float64 plain Laplace refit moves when S moves by one
+    ulp (each entry up or down at random): (phi's largest difference
+    over its largest entry, the largest per-lane covariance difference
+    over that lane's largest entry). The recursion is ill-conditioned
+    at closely spaced levels and its Armijo ties fall either way, so no
+    float64 implementation that sums in another order sits closer."""
+    import torch
+    from circuitmap_torch.ops import laplace_cuda as lc
+
+    g = torch.Generator(device=S.device).manual_seed(0)
+    sign = torch.randint(0, 2, S.shape, generator=g, device=S.device).to(
+        S.dtype) * 2 - 1
+    nudged = S * (1 + sign * torch.finfo(S.dtype).eps)
+    return laplace_rel(lc.laplace_from_stats_torch(nudged, C, levels, pp, pc),
+                       lc.laplace_from_stats_torch(S, C, levels, pp, pc))
+
+
+def laplace_rel(got, want):
+    (phi, cov), (phi0, cov0) = got, want
+    per = (cov - cov0).abs().flatten(-2).amax(-1) \
+        / cov0.abs().flatten(-2).amax(-1)
+    return ((phi - phi0).abs().max() / phi0.abs().max()).item(), \
+        per.max().item()
+
+
+def check_laplace64(S, C, levels, what):
+    """The Laplace kernel with float64 I/O against its float64 plain
+    version: within F64_RTOL, or, where the recursion's own conditioning
+    does not allow that (laplace_ulp_spread), within 10 times that
+    spread; then its device time (a CUDA graph of 20 launches), the
+    plain version's and the bound at 8 bytes an element."""
+    import torch
+    from circuitmap_torch import default_priors
+    from circuitmap_torch.ops import laplace_cuda as lc
+
+    lanes, P1 = S.shape[:-1], S.shape[-1]
+    L = lanes.numel()
+    p = default_priors(L)
+    pp = torch.from_numpy(p["phi"]).double().cuda()
+    pc = torch.from_numpy(p["phi_cov"]).double().cuda()
+    got = lc.laplace_from_stats(S, C, levels, pp, pc)
+    want = lc.laplace_from_stats_torch(S, C, levels, pp, pc)
+    errs, spread = laplace_rel(got, want), laplace_ulp_spread(S, C, levels,
+                                                              pp, pc)
+    tol = [max(F64_RTOL, 10 * sp) for sp in spread]
+    log(f"{what}: float64 kernel vs float64 plain: phi {errs[0]:.3e}, cov "
+        f"{errs[1]:.3e} (relative); the plain version's own one-ulp spread "
+        f"phi {spread[0]:.3e}, cov {spread[1]:.3e}; held to "
+        f"{tol[0]:.3e} / {tol[1]:.3e}; within {F64_RTOL}: "
+        f"{max(errs) <= F64_RTOL}")
+    if errs[0] > tol[0] or errs[1] > tol[1]:
+        raise AssertionError(f"{what}: the float64 Laplace kernel is off "
+                             "its plain version beyond the recursion's "
+                             "conditioning")
+    args, _, _ = lc._prepare(S, C, levels, pp, pc)
+    ms = graph_ms(lambda: lc._enqueue(args))
+    plain_ms = cuda_ms(lambda: lc.laplace_from_stats_torch(S, C, levels, pp,
+                                                           pc),
+                       reps=5, warmup=1)
+    candidates, _ = laplace_trips(S, C, levels, pp, pc, what)
+    nbytes = 8 * (2 * L * P1 + P1 + 2 * L + 4 * L + 2 * L + 4 * L)
+    ops = OPS_PER_BUCKET * P1 * (L * lc.NEWTON_STEPS + L + candidates)
+    bound_ms = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F64_FLOPS) * 1e3
+    bound_by = ("bytes" if nbytes / PEAK_BYTES_PER_S > ops / PEAK_F64_FLOPS
+                else "operations")
+    log(f"{what}: float64 Laplace kernel {ms:.5f} ms device (CUDA graph), "
+        f"plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    err = max((got[0] - want[0]).abs().max().item(),
+              (got[1] - want[1]).abs().max().item())
+    return dict(max_abs_err=err, rel_err=errs, ulp_spread=spread, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms)
+
+
+def phase_float64(sim, dem):
+    """Phase 29: float64 on the card (ROADMAP C1). B1 at 8 rows, B3 at
+    one row, B5 (E=4) and B2 in float64 at the main shape against their
+    float64 plain versions (hold_f64, check_laplace64), with each
+    kernel's ms; B1 in double off chip (N=200, K=60,000: past the
+    float64 form's on-chip K); ``Model.fit(dtype=float64)`` on the main
+    map (50 float64 B1 and 51 float64 B2 launches, truth-R2 >= 0.98,
+    mu within F64_FIT_RTOL of the same fit with ``caviar._SWEEPS``
+    swapped for the float64 plain blocked sweep); a float64 CAVI-SnS fit
+    of F64_SNS_ITERS iterations (float64 B3 once an iteration). Returns
+    (launches by path, the three float64 kernel records)."""
+    import importlib
+
+    import torch
+    from circuitmap_torch import Model
+    from circuitmap_torch.ops import sweep_cuda as sc
+    from circuitmap_torch.ops import sweep_row_cuda as sr
+    from circuitmap_torch.solvers._laplace import powercurve_stats
+    from circuitmap_torch.utils.metrics import r2_score
+
+    log("phase 29: float64 on the card (B1, B3, B5, B2 against their "
+        "float64 plain versions; a float64 main-map fit; float64 CAVI-SnS)")
+    f64 = torch.float64
+    t0 = time.time()
+    a = {k: (v.double() if v.is_floating_point() else v)
+         for k, v in sweep_inputs().items()}
+    bound_b = 3 * N * K * 8 / PEAK_BYTES_PER_S * 1e3
+    errs = []
+    for gate in (0, 1):
+        errs.append(hold_f64(sweep_call(sc.sweep_spikes_blocked, a, gate),
+                             sweep_call(sc.sweep_spikes_blocked_torch, a,
+                                        gate),
+                             f"B1 float64, 8 rows, gate {gate}"))
+    b1_ms = cuda_ms(lambda: sweep_call(sc.sweep_spikes_blocked, a, 1))
+    b1_plain = cuda_ms(lambda: sweep_call(sc.sweep_spikes_blocked_torch, a,
+                                          1), reps=3, warmup=1)
+    lam64 = sweep_call(sc.sweep_spikes_blocked, a, 1)
+    log(f"B1 float64 {b1_ms:.4f} ms, plain {b1_plain:.3f} ms, byte bound "
+        f"{bound_b:.4f} ms (3*N*K*8 B), {bound_b / b1_ms:.1%}")
+    b1 = dict(name="sweep_blocked_f64", route="cuda",
+              source="circuitmap_torch/csrc/sweep_cluster.cuh",
+              replaces="circuitmap_tpu/ops/sweep_pallas.py:658",
+              max_abs_err=max(errs), ms=b1_ms, plain_ms=b1_plain,
+              bound_ms=bound_b, bound_by="bytes", library_ms=None,
+              bound_share=bound_b / b1_ms, rows_per_step=8,
+              plan=sc.launch_plan(1, K, 8, len(POWERS), 8)._asdict())
+
+    n, k = OFF_CHIP_F64
+    wide = {key: (v.double() if v.is_floating_point() else v)
+            for key, v in sweep_inputs(seed=2, n=n, k=k).items()}
+    plan = sc.launch_plan(1, k, 8, len(POWERS), 8)
+    if plan.on_chip:
+        raise AssertionError(f"K={k} in float64 must keep r off chip: {plan}")
+    b1["off_chip_max_abs_err"] = hold_f64(
+        sweep_call(sc.sweep_spikes_blocked, wide, 1),
+        sweep_call(sc.sweep_spikes_blocked_torch, wide, 1),
+        f"B1 float64 off chip, N={n} K={k} ({plan})")
+    del wide
+
+    errs = [hold_f64(row_call(sr.sweep_spikes_row, a, g),
+                     row_call(sr.sweep_spikes_row_torch, a, g),
+                     f"B3 float64, one row, gate {g}") for g in (0, 1)]
+    b3_ms = cuda_ms(lambda: row_call(sr.sweep_spikes_row, a, 1))
+    b3_plain = cuda_ms(lambda: row_call(sr.sweep_spikes_row_torch, a, 1),
+                       reps=2, warmup=1)
+    E, KE = 4, 15000
+    b = stack_inputs([sweep_inputs(seed=10 + e, k=KE) for e in range(E)])
+    b = {key: (v.double() if v.is_floating_point() else v)
+         for key, v in b.items()}
+    kw = dict(msrmp=per_expt(0.3, 0.35, 0.4, 0.45).double(),
+              sig=per_expt(0.1, 0.12, 0.09, 0.11).double())
+    err_b5 = max(hold_f64(row_call(sr.sweep_spikes_row_batched, b, g, **kw),
+                          row_call(sr.sweep_spikes_row_batched_torch, b, g,
+                                   **kw),
+                          f"B5 float64, E={E} K={KE}, gate {g}")
+                 for g in (0, 1))
+    b5_ms = cuda_ms(lambda: row_call(sr.sweep_spikes_row_batched, b, 1, **kw))
+    del b
+    log(f"B3 float64 {b3_ms:.4f} ms (plain {b3_plain:.3f} ms); B5 float64 "
+        f"E={E} {b5_ms:.4f} ms")
+    b3 = dict(name="sweep_row_f64", route="cuda",
+              source="circuitmap_torch/csrc/sweep_cluster.cuh",
+              replaces="circuitmap_tpu/ops/sweep_pallas.py:338, :89, :481",
+              max_abs_err=max(errs), ms=b3_ms, plain_ms=b3_plain,
+              bound_ms=bound_b, bound_by="bytes", library_ms=None,
+              bound_share=bound_b / b3_ms, rows_per_step=1,
+              batched=dict(E=E, K=KE, max_abs_err=err_b5, ms=b5_ms,
+                           bound_ms=3 * E * N * KE * 8 / PEAK_BYTES_PER_S
+                           * 1e3))
+
+    S, C, levels = powercurve_stats(lam64, a["stim"], a["powers"],
+                                    total_trials=K, counts=a["power_counts"])
+    b2 = dict(name="laplace_f64", route="cuda",
+              source="circuitmap_torch/csrc/laplace.cu",
+              replaces="circuitmap_tpu/ops/laplace_pallas.py:149",
+              library_ms=None, **check_laplace64(S, C, levels,
+                                                 "B2 float64, N=1000"))
+    del a, lam64
+    torch.cuda.empty_cache()
+
+    opts = {"iters": 50, "msrmp": 0.3, "powers": list(POWERS),
+            "verbose": False, "dtype": f64}
+    paths = {}
+    reset_counts()
+    model, fit_s = timed(lambda: Model(N).fit(dem, sim["stim_matrix"],
+                                              method="caviar",
+                                              fit_options=dict(opts)))
+    paths["f64_main_fit"] = launches = kernel_launches(read_counts())
+    mu = np.asarray(model.state["mu"])
+    r2 = r2_score(sim["weights"], mu)
+    log(f"Model.fit(dtype=float64) on the main map: {fit_s:.3f} s, "
+        f"launches {launches}, truth-R2 {r2:.6f}, mu {mu.dtype}")
+    require_launches(launches == launch_dict(0, 0, 0, (50, 51, 0)),
+                     "the float64 main-map fit", launches,
+                     "50 float64 B1, 51 float64 B2, no float32 launch")
+    if r2 < 0.98 or mu.dtype != np.float64:
+        raise AssertionError(f"the float64 fit: truth-R2 {r2:.4f}, mu "
+                             f"{mu.dtype}")
+    cav = importlib.import_module("circuitmap_torch.solvers.caviar")
+    key = (False, False)  # the single fit's blocked sweep
+    kernel_sweep, cav._SWEEPS[key] = (cav._SWEEPS[key],
+                                      sc.sweep_spikes_blocked_torch)
+    reset_counts()
+    try:
+        witness, witness_s = timed(lambda: Model(N).fit(
+            dem, sim["stim_matrix"], method="caviar",
+            fit_options=dict(opts)))
+    finally:
+        cav._SWEEPS[key] = kernel_sweep
+    w_launches = kernel_launches(read_counts())
+    require_launches(not w_launches["sweep_blocked_f64"],
+                     "the float64 plain-sweep witness", w_launches, "no B1")
+    mu_w = np.asarray(witness.state["mu"])
+    fit_err = float(np.abs(mu - mu_w).max() / np.abs(mu_w).max())
+    flips = int(((mu == 0) != (mu_w == 0)).sum())
+    log(f"the same fit with the float64 plain blocked sweep ({witness_s:.2f} "
+        f"s): mu {fit_err:.3e} of its largest entry apart, {flips} cells "
+        f"connected differently")
+    if fit_err > F64_FIT_RTOL or flips:
+        raise AssertionError(f"the float64 fit is {fit_err:.3e} from its "
+                             "plain-sweep witness (or a gate flipped)")
+
+    reset_counts()
+    sns, sns_s = timed(lambda: Model(N).fit(
+        dem, sim["stim_matrix"], method="cavi_sns",
+        fit_options={"iters": F64_SNS_ITERS, "verbose": False, "dtype": f64}))
+    paths["f64_sns"] = launches = kernel_launches(read_counts())
+    log(f"float64 CAVI-SnS, {F64_SNS_ITERS} iterations: {sns_s:.3f} s, "
+        f"launches {launches}")
+    require_launches(
+        launches == launch_dict(0, 0, 0, (0, F64_SNS_ITERS, F64_SNS_ITERS)),
+        "the float64 CAVI-SnS fit", launches,
+        f"{F64_SNS_ITERS} float64 B3 and B2")
+    if not np.isfinite(np.asarray(sns.state["mu"])).all():
+        raise AssertionError("the float64 CAVI-SnS fit is not finite")
+    log(f"phase 29 took {time.time() - t0:.1f} s")
+    return paths, [b1, b2, b3], dict(fit_s=fit_s, truth_r2=r2,
+                                     witness_rel=fit_err, sns_s=sns_s)
+
+
+def cli_capture(argv):
+    """``python -m circuitmap_torch <argv>`` in this process: (its exit
+    code, what it printed, its seconds)."""
+    import contextlib
+    import io
+
+    import torch
+    from circuitmap_torch.__main__ import main as cli
+
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(list(map(str, argv)))
+    torch.cuda.synchronize()
+    return rc or 0, buf.getvalue(), time.time() - t0
+
+
+def cli_subprocess(argv, limit_s):
+    """The same command in a process of its own, from the repository
+    root: (exit code, stdout, seconds)."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "circuitmap_torch",
+                           *map(str, argv)], cwd=HERE, capture_output=True,
+                          text=True, timeout=limit_s)
+    if proc.returncode:
+        print(proc.stderr[-3000:], file=sys.stderr)
+    return proc.returncode, proc.stdout, time.time() - t0
+
+
+def json_line(out):
+    """The last line of ``out`` that parses as a JSON object (or the
+    object that starts at the first '{' of an indented dump)."""
+    for line in reversed(out.splitlines()):
+        if line.startswith("{") and line.endswith("}"):
+            return json.loads(line)
+    return json.loads(out[out.index("{"):])
+
+
+def phase_commands():
+    """Phase 30: the Operations and Measurement commands of ``python -m
+    circuitmap_torch``. ``doctor`` and ``hw-smoke`` (all five probes) in
+    processes of their own must exit 0, each check or probe line
+    printed; ``warm-cache`` (the main map's shape, on the existing build
+    directory) in a process of its own; in this process ``profile-fit``
+    (the main map), ``profile-demixer`` (K=20,000, the int4d2 split of
+    the demix phase), ``profile-online`` (defaults) and ``scaling-study
+    --quick``; ``wire-study`` at one seed; ``memory-cliff --quick`` (one
+    subprocess); ``compile-study --warm-only``. Every output goes to a
+    temporary directory. Returns (launches by in-process command, the
+    commands' records)."""
+    import tempfile
+
+    log("phase 30: the Operations and Measurement commands")
+    rec, paths = {}, {}
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        def sub(name, argv, limit_s, lines):
+            rc, out, secs = cli_subprocess(argv, limit_s)
+            shown = [ln for ln in out.splitlines() if ln.startswith(lines)]
+            for ln in shown:
+                log(f"  {name}: {ln}")
+            log(f"{name}: exit {rc} in {secs:.1f} s")
+            if rc != 0:
+                raise AssertionError(f"{name} exited {rc}")
+            rec[name] = dict(s=secs, lines=shown)
+            return out
+
+        sub("doctor", ["doctor", "--json", f"{tmp}/doctor.json"], 300,
+            ("PASS", "WARN", "FAIL", "SKIP", "doctor:"))
+        checks = json.loads(Path(f"{tmp}/doctor.json").read_text())
+        if checks["accelerator"]["status"] != "PASS" or \
+                checks["native-lib"]["status"] != "PASS":
+            raise AssertionError(f"doctor: {checks}")
+        sub("hw-smoke", ["hw-smoke", "--json", f"{tmp}/smoke.json"], 900,
+            ("[",))
+        smoke = json.loads(Path(f"{tmp}/smoke.json").read_text())
+        if [p["status"] for p in smoke["probes"]] != ["PASS"] * 5:
+            raise AssertionError(f"hw-smoke: {smoke}")
+        sub("warm-cache", ["warm-cache", "--shape", f"{N}x{K}", "--demixer",
+                           str(CHECKPOINT), "--transfer-dtype", "int4d2"],
+            300, ("warm", "kernel library"))
+
+        def inproc(name, argv):
+            reset_counts()
+            rc, out, secs = cli_capture(argv)
+            paths[name] = kernel_launches(read_counts())
+            log(f"{name}: exit {rc} in {secs:.1f} s; launches {paths[name]}")
+            if rc != 0:
+                raise AssertionError(f"{name} exited {rc}")
+            rec[name] = dict(s=secs)
+            return out
+
+        out = inproc("profile-fit", ["profile-fit"])
+        rec["profile-fit"].update(json_line(out))
+        log(f"profile-fit: {json_line(out)}")
+        out = inproc("profile-demixer", ["profile-demixer", K])
+        demix = json_line(out)
+        top = dict(list(demix["top_ops_ms"].items())[:5])
+        demix["top_ops_ms"] = top
+        rec["profile-demixer"].update(demix)
+        log(f"profile-demixer (K={K}, int4d2): host encode "
+            f"{demix['host_encode_ms']:.3f} ms, upload "
+            f"{demix['upload_ms']:.3f} ms, device decode "
+            f"{demix['device_decode_ms']:.3f} ms, forward "
+            f"{demix['forward_wall_ms_best']:.3f} ms (device "
+            f"{demix['device_total_ms']:.3f} ms), the public call "
+            f"{demix['demix_call_ms_best']:.3f} ms; top kernels {top}")
+        out = inproc("profile-online", ["profile-online"])
+        rec["profile-online"].update(json_line(out))
+        log(f"profile-online: {json_line(out)}")
+        out = inproc("scaling-study", ["scaling-study", "--quick", "--out",
+                                       f"{tmp}/scaling.json"])
+        rec["scaling-study"]["rows"] = json.loads(
+            Path(f"{tmp}/scaling.json").read_text())["results"]
+        log(f"scaling-study --quick: {rec['scaling-study']['rows']}")
+        out = inproc("wire-study", ["wire-study", "--seeds", 0, "--out",
+                                    f"{tmp}/wire.json"])
+        rec["wire-study"]["rows"] = json.loads(
+            Path(f"{tmp}/wire.json").read_text())["rows"]
+        log(f"wire-study, seed 0: {rec['wire-study']['rows']}")
+        for name, row in (("scaling-study", rec["scaling-study"]["rows"]),
+                          ("wire-study", rec["wire-study"]["rows"])):
+            if any(not np.isfinite(r.get("r2", r.get("truth_r2")))
+                   for r in row):
+                raise AssertionError(f"{name}: a non-finite truth-R2")
+        sub("memory-cliff --quick", ["memory-cliff", "--quick", "--out",
+                                     f"{tmp}/cliff.json"], 600,
+            ("probe", "{", "wrote"))
+        cliff = json.loads(Path(f"{tmp}/cliff.json").read_text())
+        if not cliff["results"][0]["ok"]:
+            raise AssertionError(f"memory-cliff --quick: {cliff}")
+        sub("compile-study --warm-only", ["compile-study", "--warm-only",
+                                          "--out", f"{tmp}/compile.json"],
+            600, ("{", "wrote"))
+        rec["compile-study"] = json.loads(
+            Path(f"{tmp}/compile.json").read_text())["results"]
+    rec["phase_s"] = time.time() - t0
+    log("phase 30 took %.1f s; seconds by command: %s" % (
+        rec["phase_s"], {k: round(v["s"], 2) for k, v in rec.items()
+                         if isinstance(v, dict) and "s" in v}))
+    return paths, rec
+
+
 def main():
     try:
         import torch
@@ -3754,12 +4189,16 @@ def main():
     paths.update(mesh_paths)
     wf_paths, solvers["workflows"] = phase_workflows(sim, dem, model)
     paths.update(wf_paths)
+    f64_paths, f64_records, solvers["float64"] = phase_float64(sim, dem)
+    paths.update(f64_paths)
+    cmd_paths, solvers["commands"] = phase_commands()
+    paths.update(cmd_paths)
     log(f"solvers: {json.dumps(solvers)}")
     laplace_rec["main_path_profiled_ms"] = laplace_profiled_ms
-    records = (sweep_rec, laplace_rec, row_rec)
+    records = (sweep_rec, laplace_rec, row_rec, *f64_records)
     for rec in records:
         # launches: the sum over the paths driven, each counted from 0
-        rec["launches_by_path"] = {path: c[rec["name"]]
+        rec["launches_by_path"] = {path: c.get(rec["name"], 0)
                                    for path, c in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
         if rec["launches"] == 0:

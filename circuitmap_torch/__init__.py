@@ -38,6 +38,16 @@ Imports are lazy, so importing the package pulls in nothing heavy.
 
 __version__ = "0.1.0"
 
+
+def default_compile_cache_dir():
+    """Where the CUDA kernel library is built and kept (the counterpart
+    of the JAX package's persistent compile cache): the directory
+    ``$CIRCUITMAP_TORCH_BUILD_DIR`` names, else ``circuitmap_torch/_build``
+    (``ops/_build.py``). ``doctor`` reads it; ``warm-cache`` fills it."""
+    from .ops._build import build_dir
+
+    return str(build_dir())
+
 _LAZY = {
     "Model": ("circuitmap_torch.model", "Model"),
     "default_priors": ("circuitmap_torch.model", "default_priors"),
@@ -61,6 +71,7 @@ _LAZY = {
                                        "simulate_continuous_experiment"),
     "summarize": ("circuitmap_torch.summary", "summarize"),
     "format_summary": ("circuitmap_torch.summary", "format_summary"),
+    "FitClient": ("circuitmap_torch.serve", "FitClient"),
 }
 
 __all__ = list(_LAZY)

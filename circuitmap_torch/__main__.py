@@ -10,7 +10,11 @@ its groups, each in process:
   process or, with ``--server URL``, on a resident fit server;
 * every other command is ``circuitmap_torch.scripts.<module>.main``,
   the port of ``scripts_tpu/<module>.py`` (same flags, output files and
-  printed lines).
+  printed lines; the measurement commands write ``*_H100.json`` where
+  the JAX scripts write their TPU records);
+* ``reference-baseline`` and ``parity-vr`` are listed, not ported: both
+  run the original implementation, which is not in the repository;
+  calling one exits 2.
 
 Each command runs on the GPU unless given ``--device cpu``.
 ``python -m circuitmap_torch`` (or ``help``) lists the commands;
@@ -24,8 +28,12 @@ import argparse
 import importlib
 import sys
 
-# (command, module of circuitmap_torch.scripts or None for this
-# module's own, one-line help), in the JAX package's groups
+# the JAX commands that time or compare against the original
+# implementation, which is not in the repository (listed, not ported)
+_NOT_PORTED = "not ported"
+
+# (command, module of circuitmap_torch.scripts, None for this module's
+# own, or _NOT_PORTED; one-line help), in the JAX package's groups
 _GROUPS = [
     ("Mapping workflows", [
         ("fit", None,
@@ -70,6 +78,35 @@ _GROUPS = [
         ("serve", None,
          "persistent fit server: one resident process owns the GPU, "
          "fits arrive over HTTP"),
+        ("doctor", "doctor",
+         "diagnose the runtime environment (GPU, CUDA kernel library, "
+         "zoo, build directory) with hang-proof probes"),
+        ("hw-smoke", "hw_smoke",
+         "exercise the full GPU compute path on the card (run after a "
+         "driver or rig change)"),
+        ("warm-cache", "warm_cache",
+         "build the CUDA kernels and run the pipeline once for "
+         "deployment shapes"),
+    ]),
+    ("Measurement / profiling", [
+        ("scaling-study", "run_scaling_study",
+         "on-card shape-scaling study (SCALING_H100.json)"),
+        ("memory-cliff", "probe_memory_cliff",
+         "walk the single-card OOM ladder (MEMORY_CLIFF_H100.json)"),
+        ("wire-study", "wire_fidelity_study",
+         "trace-wire fidelity study (WIRE_STUDY_H100.json)"),
+        ("compile-study", "measure_many_compile",
+         "caviar_many cold/warm setup cost (COMPILE_STUDY_H100.json)"),
+        ("reference-baseline", _NOT_PORTED,
+         "not ported (needs the original implementation)"),
+        ("parity-vr", _NOT_PORTED,
+         "not ported (needs the original implementation)"),
+        ("profile-fit", "profile_fit_entry",
+         "stage attribution of the public fit entry"),
+        ("profile-demixer", "profile_demixer",
+         "demixer forward wall/device profile"),
+        ("profile-online", "profile_online",
+         "closed-loop update latency profile"),
     ]),
 ]
 
@@ -261,6 +298,10 @@ def main(argv=None):
         print(f"unknown command {cmd!r}\n\n{usage()}", file=sys.stderr)
         return 2
     module = _COMMANDS[cmd]
+    if module is _NOT_PORTED:
+        print(f"{cmd}: not ported (needs the original implementation, "
+              "which is not in the repository)", file=sys.stderr)
+        return 2
     if module is None:
         run = {"fit": fit_main, "serve": serve_main}[cmd]
     else:

@@ -42,7 +42,9 @@
 //   that, ptxas aims at a higher occupancy, caps a thread at 128 or 168
 //   registers and spills from P+1 = 7 on; with it P+1 <= 16 uses 82-236
 //   registers, no stack frame and no spills.
-// - Arithmetic runs in double (inputs and outputs stay float32): the
+// - Arithmetic runs in double (inputs and outputs float32, or double for
+//   the float64 fits through cm_laplace_f64, which takes the runtime
+//   bucket count only: a parity-oracle fit's speed is not tuned): the
 //   2x2 Hessian of closely spaced power levels is ill-conditioned, so
 //   float32 arithmetic leaves ~3e-4 relative error in the covariance.
 //   The speed comes from the parallel search and the spread over the
@@ -77,11 +79,12 @@ __device__ __forceinline__ double nan_to_num(double v) {
 }
 
 // One neuron's buckets: P1 > 0 in registers; P1 = 0, a runtime count
-// `n`, read from device memory at each use.
-template <int P1>
+// `n`, read from device memory at each use. IO: the element type of the
+// inputs and outputs (float, or double).
+template <int P1, typename IO>
 struct Buckets {
   double S[P1], C[P1], lev[P1];
-  __device__ void load(const float* s, const float* c, const float* l, int) {
+  __device__ void load(const IO* s, const IO* c, const IO* l, int) {
 #pragma unroll
     for (int p = 0; p < P1; ++p) S[p] = s[p], C[p] = c[p], lev[p] = l[p];
   }
@@ -91,12 +94,11 @@ struct Buckets {
   __device__ __forceinline__ double l(int p) const { return lev[p]; }
 };
 
-template <>
-struct Buckets<0> {
-  const float *S, *C, *lev;
+template <typename IO>
+struct Buckets<0, IO> {
+  const IO *S, *C, *lev;
   int n;
-  __device__ void load(const float* s, const float* c, const float* l,
-                       int p1) {
+  __device__ void load(const IO* s, const IO* c, const IO* l, int p1) {
     S = s, C = c, lev = l, n = p1;
   }
   __device__ __forceinline__ int count() const { return n; }
@@ -105,9 +107,9 @@ struct Buckets<0> {
   __device__ __forceinline__ double l(int p) const { return lev[p]; }
 };
 
-template <int P1>
+template <int P1, typename IO>
 struct Neuron {
-  Buckets<P1> b;
+  Buckets<P1, IO> b;
   double pr0, pr1;            // prior mean
   double q00, q01, q10, q11;  // prior precision
 
@@ -127,12 +129,12 @@ struct Neuron {
   }
 };
 
-template <int P1>
+template <int P1, typename IO = float>
 __global__ void __launch_bounds__(THREADS, 1) laplace_kernel(
-    const float* __restrict__ S, const float* __restrict__ C,
-    const float* __restrict__ levels, const float* __restrict__ phi_prior,
-    const float* __restrict__ cov_prior, float* __restrict__ phi_out,
-    float* __restrict__ cov_out, int N, int p1, int n_phi_prior,
+    const IO* __restrict__ S, const IO* __restrict__ C,
+    const IO* __restrict__ levels, const IO* __restrict__ phi_prior,
+    const IO* __restrict__ cov_prior, IO* __restrict__ phi_out,
+    IO* __restrict__ cov_out, int N, int p1, int n_phi_prior,
     int n_cov_prior) {
   const int lane = threadIdx.x % 32;
   const int slot = lane % GROUP;  // this lane's candidate in a round
@@ -141,7 +143,7 @@ __global__ void __launch_bounds__(THREADS, 1) laplace_kernel(
   const long long n = ((long long)blockIdx.x * THREADS + threadIdx.x) / GROUP;
   if (n >= N) return;  // the whole group leaves
 
-  Neuron<P1> nr;
+  Neuron<P1, IO> nr;
   nr.b.load(S + n * p1, C + n * p1, levels, p1);
   const long long a = n % n_phi_prior, b = n % n_cov_prior;
   nr.pr0 = phi_prior[2 * a];
@@ -215,20 +217,27 @@ __global__ void __launch_bounds__(THREADS, 1) laplace_kernel(
     f0 = __shfl_sync(group, lhs, src);
   }
   if (slot == 0) {
-    phi_out[2 * n] = (float)phi0;
-    phi_out[2 * n + 1] = (float)phi1;
-    cov_out[4 * n] = (float)i00;
-    cov_out[4 * n + 1] = (float)i01;
-    cov_out[4 * n + 2] = (float)i10;
-    cov_out[4 * n + 3] = (float)i11;
+    phi_out[2 * n] = (IO)phi0;
+    phi_out[2 * n + 1] = (IO)phi1;
+    cov_out[4 * n] = (IO)i00;
+    cov_out[4 * n + 1] = (IO)i01;
+    cov_out[4 * n + 2] = (IO)i10;
+    cov_out[4 * n + 3] = (IO)i11;
   }
 }
 
-struct Args {
-  const float *S, *C, *levels, *phi_prior, *cov_prior;
-  float *phi_out, *cov_out;
+template <typename IO>
+struct ArgsT {
+  const IO *S, *C, *levels, *phi_prior, *cov_prior;
+  IO *phi_out, *cov_out;
   int N, n_phi_prior, n_cov_prior;
 };
+using Args = ArgsT<float>;
+
+inline int blocks_for(int N) {
+  const long long threads = (long long)N * GROUP;
+  return (int)((threads + THREADS - 1) / THREADS);
+}
 
 // P1: the fixed bucket count that equals p1, or 0 (runtime) above MAX_P1
 template <int P1>
@@ -237,13 +246,24 @@ int launch(int p1, const Args& a, cudaStream_t stream) {
     return launch<0>(p1, a, stream);
   } else {
     if (P1 > 0 && p1 != P1) return launch<P1 + 1>(p1, a, stream);
-    const long long threads = (long long)a.N * GROUP;
-    const int blocks = (int)((threads + THREADS - 1) / THREADS);
-    laplace_kernel<P1><<<blocks, THREADS, 0, stream>>>(
+    laplace_kernel<P1><<<blocks_for(a.N), THREADS, 0, stream>>>(
         a.S, a.C, a.levels, a.phi_prior, a.cov_prior, a.phi_out, a.cov_out,
         a.N, p1, a.n_phi_prior, a.n_cov_prior);
     return (int)cudaGetLastError();
   }
+}
+
+// the double form: the runtime bucket count at every count
+int launch_f64(int p1, const ArgsT<double>& a, cudaStream_t stream) {
+  laplace_kernel<0, double><<<blocks_for(a.N), THREADS, 0, stream>>>(
+      a.S, a.C, a.levels, a.phi_prior, a.cov_prior, a.phi_out, a.cov_out,
+      a.N, p1, a.n_phi_prior, a.n_cov_prior);
+  return (int)cudaGetLastError();
+}
+
+bool bad_shape(int N, int P1, int n_phi_prior, int n_cov_prior) {
+  return P1 < 1 || N < 1 || n_phi_prior < 1 || n_cov_prior < 1 ||
+         N % n_phi_prior != 0 || N % n_cov_prior != 0;
 }
 
 }  // namespace
@@ -258,14 +278,28 @@ extern "C" int cm_laplace_f32(const void* S, const void* C,
                               const void* cov_prior, void* phi_out,
                               void* cov_out, int N, int P1, int n_phi_prior,
                               int n_cov_prior, void* stream) {
-  if (P1 < 1 || N < 1 || n_phi_prior < 1 ||
-      n_cov_prior < 1 || N % n_phi_prior != 0 || N % n_cov_prior != 0)
+  if (bad_shape(N, P1, n_phi_prior, n_cov_prior))
     return (int)cudaErrorInvalidValue;
   const Args a{(const float*)S, (const float*)C, (const float*)levels,
                (const float*)phi_prior, (const float*)cov_prior,
                (float*)phi_out, (float*)cov_out, N, n_phi_prior,
                n_cov_prior};
   return launch<1>(P1, a, (cudaStream_t)stream);
+}
+
+// cm_laplace_f32 with double inputs and outputs (the float64 fits).
+extern "C" int cm_laplace_f64(const void* S, const void* C,
+                              const void* levels, const void* phi_prior,
+                              const void* cov_prior, void* phi_out,
+                              void* cov_out, int N, int P1, int n_phi_prior,
+                              int n_cov_prior, void* stream) {
+  if (bad_shape(N, P1, n_phi_prior, n_cov_prior))
+    return (int)cudaErrorInvalidValue;
+  const ArgsT<double> a{(const double*)S, (const double*)C,
+                        (const double*)levels, (const double*)phi_prior,
+                        (const double*)cov_prior, (double*)phi_out,
+                        (double*)cov_out, N, n_phi_prior, n_cov_prior};
+  return launch_f64(P1, a, (cudaStream_t)stream);
 }
 
 extern "C" const char* cm_error_string(int err) {

@@ -84,6 +84,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace cm_sweep {
 
 constexpr int THREADS = 512;  // ops/sweep_cuda.py::CLUSTER_THREADS
@@ -95,18 +97,23 @@ constexpr int DYN_G = 4;      // P = 0: rows a thread holds at once
 constexpr int DYN_PC = 8;     // P = 0: levels a pass (ops/sweep_cuda.py)
 static_assert(MAX_ROWS <= 32, "a step's rows are one warp's lanes");
 
-struct Args {
-  const float *y, *mask, *stim, *lam, *mu, *beta, *m0, *m1, *counts, *powers;
+// T: float, or double for the float64 fits (parity-oracle fits: only the
+// runtime-level form P = 0 is instantiated in double, sweep_cluster_f64.cu)
+template <typename T>
+struct ArgsT {
+  const T *y, *mask, *stim, *lam, *mu, *beta, *m0, *m1, *counts, *powers;
   const int* steps;       // [E, nsteps]: block indices (rows > 1) or rows
-  const float* scalars;   // [E, 4]: sig, msrmp_eff, min_count, gate_active
-  float* r;               // [E, K]: mu @ lam on entry, scratch after
-  float* out;             // [E, N, K]
-  float* dacc;            // [E, K] zeros: a block's update of r (subs > 1)
-  float* xg;              // P = 0: [E, 3, cluster, rows * (P + 1)] scratch
+  const T* scalars;       // [E, 4]: sig, msrmp_eff, min_count, gate_active
+  T* r;                   // [E, K]: mu @ lam on entry, scratch after
+  T* out;                 // [E, N, K]
+  T* dacc;                // [E, K] zeros: a block's update of r (subs > 1)
+  T* xg;                  // P = 0: [E, 3, cluster, rows * (P + 1)] scratch
   // rows: a sub-step's rows (1..MAX_ROWS); block: a block's rows; subs:
   // sub-steps a block (1 unless block > MAX_ROWS); P: the level count
   int N, K, nsteps, rows, cols, depth, block, subs, P;
 };
+using Args = ArgsT<float>;
+using Args64 = ArgsT<double>;
 
 // the launch and occupancy entries of one range of P (CM_SWEEP_DEFINE_RANGE)
 using LaunchFn = int (*)(int P, const Args& a, int E, int cluster,
@@ -119,20 +126,58 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src)
                : "memory");
 }
 
-// 4 bytes, or 4 zero bytes when !valid (src is then not read)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
+// a column quad (16 bytes in float, 32 in double: two copies)
+template <typename T>
+__device__ __forceinline__ void cp_async_quad(T* dst, const T* src) {
+  cp_async16(dst, src);
+  if constexpr (sizeof(T) == 8) cp_async16(dst + 2, src + 2);
+}
+
+// one element, or zero bytes when !valid (src is then not read)
+__device__ __forceinline__ void cp_async_elem(float* dst, const float* src,
+                                              bool valid) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
+}
+
+__device__ __forceinline__ void cp_async_elem(double* dst, const double* src,
+                                              bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+// the scalar functions of the sweep in T
+__device__ __forceinline__ float t_exp(float x) { return expf(x); }
+__device__ __forceinline__ double t_exp(double x) { return exp(x); }
+__device__ __forceinline__ float t_max(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double t_max(double a, double b) {
+  return fmax(a, b);
+}
+template <typename T>
+__device__ __forceinline__ T t_nan() {
+  if constexpr (sizeof(T) == 4)
+    return __int_as_float(0x7fc00000);
+  else
+    return __longlong_as_double(0x7ff8000000000000LL);
+}
+// the rate's guard against an empty bucket, as the plain version spells it
+template <typename T>
+__device__ __forceinline__ T t_tiny() {
+  if constexpr (sizeof(T) == 4)
+    return 1e-4f;
+  else
+    return 1e-4;
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -182,9 +227,10 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
 }
 
 // v into CTA `rank`'s shared memory at the address `addr` has in this
-// CTA, completing 4 bytes on that CTA's mbarrier at `bar`'s address
+// CTA, completing sizeof(v) bytes on that CTA's mbarrier at `bar`'s address
+template <typename T>
 __device__ __forceinline__ void st_remote(unsigned addr, unsigned bar,
-                                          unsigned rank, float v) {
+                                          unsigned rank, T v) {
   unsigned raddr, rbar;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(raddr)
@@ -192,32 +238,54 @@ __device__ __forceinline__ void st_remote(unsigned addr, unsigned bar,
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(rbar)
                : "r"(bar), "r"(rank));
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
-      "[%2];\n" ::"r"(raddr),
-      "r"(__float_as_uint(v)), "r"(rbar)
-      : "memory");
-}
-
-// Columns c..c+3 of a row at p (local column index), of which the first
-// nv exist: one 16-byte access where vec (16-byte aligned) and all four
-// exist, else one per column, reading 0 past the end. Arrays on chip are
-// zero-padded to whole quads and are accessed with nv = 4, vec = true.
-__device__ __forceinline__ void load4(float v[4], const float* p, int c,
-                                      int nv, bool vec) {
-  if (vec && nv == 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p + c);
-    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  if constexpr (sizeof(T) == 4) {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+        "[%2];\n" ::"r"(raddr),
+        "r"(__float_as_uint(v)), "r"(rbar)
+        : "memory");
   } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = i < nv ? p[c + i] : 0.f;
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, "
+        "[%2];\n" ::"r"(raddr),
+        "l"(__double_as_longlong(v)), "r"(rbar)
+        : "memory");
   }
 }
 
-__device__ __forceinline__ void store4(float* p, int c, const float v[4],
-                                       int nv, bool vec) {
+// Columns c..c+3 of a row at p (local column index), of which the first
+// nv exist: one 16-byte access (two in double) where vec (16-byte
+// aligned) and all four exist, else one per column, reading 0 past the
+// end. Arrays on chip are zero-padded to whole quads and are accessed
+// with nv = 4, vec = true.
+template <typename T>
+__device__ __forceinline__ void load4(T v[4], const T* p, int c, int nv,
+                                      bool vec) {
   if (vec && nv == 4) {
-    *reinterpret_cast<float4*>(p + c) = make_float4(v[0], v[1], v[2], v[3]);
+    if constexpr (sizeof(T) == 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + c);
+      v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+    } else {
+      const double2 a = *reinterpret_cast<const double2*>(p + c);
+      const double2 b = *reinterpret_cast<const double2*>(p + c + 2);
+      v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = i < nv ? p[c + i] : T(0);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* p, int c, const T v[4], int nv,
+                                       bool vec) {
+  if (vec && nv == 4) {
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(p + c) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      *reinterpret_cast<double2*>(p + c) = make_double2(v[0], v[1]);
+      *reinterpret_cast<double2*>(p + c + 2) = make_double2(v[2], v[3]);
+    }
   } else {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -230,10 +298,12 @@ __device__ __forceinline__ void store4(float* p, int c, const float v[4],
 // a.rows (2..MAX_ROWS a sub-step, a.subs sub-steps a block). The fixed 8
 // keeps the default's loops unrolled and its offsets constant: taken at
 // run time, 8 rows ran ~15% slower in the profiled main-path fit
-// (PERF.md). P: the level count, or 0 for a.P (above MAX_P).
-template <int P, int R, bool ON_CHIP>
+// (PERF.md). P: the level count, or 0 for a.P (above MAX_P). T: the
+// element type (float; double for the float64 fits, where shared memory
+// holds half the columns and the quads are 32 bytes).
+template <int P, int R, bool ON_CHIP, typename T = float>
 __global__ void __launch_bounds__(THREADS, 1)
-    sweep_cluster_kernel(const Args a) {
+    sweep_cluster_kernel(const ArgsT<T> a) {
   constexpr bool SEQ = R == 1;
   constexpr bool DYN = P == 0;
   constexpr int PT = DYN ? 1 : P;  // register arrays' level count
@@ -245,7 +315,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int NP = DYN ? a.P : P;
   const int NS = B * (NP + 1);  // per row: P bucket sums + the total
   const int RS = DYN ? DYN_G * DYN_PC : NS;  // a warp's row of `red`
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  T* smem = reinterpret_cast<T*>(smem_bytes);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -256,39 +327,40 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int width = max(0, min(K, k0 + cols) - k0);  // this CTA's columns
   const int quads = (width + 3) / 4;
 
-  // shared memory, in the order cluster_plan counts it (floats; each part
-  // a multiple of 4, so every part starts 16-byte aligned)
-  float* xbuf = smem;                      // [2][C][NS] exchanged partials
-  float* red = xbuf + (DYN ? 0 : 2 * C * NS);  // [WARPS][RS]
-  float* s_gate = red + WARPS * RS;        // [B], GATES floats
-  float* s_par = s_gate + GATES;           // [2][B][NPAR]
+  // shared memory, in the order cluster_plan counts it (elements of T;
+  // each part a multiple of 4, so every part starts 16-byte aligned)
+  T* xbuf = smem;                          // [2][C][NS] exchanged partials
+  T* red = xbuf + (DYN ? 0 : 2 * C * NS);  // [WARPS][RS]
+  T* s_gate = red + WARPS * RS;            // [B], GATES elements
+  T* s_par = s_gate + GATES;               // [2][B][NPAR]
   const int par_floats = (2 * B * NPAR + 3) & ~3;
-  // s_n0: [2] first rows and [2] row counts, ints in 4 floats' room; then
-  // xbar: [2] mbarriers (4 floats)
+  // s_n0: [2] first rows and [2] row counts, ints in 4 elements' room;
+  // then xbar: [2] mbarriers (4 elements)
   int* s_n0 = reinterpret_cast<int*>(s_par + par_floats);
   unsigned long long* xbar =
       reinterpret_cast<unsigned long long*>(s_par + par_floats + 4);
-  float* rest = s_par + par_floats + 8;
+  T* rest = s_par + par_floats + 8;
 
   const size_t NK = (size_t)N * K;
-  const float* stim = a.stim + e * NK + k0;
-  const float* lam = a.lam + e * NK + k0;
-  float* out = a.out + e * NK + k0;
-  const float* counts = a.counts + (size_t)e * N * NP;
+  const T* stim = a.stim + e * NK + k0;
+  const T* lam = a.lam + e * NK + k0;
+  T* out = a.out + e * NK + k0;
+  const T* counts = a.counts + (size_t)e * N * NP;
   const int* steps = a.steps + (size_t)e * a.nsteps;
-  const float sig = a.scalars[4 * e + 0];
-  const float msrmp = a.scalars[4 * e + 1];
-  const float min_count = a.scalars[4 * e + 2];
-  const float gate_active = a.scalars[4 * e + 3];
-  float pw[PT];
+  const T sig = a.scalars[4 * e + 0];
+  const T msrmp = a.scalars[4 * e + 1];
+  const T min_count = a.scalars[4 * e + 2];
+  const T gate_active = a.scalars[4 * e + 3];
+  const T tiny = t_tiny<T>();
+  T pw[PT];
   if constexpr (!DYN) {
 #pragma unroll
     for (int p = 0; p < P; ++p) pw[p] = a.powers[p];
   }
   // P = 0: the exchanged partials [2][C][NS] and this CTA's rank sums [NS]
-  float* xg = DYN ? a.xg + (size_t)e * 3 * C * NS : nullptr;
-  float* xsum = DYN ? xg + (size_t)(2 * C + rank) * NS : nullptr;
-  float* dacc = S > 1 ? a.dacc + (size_t)e * K + k0 : nullptr;
+  T* xg = DYN ? a.xg + (size_t)e * 3 * C * NS : nullptr;
+  T* xsum = DYN ? xg + (size_t)(2 * C + rank) * NS : nullptr;
+  T* dacc = S > 1 ? a.dacc + (size_t)e * K + k0 : nullptr;
   const int nsub = a.nsteps * S;  // sub-steps of the sweep
 
   // every row and every slice starts 16-byte aligned (cols % 4 == 0)
@@ -300,24 +372,24 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   // r, y, mask by local column, on chip or in device memory; est: the
   // step's rows [B][cols] on chip, else `out` itself
-  float* r;
-  const float *y, *mask;
-  float* est = nullptr;
-  float* ring;
+  T* r;
+  const T *y, *mask;
+  T* est = nullptr;
+  T* ring;
   {
-    float* gr = a.r + (size_t)e * K + k0;
-    const float* gy = a.y + (size_t)e * K + k0;
-    const float* gm = a.mask + (size_t)e * K + k0;
+    T* gr = a.r + (size_t)e * K + k0;
+    const T* gy = a.y + (size_t)e * K + k0;
+    const T* gm = a.mask + (size_t)e * K + k0;
     if constexpr (ON_CHIP) {
-      float* sr = rest;
-      float* sy = sr + cols;
-      float* sm = sy + cols;
+      T* sr = rest;
+      T* sy = sr + cols;
+      T* sm = sy + cols;
       est = sm + cols;
       ring = est + B * cols;
       for (int q = tid; q < cols / 4; q += THREADS) {
         const int c = 4 * q;
         const int nv = min(4, width - c);
-        float v[4];
+        T v[4];
         load4(v, gr, c, nv, vec16);
         store4(sr, c, v, 4, true);
         load4(v, gy, c, nv, vec16);
@@ -353,23 +425,23 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (t < nsub) {
       const int n0 = first_row(t, idx);
       const int nrows = row_count(t, idx);
-      float* slot = ring + (t % depth) * slot_floats;
+      T* slot = ring + (t % depth) * slot_floats;
       for (int q = tid; q < quads; q += THREADS) {
         const int c = 4 * q;
         const int nv = min(4, width - c);
         for (int j = 0; j < nrows; ++j) {
-          const float* gs = stim + (size_t)(n0 + j) * K + c;
-          const float* gl = lam + (size_t)(n0 + j) * K + c;
-          float* ds = slot + (2 * j) * cols + c;
-          float* dl = ds + cols;
+          const T* gs = stim + (size_t)(n0 + j) * K + c;
+          const T* gl = lam + (size_t)(n0 + j) * K + c;
+          T* ds = slot + (2 * j) * cols + c;
+          T* dl = ds + cols;
           if (vec16 && nv == 4) {
-            cp_async16(ds, gs);
-            cp_async16(dl, gl);
+            cp_async_quad(ds, gs);
+            cp_async_quad(dl, gl);
           } else {
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              cp_async4(ds + i, gs + min(i, nv - 1), i < nv);
-              cp_async4(dl + i, gl + min(i, nv - 1), i < nv);
+              cp_async_elem(ds + i, gs + min(i, nv - 1), i < nv);
+              cp_async_elem(dl + i, gl + min(i, nv - 1), i < nv);
             }
           }
         }
@@ -380,20 +452,20 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   // row parameters of a sub-step into s_par[t & 1] (warp 0, one lane a
   // row)
-  auto fetch = [&](int t, int idx, float* v) {
+  auto fetch = [&](int t, int idx, T* v) {
     const int n = first_row(t, idx) + lane;
     const bool ok = lane < row_count(t, idx);
-    v[0] = ok ? a.mu[(size_t)e * N + n] : 0.f;
-    v[1] = ok ? a.beta[(size_t)e * N + n] : 0.f;
-    v[2] = ok ? a.m0[(size_t)e * N + n] : 0.f;
-    v[3] = ok ? a.m1[(size_t)e * N + n] : 0.f;
+    v[0] = ok ? a.mu[(size_t)e * N + n] : T(0);
+    v[1] = ok ? a.beta[(size_t)e * N + n] : T(0);
+    v[2] = ok ? a.m0[(size_t)e * N + n] : T(0);
+    v[3] = ok ? a.m1[(size_t)e * N + n] : T(0);
 #pragma unroll
     for (int p = 0; p < NPAR - 4; ++p)
-      v[4 + p] = ok ? counts[(size_t)n * NP + p] : 0.f;
+      v[4 + p] = ok ? counts[(size_t)n * NP + p] : T(0);
   };
-  auto publish = [&](int t, int idx, const float* v) {
+  auto publish = [&](int t, int idx, const T* v) {
     if (lane < B) {
-      float* d = s_par + ((t & 1) * B + lane) * NPAR;
+      T* d = s_par + ((t & 1) * B + lane) * NPAR;
 #pragma unroll
       for (int i = 0; i < NPAR; ++i) d[i] = v[i];
     }
@@ -406,15 +478,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   // P = 0: the per-level sums of rows g0..g0+G-1 of the sub-step at n0
   // into part, DYN_PC levels a pass over the thread's columns, reading
   // back the est that pass 1 wrote (each thread its own columns)
-  auto level_sums = [&](int g0, float* part, int n0, int nrows,
-                        const float* slot, bool ringed) {
+  auto level_sums = [&](int g0, T* part, int n0, int nrows, const T* slot,
+                        bool ringed) {
     for (int c0 = 0; c0 < NP; c0 += DYN_PC) {
-      float lv[DYN_PC], acc[G * DYN_PC];
+      T lv[DYN_PC], acc[G * DYN_PC];
 #pragma unroll
       for (int p = 0; p < DYN_PC; ++p)  // NaN past the last level
-        lv[p] = c0 + p < NP ? a.powers[c0 + p] : __int_as_float(0x7fc00000);
+        lv[p] = c0 + p < NP ? a.powers[c0 + p] : t_nan<T>();
 #pragma unroll
-      for (int s = 0; s < G * DYN_PC; ++s) acc[s] = 0.f;
+      for (int s = 0; s < G * DYN_PC; ++s) acc[s] = T(0);
       for (int q = tid; q < quads; q += THREADS) {
         const int c = 4 * q;
         const int nv = min(4, width - c);
@@ -422,7 +494,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int j = 0; j < G; ++j) {
           const int jj = g0 + j;
           if (jj < nrows) {
-            float st[4], es[4];
+            T st[4], es[4];
             if (ringed)
               load4(st, slot + (2 * jj) * cols, c, 4, true);
             else
@@ -441,7 +513,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
 #pragma unroll
       for (int s = 0; s < G * DYN_PC; ++s) {
-        float v = acc[s];
+        T v = acc[s];
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1)
           v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -451,7 +523,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int i = tid; i < G * DYN_PC; i += THREADS) {
         const int j = g0 + i / DYN_PC, p = c0 + i % DYN_PC;
         if (j < B && p < NP) {
-          float v = 0.f;
+          T v = T(0);
           for (int w = 0; w < WARPS; ++w) v += red[w * RS + i];
           part[j * (NP + 1) + p] = v;
         }
@@ -464,7 +536,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int t = 0; t < depth; ++t) issue(t, entry(t));
   int idx_next = entry(1);  // sub-step t+1's, one step ahead
   if (warp == 0) {
-    float v[NPAR];
+    T v[NPAR];
     const int idx0 = entry(0);
     fetch(0, idx0, v);
     publish(0, idx0, v);
@@ -481,18 +553,18 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int t = 0; t < nsub; ++t) {
     const int par = t & 1;
     const unsigned bar = smem_u32(&xbar[par]);
-    if (!DYN && tid == 0) mbar_expect_tx(bar, C * NS * 4);
+    if (!DYN && tid == 0) mbar_expect_tx(bar, C * NS * (int)sizeof(T));
     const int n0 = s_n0[par];
     const int nrows = s_n0[2 + par];
-    const float* spar = s_par + par * B * NPAR;  // this step's rows
+    const T* spar = s_par + par * B * NPAR;  // this step's rows
     // the parameters of G rows (from g0 on) into registers; the first
     // group's load before the waits below, as a step of one group (1 or
     // 8 rows) needs no other
-    float mu_j[G], beta_j[G], m0_j[G], m1_j[G];
+    T mu_j[G], beta_j[G], m0_j[G], m1_j[G];
     auto load_group = [&](int g0) {
 #pragma unroll
       for (int j = 0; j < G; ++j) {
-        const float* v = spar + min(g0 + j, B - 1) * NPAR;
+        const T* v = spar + min(g0 + j, B - 1) * NPAR;
         mu_j[j] = v[0], beta_j[j] = v[1], m0_j[j] = v[2], m1_j[j] = v[3];
       }
     };
@@ -503,11 +575,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int idx_ring = depth > 0 ? entry(t + depth) : 0;
     // the next step's parameters load while this step computes
     const bool fetching = warp == 0 && t + 1 < nsub;
-    float nxt[NPAR];
+    T nxt[NPAR];
     if (fetching) fetch(t + 1, idx_next, nxt);
 
     const bool ringed = depth > 0;
-    const float* slot = ring + (t % (ringed ? depth : 1)) * slot_floats;
+    const T* slot = ring + (t % (ringed ? depth : 1)) * slot_floats;
     if (depth > 0) cp_async_wait(depth - 1);  // step t's rows have landed
 
     // pass 1: est of the step's rows and their bucket sums, G rows at a
@@ -516,14 +588,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     // only the total, and the levels follow in chunks)
     for (int g0 = 0; g0 < B; g0 += G) {
       if (g0 > 0) load_group(g0);
-      float acc[G * (P + 1)];
+      T acc[G * (P + 1)];
 #pragma unroll
-      for (int s = 0; s < G * (P + 1); ++s) acc[s] = 0.f;
+      for (int s = 0; s < G * (P + 1); ++s) acc[s] = T(0);
       for (int q = tid; q < quads; q += THREADS) {
         const int c = 4 * q;
         const int nv = min(4, width - c);
         const int nvr = ON_CHIP ? 4 : nv;
-        float rq[4], yq[4], mq[4];
+        T rq[4], yq[4], mq[4];
         load4(rq, r, c, nvr, vec_r);
         load4(yq, y, c, nvr, vec_r);
         load4(mq, mask, c, nvr, vec_r);
@@ -531,7 +603,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int j = 0; j < G; ++j) {
           const int jj = g0 + j;
           if (jj < nrows) {
-            float st[4], lm[4], es[4];
+            T st[4], lm[4], es[4];
             if (ringed) {
               load4(st, slot + (2 * jj) * cols, c, 4, true);
               load4(lm, slot + (2 * jj + 1) * cols, c, 4, true);
@@ -539,16 +611,16 @@ __global__ void __launch_bounds__(THREADS, 1)
               load4(st, stim + (size_t)(n0 + jj) * K, c, nv, vec16);
               load4(lm, lam + (size_t)(n0 + jj) * K, c, nv, vec16);
             }
-            const float muj = mu_j[j];
+            const T muj = mu_j[j];
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              const float r_excl = rq[i] - muj * lm[i];
-              const float quad =
-                  sig * (-2.f * yq[i] * muj + 2.f * muj * r_excl +
+              const T r_excl = rq[i] - muj * lm[i];
+              const T quad =
+                  sig * (T(-2) * yq[i] * muj + T(2) * muj * r_excl +
                          (muj * muj + beta_j[j] * beta_j[j]));
-              const float x = m0_j[j] * st[i] - m1_j[j] - 0.5f * quad;
-              const float sg = 1.f / (1.f + expf(-x));
-              es[i] = st[i] > 0.f ? mq[i] * sg : 0.f;
+              const T x = m0_j[j] * st[i] - m1_j[j] - T(0.5) * quad;
+              const T sg = T(1) / (T(1) + t_exp(-x));
+              es[i] = st[i] > T(0) ? mq[i] * sg : T(0);
 #pragma unroll
               for (int p = 0; p < P; ++p)
                 if (st[i] == pw[p]) acc[j * (P + 1) + p] += es[i];
@@ -567,10 +639,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       // the CTA's partial sums of the group's rows
       if constexpr (DYN) {
         // the totals, then the levels chunk by chunk, into this CTA's slot
-        float* part = xg + (size_t)(par * C + rank) * NS;
+        T* part = xg + (size_t)(par * C + rank) * NS;
 #pragma unroll
         for (int j = 0; j < G; ++j) {
-          float v = acc[j];
+          T v = acc[j];
 #pragma unroll
           for (int o = 16; o > 0; o >>= 1)
             v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -578,7 +650,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
         __syncthreads();
         if (tid < G && g0 + tid < B) {
-          float v = 0.f;
+          T v = T(0);
           for (int w = 0; w < WARPS; ++w) v += red[w * RS + tid];
           part[(g0 + tid) * (NP + 1) + NP] = v;
         }
@@ -587,7 +659,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       } else {
 #pragma unroll
         for (int s = 0; s < G * (P + 1); ++s) {
-          float v = acc[s];
+          T v = acc[s];
 #pragma unroll
           for (int o = 16; o > 0; o >>= 1)
             v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -604,7 +676,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       __threadfence();
       cluster.sync();
       for (int i = tid; i < NS; i += THREADS) {
-        float v = 0.f;
+        T v = T(0);
         for (int q = 0; q < C; ++q)
           v += __ldcg(xg + (size_t)(par * C + q) * NS + i);
         xsum[i] = v;
@@ -614,7 +686,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       // ... into slot [rank] of every CTA's exchange buffer
       for (int i = tid; i < NS * C; i += THREADS) {
         const int s = i % NS, dst = i / NS;
-        float v = 0.f;
+        T v = T(0);
 #pragma unroll
         for (int w = 0; w < WARPS; ++w) v += red[w * NS + s];
         st_remote(smem_u32(xbuf + (par * C + rank) * NS + s), bar, dst, v);
@@ -626,55 +698,55 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (DYN && tid < B) {
       // the rank sums of row j are in xsum; its counts in device memory
       const int j = tid;
-      const float* sj = xsum + j * (NP + 1);
+      const T* sj = xsum + j * (NP + 1);
       bool ok = false;
       if (j < nrows) {
-        const float* cnt = counts + (size_t)(n0 + j) * NP;
+        const T* cnt = counts + (size_t)(n0 + j) * NP;
         auto rate = [&](int p) {
-          const float c = cnt[p];
-          return sj[p] / (c + 1e-4f * (c == 0.f ? 1.f : 0.f));
+          const T c = cnt[p];
+          return sj[p] / (c + tiny * (c == T(0) ? T(1) : T(0)));
         };
         // isotonic fit at max power = max over suffix means
-        float run = rate(NP - 1), iso = run, n = 1.f;
+        T run = rate(NP - 1), iso = run, n = T(1);
         for (int p = NP - 2; p >= 0; --p) {
           run += rate(p);
-          n += 1.f;
-          iso = fmaxf(iso, run / n);
+          n += T(1);
+          iso = t_max(iso, run / n);
         }
         ok = iso >= msrmp && sj[NP] >= min_count;
       }
-      s_gate[j] = gate_active > 0.f ? (ok ? 1.f : 0.f) : 1.f;
+      s_gate[j] = gate_active > T(0) ? (ok ? T(1) : T(0)) : T(1);
     } else if (!DYN && tid < B) {
       mbar_wait(bar, (t >> 1) & 1);  // all C partials of this step are in
       const int j = tid;
-      float sum[PT + 1];
+      T sum[PT + 1];
 #pragma unroll
-      for (int p = 0; p <= P; ++p) sum[p] = 0.f;
+      for (int p = 0; p <= P; ++p) sum[p] = T(0);
 #pragma unroll
       for (int q = 0; q < 16; ++q) {
         if (q < C) {
-          const float* src = xbuf + (par * C + q) * NS + j * (P + 1);
+          const T* src = xbuf + (par * C + q) * NS + j * (P + 1);
 #pragma unroll
           for (int p = 0; p <= P; ++p) sum[p] += src[p];
         }
       }
-      const float* cnt = spar + j * NPAR + 4;
-      float rates[PT];
+      const T* cnt = spar + j * NPAR + 4;
+      T rates[PT];
 #pragma unroll
       for (int p = 0; p < P; ++p) {
-        const float c = cnt[p];
-        rates[p] = sum[p] / (c + 1e-4f * (c == 0.f ? 1.f : 0.f));
+        const T c = cnt[p];
+        rates[p] = sum[p] / (c + tiny * (c == T(0) ? T(1) : T(0)));
       }
       // isotonic fit at max power = max over suffix means
-      float iso = rates[PT - 1], run = rates[PT - 1], n = 1.f;
+      T iso = rates[PT - 1], run = rates[PT - 1], n = T(1);
 #pragma unroll
       for (int p = P - 2; p >= 0; --p) {
         run += rates[p];
-        n += 1.f;
-        iso = fmaxf(iso, run / n);
+        n += T(1);
+        iso = t_max(iso, run / n);
       }
       const bool ok = iso >= msrmp && sum[P] >= min_count;
-      s_gate[j] = gate_active > 0.f ? (ok ? 1.f : 0.f) : 1.f;
+      s_gate[j] = gate_active > T(0) ? (ok ? T(1) : T(0)) : T(1);
     }
     __syncthreads();
 
@@ -682,21 +754,21 @@ __global__ void __launch_bounds__(THREADS, 1)
     // at a time (over all B, as pass 1: a fixed B leaves one group)
     for (int g0 = 0; g0 < B; g0 += G) {
       if (B > G) load_group(g0);  // else pass 1's one group is still in
-      float gate[G];
+      T gate[G];
 #pragma unroll
       for (int j = 0; j < G; ++j) gate[j] = s_gate[min(g0 + j, B - 1)];
       for (int q = tid; q < quads; q += THREADS) {
         const int c = 4 * q;
         const int nv = min(4, width - c);
         const int nvr = ON_CHIP ? 4 : nv;
-        float rq[4], dr[4] = {0.f, 0.f, 0.f, 0.f};
+        T rq[4], dr[4] = {T(0), T(0), T(0), T(0)};
         if (S == 1) load4(rq, r, c, nvr, vec_r);
 #pragma unroll
         for (int j = 0; j < G; ++j) {
           const int jj = g0 + j;
           if (jj < nrows) {
-            float nl[4], lm[4];
-            float* orow = out + (size_t)(n0 + jj) * K;
+            T nl[4], lm[4];
+            T* orow = out + (size_t)(n0 + jj) * K;
             if constexpr (ON_CHIP)
               load4(nl, est + jj * cols, c, 4, true);
             else
@@ -722,7 +794,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
         if (S > 1) {
           // a sub-step of a long block: r waits for the block's end
-          float dq[4];
+          T dq[4];
           load4(dq, dacc, c, nv, vec16);
 #pragma unroll
           for (int i = 0; i < 4; ++i) dq[i] += dr[i];
@@ -742,11 +814,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int c = 4 * q;
         const int nv = min(4, width - c);
         const int nvr = ON_CHIP ? 4 : nv;
-        float rq[4], dq[4];
+        T rq[4], dq[4];
         load4(rq, r, c, nvr, vec_r);
         load4(dq, dacc, c, nv, vec16);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) rq[i] += dq[i], dq[i] = 0.f;
+        for (int i = 0; i < 4; ++i) rq[i] += dq[i], dq[i] = T(0);
         store4(r, c, rq, nvr, vec_r);
         store4(dacc, c, dq, nv, vec16);
       }
@@ -771,49 +843,50 @@ inline void configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
   cfg.numAttrs = 1;
 }
 
-template <int P, int R, bool ON_CHIP>
+template <int P, int R, bool ON_CHIP, typename T>
 cudaError_t set_attributes(int cluster, int smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_cluster_kernel<P, R, ON_CHIP>,
+      sweep_cluster_kernel<P, R, ON_CHIP, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && cluster > 8)
-    err = cudaFuncSetAttribute(sweep_cluster_kernel<P, R, ON_CHIP>,
+    err = cudaFuncSetAttribute(sweep_cluster_kernel<P, R, ON_CHIP, T>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
   return err;
 }
 
-template <int P, int R, bool ON_CHIP>
-int launch(const Args& args, int E, int cluster, int smem,
+template <int P, int R, bool ON_CHIP, typename T>
+int launch(const ArgsT<T>& args, int E, int cluster, int smem,
            cudaStream_t stream) {
-  cudaError_t err = set_attributes<P, R, ON_CHIP>(cluster, smem);
+  cudaError_t err = set_attributes<P, R, ON_CHIP, T>(cluster, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   configure(cfg, attr, E, cluster, smem, stream);
-  err = cudaLaunchKernelEx(&cfg, sweep_cluster_kernel<P, R, ON_CHIP>, args);
+  err = cudaLaunchKernelEx(&cfg, sweep_cluster_kernel<P, R, ON_CHIP, T>,
+                           args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <int P, int R, bool ON_CHIP>
+template <int P, int R, bool ON_CHIP, typename T>
 int active_clusters(int cluster, int smem) {
-  cudaError_t err = set_attributes<P, R, ON_CHIP>(cluster, smem);
+  cudaError_t err = set_attributes<P, R, ON_CHIP, T>(cluster, smem);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   configure(cfg, attr, 1, cluster, smem, 0);
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(
-      &n, sweep_cluster_kernel<P, R, ON_CHIP>, &cfg);
+      &n, sweep_cluster_kernel<P, R, ON_CHIP, T>, &cfg);
   return err == cudaSuccess ? n : -(int)err;
 }
 
-template <int P, int R>
-int launch_r(const Args& a, int E, int cluster, int on_chip, int smem,
+template <int P, int R, typename T = float>
+int launch_r(const ArgsT<T>& a, int E, int cluster, int on_chip, int smem,
              cudaStream_t s) {
-  return on_chip ? launch<P, R, true>(a, E, cluster, smem, s)
-                 : launch<P, R, false>(a, E, cluster, smem, s);
+  return on_chip ? launch<P, R, true, T>(a, E, cluster, smem, s)
+                 : launch<P, R, false, T>(a, E, cluster, smem, s);
 }
 
 template <int P>
@@ -826,10 +899,24 @@ int launch_p(const Args& a, int E, int cluster, int on_chip, int smem,
   }
 }
 
-template <int P, int R>
+template <int P, int R, typename T = float>
 int active_r(int cluster, int on_chip, int smem) {
-  return on_chip ? active_clusters<P, R, true>(cluster, smem)
-                 : active_clusters<P, R, false>(cluster, smem);
+  return on_chip ? active_clusters<P, R, true, T>(cluster, smem)
+                 : active_clusters<P, R, false, T>(cluster, smem);
+}
+
+// double: the runtime-level form (P = 0) at one row a step or a runtime
+// row count (2..MAX_ROWS a sub-step), the only double instances
+inline int launch_f64(const Args64& a, int E, int cluster, int on_chip,
+                      int smem, cudaStream_t s) {
+  return a.rows == 1
+             ? launch_r<0, 1, double>(a, E, cluster, on_chip, smem, s)
+             : launch_r<0, 0, double>(a, E, cluster, on_chip, smem, s);
+}
+
+inline int active_f64(int rows, int cluster, int on_chip, int smem) {
+  return rows == 1 ? active_r<0, 1, double>(cluster, on_chip, smem)
+                   : active_r<0, 0, double>(cluster, on_chip, smem);
 }
 
 template <int P>

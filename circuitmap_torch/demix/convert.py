@@ -74,6 +74,15 @@ def load_lightning_checkpoint(path, dtype=torch.float32):
     checkpoints from a trusted source."""
     ckpt = torch.load(str(path), map_location="cpu", weights_only=False)
     sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
+    return params_from_state_dict(sd, dtype=dtype)
+
+
+def params_from_state_dict(sd, dtype=torch.float32):
+    """A reference Lightning state_dict (tensors or ndarrays) as the
+    port's ``NWDUNet`` state_dict: its 63 entries re-keyed as they are
+    (the layouts agree), weights cast to ``dtype``; a missing
+    ``num_batches_tracked`` is 0. The JAX function of this name builds
+    its parameter pytree from the same keys."""
     out = {}
     for block, kind in _BLOCKS:
         for key in (f"{block}.{kind}.weight", f"{block}.{kind}.bias",

@@ -3,9 +3,12 @@
 Every ``circuitmap_torch/csrc/*.cu`` compiles with nvcc for sm_90a into
 one shared library with a plain C interface, loaded with ``ctypes``.
 Sources compile in parallel (one nvcc per source, all started together)
-and link once. The library lands in ``circuitmap_torch/_build/`` under a
-name that hashes the sources and flags, so an unchanged tree reuses it
-and an edited one rebuilds. Nothing builds at import time: the first
+and link once. The library lands in the build directory,
+``circuitmap_torch/_build/`` unless ``$CIRCUITMAP_TORCH_BUILD_DIR``
+names another (the counterpart of the JAX package's
+``JAX_COMPILATION_CACHE_DIR``; ``warm-cache --cache-dir`` sets it),
+under a name that hashes the sources and flags, so an unchanged tree
+reuses it and an edited one rebuilds. Nothing builds at import time: the first
 kernel launch calls :func:`library`. No ``--use_fast_math``: the Laplace
 kernel relies on IEEE NaN semantics (log of a negative step candidate).
 """
@@ -24,13 +27,25 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+BUILD_DIR_ENV = "CIRCUITMAP_TORCH_BUILD_DIR"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of this process's build (None: cached)
+
+
+def build_dir():
+    """The build directory: ``$CIRCUITMAP_TORCH_BUILD_DIR``, else
+    ``circuitmap_torch/_build``."""
+    return Path(os.environ.get(BUILD_DIR_ENV) or _PKG / "_build")
+
+
+def library_path():
+    """Where the library for this tree's sources and flags lives (built
+    or not)."""
+    return build_dir() / f"libcircuitmap_torch_{_digest(_sources())}.so"
 
 
 def _sources():
@@ -73,8 +88,8 @@ def _run_all(cmds):
 
 def _build(target, sources):
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    target.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
         objs = [Path(tmp) / (s.stem + ".o") for s in sources]
         _run_all([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
                   for s, o in zip(sources, objs)])
@@ -89,11 +104,10 @@ def library():
     global _lib, build_seconds
     with _lock:
         if _lib is None:
-            sources = _sources()
-            target = BUILD_DIR / f"libcircuitmap_torch_{_digest(sources)}.so"
+            target = library_path()
             if not target.exists():
                 t0 = time.time()
-                _build(target, sources)
+                _build(target, _sources())
                 build_seconds = time.time() - t0
             _lib = _declare(ctypes.CDLL(str(target)))
         return _lib
@@ -103,12 +117,15 @@ def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     # E, N, K, P, nsteps, rows_per_step, block, subs, then cluster_plan's
     # cluster, cols, on_chip, depth, smem_bytes
-    lib.cm_sweep_cluster_f32.argtypes = [p] * 16 + [i] * 13 + [p]
-    lib.cm_sweep_cluster_f32.restype = i
-    lib.cm_sweep_cluster_active.argtypes = [i] * 5
-    lib.cm_sweep_cluster_active.restype = i
-    lib.cm_laplace_f32.argtypes = [p] * 7 + [i] * 4 + [p]
-    lib.cm_laplace_f32.restype = i
+    for fn in (lib.cm_sweep_cluster_f32, lib.cm_sweep_cluster_f64):
+        fn.argtypes = [p] * 16 + [i] * 13 + [p]
+        fn.restype = i
+    for fn in (lib.cm_sweep_cluster_active, lib.cm_sweep_cluster_active_f64):
+        fn.argtypes = [i] * 5
+        fn.restype = i
+    for fn in (lib.cm_laplace_f32, lib.cm_laplace_f64):
+        fn.argtypes = [p] * 7 + [i] * 4 + [p]
+        fn.restype = i
     lib.cm_error_string.argtypes = [i]
     lib.cm_error_string.restype = ctypes.c_char_p
     return lib

@@ -13,18 +13,22 @@ phi_9).
 Leading batch dimensions (a batch of experiments) flatten into one
 launch, the port of the Pallas kernel's custom-vmap rule.
 
-Dispatch: a CPU tensor takes the plain version; a CUDA float32 tensor
-launches ``csrc/laplace.cu`` (any bucket count: up to 17 held in
-registers, more read from device memory); anything else raises. The kernel takes and
-returns float32 but computes in double (the 2x2 Hessian is
+Dispatch: a CPU tensor takes the plain version; a CUDA float32 or
+float64 tensor launches ``csrc/laplace.cu`` in that type (float32: any
+bucket count, up to 17 held in registers, more read from device memory;
+float64: ``cm_laplace_f64``, the runtime count); any other raises. The
+kernel computes in double whatever its I/O type (the 2x2 Hessian is
 ill-conditioned at closely spaced power levels), so it agrees with the
-plain version run in float64 on the same inputs.
+plain version run in float64 on the same inputs. ``launches`` counts
+its launches, ``launches_f64`` those in float64.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ._counts import count_launch, reset_launches
 
 NEWTON_STEPS = 10
 BARRIER_T = 1e1
@@ -115,8 +119,8 @@ def laplace_from_stats(S, C, levels, phi_prior, phi_cov_prior):
 
     S, C: [..., N, P+1]; levels: [P+1]; phi_prior: [..., N, 2];
     phi_cov_prior: [..., N, 2, 2]. Returns (phi, cov) of the prior
-    shapes. CPU tensors take the plain version, CUDA float32 tensors the
-    kernel.
+    shapes. CPU tensors take the plain version, CUDA float32 and float64
+    tensors the kernel.
     """
     if S.device.type == "cpu":
         return laplace_from_stats_torch(S, C, levels, phi_prior, phi_cov_prior)
@@ -125,44 +129,44 @@ def laplace_from_stats(S, C, levels, phi_prior, phi_cov_prior):
     return _launch(S, C, levels, phi_prior, phi_cov_prior)
 
 
-laplace_from_stats.launches = 0
+reset_launches(laplace_from_stats)
 
 
 def _launch(S, C, levels, phi_prior, phi_cov_prior):
     args, phi, cov = _prepare(S, C, levels, phi_prior, phi_cov_prior)
     _enqueue(args)
-    laplace_from_stats.launches += 1
+    count_launch(laplace_from_stats, phi.dtype)
     return phi, cov
 
 
 def _prepare(S, C, levels, phi_prior, phi_cov_prior):
     """The kernel's arguments for ``_enqueue`` and its outputs (phi,
     cov) in the prior shapes; raises on what the kernel does not take."""
-    if S.dtype != torch.float32:
+    dt = S.dtype
+    if dt not in (torch.float32, torch.float64):
         raise TypeError(
-            f"the CUDA Laplace kernel takes float32 only, got {S.dtype}; "
-            "a float64 fit runs on the CPU in this version")
+            f"the CUDA Laplace kernel takes float32 or float64, got {dt}")
     P1 = S.shape[-1]
     lead = S.shape[:-1]
     dev = S.device
     Sf = S.reshape(-1, P1).contiguous()
-    Cf = torch.as_tensor(C, dtype=torch.float32, device=dev).expand(
+    Cf = torch.as_tensor(C, dtype=dt, device=dev).expand(
         *lead, P1).reshape(-1, P1).contiguous()
-    pp, n_pp = _rows(phi_prior, lead, (2,), dev)
-    pc, n_pc = _rows(phi_cov_prior, lead, (2, 2), dev)
-    lev = torch.as_tensor(levels, dtype=torch.float32, device=dev).contiguous()
+    pp, n_pp = _rows(phi_prior, lead, (2,), dt, dev)
+    pc, n_pc = _rows(phi_cov_prior, lead, (2, 2), dt, dev)
+    lev = torch.as_tensor(levels, dtype=dt, device=dev).contiguous()
     n = Sf.shape[0]
-    phi = torch.empty((*lead, 2), dtype=torch.float32, device=dev)
-    cov = torch.empty((*lead, 2, 2), dtype=torch.float32, device=dev)
+    phi = torch.empty((*lead, 2), dtype=dt, device=dev)
+    cov = torch.empty((*lead, 2, 2), dtype=dt, device=dev)
     return (Sf, Cf, lev, pp, pc, phi, cov, n, P1, n_pp, n_pc), phi, cov
 
 
-def _rows(a, lead, tail, dev):
+def _rows(a, lead, tail, dt, dev):
     """``a`` broadcast to lead + tail, as a contiguous block of its last
     rows [rows, *tail] and their count. The leading dims along which it
     does not vary (stride 0: a prior shared by the experiments of a
     batch) are not copied; the kernel reads lane n at row n mod rows."""
-    a = torch.as_tensor(a, dtype=torch.float32, device=dev).expand(
+    a = torch.as_tensor(a, dtype=dt, device=dev).expand(
         *lead, *tail)
     k = 0
     while k < len(lead) and a.stride(k) == 0:
@@ -178,7 +182,9 @@ def _enqueue(args):
 
     lib = _build.library()
     tensors, sizes = args[:7], args[7:]
-    err = lib.cm_laplace_f32(
+    entry = (lib.cm_laplace_f64 if tensors[0].dtype == torch.float64
+             else lib.cm_laplace_f32)
+    err = entry(
         *(t.data_ptr() for t in tensors), *sizes,
         torch.cuda.current_stream(tensors[0].device).cuda_stream)
     _build.check(lib, err, "laplace")

@@ -17,14 +17,17 @@ launch (``sweep_spikes_pallas_dma_blocked_batched``, the batched fits'
 form). ``_sweep_row_blocks`` is the plain per-row algebra that every
 plain sweep of the port runs, blocked or strictly sequential.
 
-Dispatch: a CPU tensor takes the plain version; a CUDA float32 tensor
-launches ``csrc/sweep_cluster.cuh``; anything else raises. The kernel
-takes any block size (a block above 32 rows runs as sub-steps of at
-most one warp's rows against the block's residual) and any number of
-power levels (1..16 fixed at compile time, more at run time with the
-sums in global scratch). The same kernel runs the strictly sequential
-sweep (1 row a step, ``ops/sweep_row_cuda.py``). :func:`cluster_plan`
-lays out its launch.
+Dispatch: a CPU tensor takes the plain version; a CUDA float32 or
+float64 tensor launches ``csrc/sweep_cluster.cuh`` in that type; any
+other raises. The kernel takes any block size (a block above 32 rows
+runs as sub-steps of at most one warp's rows against the block's
+residual) and any number of power levels (in float32 1..16 fixed at
+compile time, more at run time with the sums in global scratch; in
+float64 always at run time). The same kernel runs the strictly
+sequential sweep (1 row a step, ``ops/sweep_row_cuda.py``).
+:func:`cluster_plan` lays out its launch. Each wrapper counts its
+launches in ``launches`` and, of those, the float64 ones in
+``launches_f64`` (``ops/_counts.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from .._device import highest_matmul
+from ._counts import count_launch, reset_launches
 from .pava import isotonic_fit_at_max_batched
 
 BLOCK = 8                 # rows a step by default
@@ -45,6 +49,7 @@ CLUSTER_THREADS = 512     # threads per CTA (csrc/sweep_cluster.cuh THREADS)
 CLUSTER_SIZES = (16, 8)   # CTAs per experiment: 16 where the card admits it
 SMEM_PER_CTA = 232448     # dynamic shared memory one CTA may take on sm_90
 RING_MAX = 4              # steps of rows prefetched at most
+KERNEL_DTYPES = (torch.float32, torch.float64)
 
 
 def _per_expt(v, E, dtype, device):
@@ -176,11 +181,11 @@ def sweep_spikes_blocked(y, stim, mu, beta, lam, sig, m0, m1, lam_mask,
                   *_expt_axis(m0, m1, lam_mask), powers,
                   *_expt_axis(power_counts, border), msrmp_eff,
                   minimum_spike_count, gate_active, block_size)
-    sweep_spikes_blocked.launches += 1
+    count_launch(sweep_spikes_blocked, out.dtype)
     return out[0]
 
 
-sweep_spikes_blocked.launches = 0
+reset_launches(sweep_spikes_blocked)
 
 
 def sweep_spikes_blocked_batched(y, stim, mu, beta, lam, sig, m0, m1,
@@ -206,37 +211,38 @@ def sweep_spikes_blocked_batched(y, stim, mu, beta, lam, sig, m0, m1,
     out = _launch(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
                   power_counts, border, msrmp_eff, minimum_spike_count,
                   gate_active, block_size)
-    sweep_spikes_blocked_batched.launches += 1
+    count_launch(sweep_spikes_blocked_batched, out.dtype)
     return out
 
 
-sweep_spikes_blocked_batched.launches = 0
+reset_launches(sweep_spikes_blocked_batched)
 
 
 def _kernel_args(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
                 power_counts, msrmp_eff, minimum_spike_count, gate_active,
                 what):
-    """The float32 operands both sweep kernels take, checked: (the ten
-    arrays y, lam_mask, stim, lam, mu, beta, m0, m1, power_counts, powers
-    as contiguous float32 on lam's device, scalars [E, 4] = (sig,
-    msrmp_eff, min_count, gate_active), r = mu @ lam [E, K])."""
-    if lam.dtype != torch.float32:
-        raise TypeError(
-            f"the CUDA {what} kernel takes float32 only, got {lam.dtype}; "
-            "a float64 fit runs on the CPU in this version")
+    """The operands both sweep kernels take, checked, in lam's dtype
+    (float32 or float64): (the ten arrays y, lam_mask, stim, lam, mu,
+    beta, m0, m1, power_counts, powers as contiguous tensors on lam's
+    device, scalars [E, 4] = (sig, msrmp_eff, min_count, gate_active),
+    r = mu @ lam [E, K])."""
+    dt = lam.dtype
+    if dt not in KERNEL_DTYPES:
+        raise TypeError(f"the CUDA {what} kernel takes float32 or float64, "
+                        f"got {dt}")
     E = lam.shape[0]
     if powers.shape[0] < 1:
         raise ValueError(f"the CUDA {what} kernel needs a power level")
     dev = lam.device
 
-    def f32(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+    def cast(a):
+        return torch.as_tensor(a, dtype=dt, device=dev).contiguous()
 
-    scalars = torch.stack([_per_expt(v, E, torch.float32, dev) for v in
+    scalars = torch.stack([_per_expt(v, E, dt, dev) for v in
                            (sig, msrmp_eff, minimum_spike_count, gate_active)],
                           dim=1).contiguous()
-    arrays = [f32(a) for a in (y, lam_mask, stim, lam, mu, beta, m0, m1,
-                               power_counts, powers)]
+    arrays = [cast(a) for a in (y, lam_mask, stim, lam, mu, beta, m0, m1,
+                                power_counts, powers)]
     return arrays, scalars, _residual(arrays[4], arrays[3])
 
 
@@ -255,26 +261,38 @@ class ClusterPlan(NamedTuple):
     smem_bytes: int
 
 
-def cluster_plan(E, K, rows, P=MAX_POWERS, cluster=CLUSTER_SIZES[0]):
+def dynamic_levels(P, item=4):
+    """Whether the kernel takes its level count at run time: above
+    MAX_POWERS levels, and always in float64 (``item`` 8 bytes)."""
+    return P > MAX_POWERS or item == 8
+
+
+def cluster_plan(E, K, rows, P=MAX_POWERS, cluster=CLUSTER_SIZES[0],
+                 item=4):
     """The launch of ``E`` sweeps over ``K`` trials at ``rows`` rows a
     (sub-)step (1..32) and ``P`` power levels (one cluster per
-    experiment, so the layout is the same for every E), as
-    ``csrc/sweep_cluster.cuh`` lays out its shared memory (in floats,
-    each part a multiple of 4): up to 16 levels the exchanged partials
+    experiment, so the layout is the same for every E), in elements of
+    ``item`` bytes (4, float32; 8, float64: half the columns fit on
+    chip), as ``csrc/sweep_cluster.cuh`` lays out its shared memory (in
+    elements, each part a multiple of 4): at a compile-time level count
+    (up to 16 levels, float32) the exchanged partials
     [2, cluster, rows*(P+1)] and the CTA's reduction [warps,
-    rows*(P+1)], above 16 the reduction of one pass [warps,
-    DYN_ROWS*DYN_LEVELS] alone (the partials go to global scratch); the
-    gates (32), the row parameters [2, rows, 4+P] (4 above 16 levels:
-    the counts stay in device memory), the step's first rows and row
+    rows*(P+1)], at a runtime count (:func:`dynamic_levels`) the
+    reduction of one pass [warps, DYN_ROWS*DYN_LEVELS] alone (the
+    partials go to global scratch); the gates (32), the row parameters
+    [2, rows, 4+P] (4 at a runtime count: the counts stay in device
+    memory), the step's first rows and row
     counts (4) and the exchange's two mbarriers (4); then, on chip, r, y
     and mask [cols] and est [rows, cols]; then the ring, ``depth`` slots
     of [rows, 2, cols]."""
     if not 1 <= rows <= MAX_BLOCK or cluster not in CLUSTER_SIZES:
         raise ValueError(f"no cluster sweep at rows={rows}, "
                          f"cluster={cluster}")
+    if item not in (4, 8):
+        raise ValueError(f"no cluster sweep for {item}-byte elements")
     cols = 4 * -(-K // (4 * cluster))
     warps = CLUSTER_THREADS // 32
-    if P > MAX_POWERS:
+    if dynamic_levels(P, item):
         fixed = warps * DYN_ROWS * DYN_LEVELS + 4 * -(-2 * rows * 4 // 4)
     else:
         ns = rows * (P + 1)
@@ -282,33 +300,35 @@ def cluster_plan(E, K, rows, P=MAX_POWERS, cluster=CLUSTER_SIZES[0]):
     fixed += MAX_BLOCK + 8
     resident = (3 + rows) * cols
     slot = 2 * rows * cols
-    limit = SMEM_PER_CTA // 4
+    limit = SMEM_PER_CTA // item
     on_chip = fixed + resident <= limit
     base = fixed + (resident if on_chip else 0)
     depth = min(RING_MAX, (limit - base) // slot)
     return ClusterPlan(cluster, cols, on_chip, depth,
-                       4 * (base + depth * slot))
+                       item * (base + depth * slot))
 
 
 @functools.lru_cache(maxsize=None)
-def _cluster_admitted(rows, P, cluster, on_chip, smem_bytes):
+def _cluster_admitted(rows, P, cluster, on_chip, smem_bytes, item=4):
     """Whether the card can hold one such cluster at a time."""
     from . import _build
 
-    n = _build.library().cm_sweep_cluster_active(rows, P, cluster,
-                                                 int(on_chip), smem_bytes)
+    lib = _build.library()
+    query = (lib.cm_sweep_cluster_active_f64 if item == 8
+             else lib.cm_sweep_cluster_active)
+    n = query(rows, P, cluster, int(on_chip), smem_bytes)
     if n < 0:
-        _build.check(_build.library(), -n, "sweep cluster occupancy query")
+        _build.check(lib, -n, "sweep cluster occupancy query")
     return n > 0
 
 
-def launch_plan(E, K, rows, P):
+def launch_plan(E, K, rows, P, item=4):
     """The plan a launch takes: 16 CTAs per experiment where the card
     admits such a cluster, else 8 (the portable size)."""
     for cluster in CLUSTER_SIZES:
-        plan = cluster_plan(E, K, rows, P, cluster)
+        plan = cluster_plan(E, K, rows, P, cluster, item)
         if _cluster_admitted(rows, P, cluster, plan.on_chip,
-                             plan.smem_bytes):
+                             plan.smem_bytes, item):
             return plan
     raise RuntimeError(f"the card admits no sweep cluster of "
                        f"{CLUSTER_SIZES} CTAs at K={K}, rows={rows}")
@@ -343,21 +363,21 @@ def launch_cluster_sweep(rows, y, stim, mu, beta, lam, sig, m0, m1,
             f"{'border' if rows > 1 else 'order'} must hold {nsteps} "
             f"{'block' if rows > 1 else 'row'} indices per "
             f"experiment, got {tuple(steps.shape)}")
-    dev = lam.device
+    dev, dt = lam.device, arrays[3].dtype
+    item = dt.itemsize
     P = powers.shape[0]
     subs, sub_rows = sub_steps(rows)
-    plan = launch_plan(E, K, sub_rows, P)
+    plan = launch_plan(E, K, sub_rows, P, item)
     steps32 = steps.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(arrays[3])
-    # a long block's update of r, and the exchange above 16 levels
-    dacc = torch.zeros((E, K), dtype=torch.float32, device=dev) \
-        if subs > 1 else None
-    xg = torch.empty(E * 3 * plan.cluster * sub_rows * (P + 1),
-                     dtype=torch.float32, device=dev) \
-        if P > MAX_POWERS else None
+    # a long block's update of r, and the exchange at a runtime level count
+    dacc = torch.zeros((E, K), dtype=dt, device=dev) if subs > 1 else None
+    xg = torch.empty(E * 3 * plan.cluster * sub_rows * (P + 1), dtype=dt,
+                     device=dev) if dynamic_levels(P, item) else None
     lib = _build.library()
+    entry = lib.cm_sweep_cluster_f64 if item == 8 else lib.cm_sweep_cluster_f32
     # r holds mu @ lam and is the kernel's scratch residual off chip
-    err = lib.cm_sweep_cluster_f32(
+    err = entry(
         *(a.data_ptr() for a in arrays), steps32.data_ptr(),
         scalars.data_ptr(), r.data_ptr(), out.data_ptr(),
         None if dacc is None else dacc.data_ptr(),

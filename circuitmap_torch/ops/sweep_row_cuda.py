@@ -18,14 +18,15 @@ One kernel serves all three, the cluster sweep of the blocked sweep
 launches it with one experiment, the batched wrapper with E (one
 cluster each). It takes any K.
 
-Dispatch: a CPU tensor takes the plain version; a CUDA float32 tensor
-launches the kernel; anything else raises.
+Dispatch: a CPU tensor takes the plain version; a CUDA float32 or
+float64 tensor launches the kernel in that type; any other raises.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ._counts import count_launch, reset_launches
 from .sweep_cuda import _expt_axis, _sweep_row_blocks, launch_cluster_sweep
 
 
@@ -75,11 +76,11 @@ def sweep_spikes_row(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
                   *_expt_axis(m0, m1, lam_mask), powers,
                   *_expt_axis(power_counts, order), msrmp_eff,
                   minimum_spike_count, gate_active)
-    sweep_spikes_row.launches += 1
+    count_launch(sweep_spikes_row, out.dtype)
     return out[0]
 
 
-sweep_spikes_row.launches = 0
+reset_launches(sweep_spikes_row)
 
 
 def sweep_spikes_row_batched(y, stim, mu, beta, lam, sig, m0, m1, lam_mask,
@@ -102,11 +103,11 @@ def sweep_spikes_row_batched(y, stim, mu, beta, lam, sig, m0, m1, lam_mask,
     out = _launch(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
                   power_counts, order, msrmp_eff, minimum_spike_count,
                   gate_active)
-    sweep_spikes_row_batched.launches += 1
+    count_launch(sweep_spikes_row_batched, out.dtype)
     return out
 
 
-sweep_spikes_row_batched.launches = 0
+reset_launches(sweep_spikes_row_batched)
 
 
 def _launch(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,

@@ -29,6 +29,9 @@ import time
 import torch
 
 
+TRIAL_AXIS = "trial"  # the mesh's one axis, as the JAX package names it
+
+
 def _device(d):
     d = torch.device(d)
     if d.type == "cuda" and d.index is None and torch.cuda.is_available():

@@ -79,11 +79,14 @@ class ShardData(NamedTuple):
 
 
 def _fit_dtype(mesh, dtype):
+    """The fit's torch dtype. On a mesh with a CUDA shard it must be one
+    the Laplace kernel takes (float32 or float64); the sharded sweep is
+    plain PyTorch and runs at the fit's dtype."""
     dtype = torch_dtype(dtype)
-    if any(d.type == "cuda" for d in mesh.devices) and dtype != torch.float32:
-        raise NotImplementedError(
-            f"the CUDA kernels of this version take float32 only; a "
-            f"{dtype} sharded fit runs on CPU shards")
+    if (any(d.type == "cuda" for d in mesh.devices)
+            and dtype not in (torch.float32, torch.float64)):
+        raise TypeError(f"a sharded fit on CUDA shards runs in float32 or "
+                        f"float64, got {dtype}")
     return dtype
 
 

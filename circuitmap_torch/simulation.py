@@ -63,7 +63,46 @@ def _shifted_psc_batch(tau_r, tau_d, spk_times, amps, T):
 
 def sample_spike_time(power, gamma_beta=1.5e1, min_latency=160):
     """Gamma-distributed spike latency after stimulus onset."""
-    return min_latency + np.random.gamma(1e4 / (power ** 2), gamma_beta)
+    return min_latency + np.random.gamma(alpha(power), gamma_beta)
+
+
+def alpha(power, scale=1e4):
+    """The latency gamma's shape at ``power``, scale / power^2 (the
+    reference's name, simulation.py:197-198)."""
+    return scale / (power ** 2)
+
+
+def get_kernel(tau_r, tau_d):
+    """Bi-exponential PSC kernel closure f(t, delta), host numpy (the
+    reference's simulation.py:200-203)."""
+    def func(t, delta):
+        t = np.asarray(t, dtype=float)
+        return (np.exp(-(t - delta) / tau_d)
+                - np.exp(-(t - delta) / tau_r)) * (t > delta)
+    return func
+
+
+def get_kernels(tau_r, tau_d):
+    """One kernel closure per (tau_r, tau_d) pair."""
+    return [get_kernel(tr, td) for tr, td in zip(tau_r, tau_d)]
+
+
+def eval_kernel(trange, tau_r, tau_d, delta, eps=1e-8):
+    """Peak-normalised delayed bi-exponential kernels, one row per
+    neuron: trange [T]; tau_r, tau_d, delta [n]. Returns [n, T] on the
+    inputs' device (tensors), or on the CPU (arrays), in float32 unless
+    a tensor input is float64 (the reference's simulation.py:217-220,
+    the JAX package's jitted vmap)."""
+    ins = (trange, tau_r, tau_d, delta)
+    tensors = [a for a in ins if isinstance(a, torch.Tensor)]
+    dev = tensors[0].device if tensors else torch.device("cpu")
+    dt = (torch.float64 if any(a.dtype == torch.float64 for a in tensors)
+          else torch.float32)
+    t, tr, td, d = (torch.as_tensor(a, dtype=dt, device=dev) for a in ins)
+    t = t[None, :]
+    tr, td, d = tr[:, None], td[:, None], d[:, None]
+    ke = (torch.exp(-(t - d) / td) - torch.exp(-(t - d) / tr)) * (t > d)
+    return ke / (ke.max(dim=-1, keepdim=True).values + eps)
 
 
 def sample_gp(trial_dur=900, gp_lengthscale=25, gp_scale=0.01, n_samples=1):

@@ -21,8 +21,58 @@ import warnings
 import numpy as np
 import torch
 
+from .._device import torch_dtype
 from ..utils.quant import (PackedInt4Traces, _upsample2, encode_int4_traces,
                            quantise_int8, unpack_int4_codes)
+
+
+# The single-card working-set ceiling of a fit, in float32 elements of
+# one [rows, K] array: the largest N x K that fit on one NVIDIA H100 80GB
+# HBM3 (700.00 W) in the ladder of MEMORY_CLIFF_H100.json (``python -m
+# circuitmap_torch memory-cliff``: caviar, 2 iterations; N=32,000 at
+# K=106,250 fit with a 72.52 GB peak, K=112,500 ran out). No lane
+# padding: the TPU's 128-lane layout does not apply.
+_SINGLE_CARD_ELEM_CLIFF = 32000 * 106250
+
+
+class MemoryEnvelopeWarning(ResourceWarning):
+    """Single-card memory-envelope preflight (warn_single_chip_envelope).
+
+    Subclasses ResourceWarning for its meaning, but is shown always (the
+    filter below): CPython's default filters ignore ResourceWarning,
+    which would silence the preflight in the plain ``python script.py``
+    runs it exists for."""
+
+
+warnings.simplefilter("always", MemoryEnvelopeWarning)
+
+
+def warn_single_chip_envelope(n_rows, k, what="this fit", dtype=None,
+                              device=None):
+    """Warn before a single-card fit whose [n_rows, k] working arrays
+    pass the envelope measured on the H100 (MEMORY_CLIFF_H100.json), so
+    that it can go to the sharded path instead of ending in a CUDA
+    out-of-memory error. The cliff is a byte budget measured with
+    float32 arrays: a wider dtype scales the element count by
+    itemsize/4 (float64 reaches it at half the elements). Advisory,
+    not an error. Silent when ``device`` is the CPU (host memory bounds
+    those); ``None`` means the GPU, as at every entry point. Nothing is
+    allocated. Single-card entries call it; the sharded and distributed
+    paths, whose per-device share is the point, do not."""
+    if torch.device("cuda" if device is None else device).type == "cpu":
+        return
+    itemsize = 4 if dtype is None else torch_dtype(dtype).itemsize
+    elems = int(n_rows) * int(k) * itemsize // 4  # float32-equivalent
+    if elems > _SINGLE_CARD_ELEM_CLIFF:
+        warnings.warn(
+            f"{what} allocates [{n_rows}, {k}] working arrays "
+            f"({elems:.2e} float32-equivalent elements), past the "
+            f"~{_SINGLE_CARD_ELEM_CLIFF:.1e}-element single-card envelope "
+            "measured on an 80 GB H100 (MEMORY_CLIFF_H100.json): expect "
+            "CUDA out-of-memory. Shard the trials over a mesh instead: "
+            "parallel.caviar_sharded(mesh=...) on one host, or "
+            "parallel.distributed.* across processes.",
+            MemoryEnvelopeWarning, stacklevel=3)
 
 
 class DataThinDesignWarning(UserWarning):

@@ -14,7 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.laplace_cuda import laplace_from_stats
+from ..ops.laplace_cuda import (ARMIJO_ALPHA, BACKTRACK_BETA,  # noqa: F401
+                                BARRIER_T, MAX_BACKTRACK, NEWTON_STEPS,
+                                laplace_from_stats)
 
 LAPLACE_IMPLS = ("auto", "cuda")
 
@@ -28,6 +30,15 @@ def resolve_laplace_impl(laplace_impl):
             f"laplace_impl must be one of {LAPLACE_IMPLS}, got "
             f"{laplace_impl!r}")
     return laplace_impl
+
+
+def laplace_from_stats_impl(S, C, levels, phi_prior, phi_cov_prior,
+                            impl="auto"):
+    """The Newton recursion under a ``laplace_impl`` name
+    (:func:`resolve_laplace_impl`): by device, the kernel or its plain
+    version."""
+    resolve_laplace_impl(impl)
+    return laplace_from_stats(S, C, levels, phi_prior, phi_cov_prior)
 
 
 def powercurve_stats(lam, stim, powers, total_trials=None, counts=None):

@@ -42,7 +42,7 @@ from .._device import resolve_device, torch_dtype
 from ..ops.charge import integrated_charge, prepare_observations
 from ..utils.quant import PackedInt4Traces
 from ._common import (_levels, _powers_dev, _stim_on_device, _upload_plan,
-                      prepare_traces)
+                      prepare_traces, warn_single_chip_envelope)
 from ._laplace import laplace_phi_update, resolve_laplace_impl
 from .caviar import (_as, _reconnect_scan_device, _resolve_sweep,
                      _run_caviar, _validate_update_order, power_counts_of,
@@ -287,10 +287,6 @@ def caviar_many(
     """
     dev = _fit_device(mesh, device)
     dtype = torch_dtype(dtype)
-    if dev.type == "cuda" and dtype != torch.float32:
-        raise NotImplementedError(
-            f"the CUDA kernels of this version take float32 only; a "
-            f"{dtype} fit runs with device='cpu'")
     if k_trues is not None:
         k_trues = np.asarray(k_trues, dtype=np.int64)
     from_list = False  # a ragged list, padded here with zero stim
@@ -317,6 +313,11 @@ def caviar_many(
 
     y_pscs, stims_np = _same_shape_stack(y_pscs, stims, trace_wire, dtype)
     B, K, _T = y_pscs.shape
+    if mesh is None:  # a mesh's per-device share is its own business
+        warn_single_chip_envelope(
+            B * stims_np.shape[1], K,
+            what=f"caviar_many() over {B} experiments", dtype=dtype,
+            device=dev)
     if k_trues is not None:
         if (k_trues.shape != (B,) or int(k_trues.min(initial=1)) < 1
                 or int(k_trues.max(initial=1)) > K):
@@ -426,12 +427,7 @@ def _ragged_sequential_guard(name, mesh, compile_mode, powers):
 
 def _float_device(device, dtype, mesh=None):
     dev = _fit_device(mesh, device)
-    dtype = torch_dtype(dtype)
-    if dev.type == "cuda" and dtype != torch.float32:
-        raise NotImplementedError(
-            f"the CUDA fits of this version run in float32 only; a "
-            f"{dtype} fit runs with device='cpu'")
-    return dev, dtype
+    return dev, torch_dtype(dtype)
 
 
 def _split(finals, fields):
@@ -496,6 +492,11 @@ def sns_many(
 
     y_pscs, stims_np = _same_shape_stack(y_pscs, stims, trace_wire, dtype)
     B, K, _T = y_pscs.shape
+    if mesh is None:  # a mesh's per-device share is its own business
+        warn_single_chip_envelope(
+            B * stims_np.shape[1], K,
+            what=f"sns_many() over {B} experiments", dtype=dtype,
+            device=dev)
     mode = _resolve_mode(compile_mode, mesh)
     powers_np = _validate_shared_levels(stims_np, powers)
     if verbose:
@@ -622,6 +623,11 @@ def mbcs_many(
 
     y_pscs, stims_np = _same_shape_stack(y_pscs, stims, trace_wire, dtype)
     B, K, _T = y_pscs.shape
+    if mesh is None:  # a mesh's per-device share is its own business
+        warn_single_chip_envelope(
+            B * stims_np.shape[1], K,
+            what=f"mbcs_many() over {B} experiments", dtype=dtype,
+            device=dev)
     N = np.asarray(mu_prior).shape[0]
     mode = _resolve_mode(compile_mode, mesh)
     powers_np = _validate_shared_levels(stims_np, powers)

@@ -34,7 +34,8 @@ from .._device import resolve_device, torch_dtype
 from ..ops.charge import integrated_charge
 from ..ops.sweep_row_cuda import sweep_spikes_row
 from ._common import (prepare_stim, prepare_traces, stim_upload_plan,
-                      warn_data_thin_design_dense)
+                      warn_data_thin_design_dense,
+                      warn_single_chip_envelope)
 from ._laplace import laplace_phi_update, resolve_laplace_impl
 from ..ops.sweep_row_cuda import sweep_spikes_row_batched
 from .caviar import (_as, _each_expt, _each_stream, _mv,
@@ -321,20 +322,18 @@ def cavi_sns(
     arrays (shape and rate widened to [iters, K]) or None unless
     ``save_histories``. The reference disables the activity mask for
     this solver: every trial takes part (``y_xcorr_thresh`` is accepted
-    for the signature). CUDA fits are float32; a float64 fit runs on the
-    CPU.
+    for the signature). A CUDA fit launches the kernels in its dtype
+    (float32 or float64).
     """
     dev = resolve_device(device)
     dtype = torch_dtype(dtype)
-    if dev.type == "cuda" and dtype != torch.float32:
-        raise NotImplementedError(
-            f"the CUDA kernels of this version take float32 only; a "
-            f"{dtype} fit runs with device='cpu'")
     resolve_laplace_impl(laplace_impl)
     update_order = _validate_update_order(str(update_order))
     if verbose:
         print("Running CAVI-SnS (PyTorch).")
 
+    warn_single_chip_envelope(*np.shape(stim), what="cavi_sns()", dtype=dtype,
+                              device=dev)
     stim_np, plan = stim_upload_plan(stim, None)
     y_psc = prepare_traces(y_psc, dtype, dev, trace_wire=trace_wire)
     stim_t, _, _, powers_dev_np = prepare_stim(stim_np, dtype, dev,

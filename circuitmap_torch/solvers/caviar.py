@@ -47,7 +47,8 @@ from ..ops.sweep_row_cuda import (sweep_spikes_row, sweep_spikes_row_batched,
                                   sweep_spikes_row_torch)
 from ..ops.truncnorm import sample_truncated_normal, truncated_normal_mean
 from ._common import (prepare_stim_and_init, prepare_traces,
-                      stim_upload_plan, warn_data_thin_design)
+                      stim_upload_plan, warn_data_thin_design,
+                      warn_single_chip_envelope)
 from ._laplace import laplace_phi_update, resolve_laplace_impl
 from .diagnostics import elbo_device
 
@@ -527,8 +528,8 @@ def caviar(
     ``save_histories``.
 
     ``sweep_impl``/``laplace_impl`` take "auto" or "cuda" (both dispatch
-    by device: the kernels on CUDA float32, the plain versions on the
-    CPU). CUDA fits are float32; a float64 fit runs on the CPU.
+    by device: the kernels on CUDA, in float32 or float64 as the fit's
+    dtype, the plain versions on the CPU).
 
     ``sweep_block_size="auto"`` is 8 on CUDA at any K and 1 on the CPU;
     a pinned size is honoured on every device (``_resolve_sweep``), as
@@ -544,10 +545,6 @@ def caviar(
     """
     dev = resolve_device(device)
     dtype = torch_dtype(dtype)
-    if dev.type == "cuda" and dtype != torch.float32:
-        raise NotImplementedError(
-            f"the CUDA kernels of this version take float32 only; a "
-            f"{dtype} fit runs with device='cpu'")
     block_size = _resolve_sweep(sweep_impl, sweep_block_size, dev,
                                 k=np.shape(stim)[-1])
     resolve_laplace_impl(laplace_impl)
@@ -555,6 +552,8 @@ def caviar(
     if verbose:
         print("Running CAVIaR (PyTorch).")
 
+    warn_single_chip_envelope(*np.shape(stim), what="caviar()", dtype=dtype,
+                              device=dev)
     stim_np, plan = stim_upload_plan(stim, powers)
     y_psc = prepare_traces(y_psc, dtype, dev, trace_wire=trace_wire)
     y, active = prepare_observations(y_psc, y_xcorr_thresh)

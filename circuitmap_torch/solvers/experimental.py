@@ -128,10 +128,6 @@ def mbcs_ard(y_psc, stim, iters=30, seed=0, relevance_cap=1e4,
     """
     dev = resolve_device(device)
     dtype = torch_dtype(dtype)
-    if dev.type == "cuda" and dtype != torch.float32:
-        raise NotImplementedError(
-            f"the CUDA kernels of this version take float32 only; a "
-            f"{dtype} fit runs with device='cpu'")
     if verbose:
         print("Running MBCS-ARD (experimental, PyTorch).")
     data, state = _ard_inputs(y_psc, stim, init_spike_prior, dtype, dev)

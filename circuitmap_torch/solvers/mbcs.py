@@ -27,7 +27,8 @@ import torch
 from .._device import highest_matmul, resolve_device, torch_dtype
 from ..ops.charge import integrated_charge
 from ..ops.pava import isotonic_regression_batched
-from ._common import prepare_stim, prepare_traces, warn_data_thin_design_dense
+from ._common import (prepare_stim, prepare_traces,
+                      warn_data_thin_design_dense, warn_single_chip_envelope)
 from .caviar import _as, _each_expt, _each_stream, _mv, _vm, seeded_generator
 
 
@@ -464,10 +465,6 @@ def mbcs(
     del num_mc_samples, warm_start_lasso, learn_noise
     dev = resolve_device(device)
     dtype = torch_dtype(dtype)
-    if dev.type == "cuda" and dtype != torch.float32:
-        raise NotImplementedError(
-            f"the CUDA fits of this version run in float32 only; a "
-            f"{dtype} fit runs with device='cpu'")
     if verbose:
         print("Running MBCS (PyTorch).")
 
@@ -478,6 +475,8 @@ def mbcs(
     lam_mask = _as(_activity_mask(
         traces if isinstance(y_psc, torch.Tensor) else y_psc,
         y_xcorr_thresh, lam_mask_fraction), dtype, dev)
+    warn_single_chip_envelope(*np.shape(stim), what="mbcs()", dtype=dtype,
+                              device=dev)
     stim_t, stim_np, _, powers_dev_np = prepare_stim(stim, dtype, dev)
     warn_data_thin_design_dense(stim_np, what="mbcs()")
     powers_with_zero = _as(np.concatenate([[0.0], powers_dev_np]), dtype, dev)

@@ -125,10 +125,6 @@ class OnlineCaviar:
             self.device = mesh.devices[0]
             self._granule = math.lcm(ALIGN, mesh.n_local)
         self.dtype = torch_dtype(dtype)
-        if self.device.type == "cuda" and self.dtype != torch.float32:
-            raise NotImplementedError(
-                f"the CUDA kernels of this version take float32 only; a "
-                f"{self.dtype} stream runs with device='cpu'")
         if priors is None:
             from ..model import default_priors
 

@@ -22,7 +22,8 @@ from ..ops.charge import prepare_observations
 from ..utils.checkpoint import (GENERATOR_KEY, generator_state, load_state,
                                 restore_generator, save_state)
 from ._common import (prepare_stim_and_init, prepare_traces,
-                      stim_upload_plan, warn_data_thin_design)
+                      stim_upload_plan, warn_data_thin_design,
+                      warn_single_chip_envelope)
 from ._laplace import resolve_laplace_impl
 from .caviar import (CaviarState, _as, _reconnect_and_refit, _resolve_sweep,
                      _run_caviar, power_counts_of, seeded_generator)
@@ -102,13 +103,11 @@ def caviar_resumable(
                       analytic_mc=bool(analytic_mc)))
     dev = resolve_device(device)
     dtype = torch_dtype(dtype)
-    if dev.type == "cuda" and dtype != torch.float32:
-        raise NotImplementedError(
-            f"the CUDA kernels of this version take float32 only; a "
-            f"{dtype} fit runs with device='cpu'")
     block = _resolve_sweep(sweep_impl, sweep_block_size, dev)
     resolve_laplace_impl(laplace_impl)
 
+    warn_single_chip_envelope(*np.shape(stim), what="caviar_resumable()",
+                              dtype=dtype, device=dev)
     stim_np, plan = stim_upload_plan(stim, powers)
     y_psc = prepare_traces(y_psc, dtype, dev, trace_wire=trace_wire)
     y, active = prepare_observations(y_psc, y_xcorr_thresh)

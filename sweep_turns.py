@@ -83,8 +83,9 @@ def main():
         def launch():
             err = clib.cm_sweep_cluster_f32(
                 *(t.data_ptr() for t in arrays), steps.data_ptr(),
-                scalars.data_ptr(), r.data_ptr(), out.data_ptr(), 1, N, K, P,
-                steps.shape[1], rows, plan.cluster, plan.cols,
+                scalars.data_ptr(), r.data_ptr(), out.data_ptr(), None, None,
+                1, N, K, P, steps.shape[1], rows, rows, 1, plan.cluster,
+                plan.cols,
                 int(plan.on_chip), plan.depth, plan.smem_bytes,
                 torch.cuda.current_stream().cuda_stream)
             build.check(clib, err, f"{side} sweep")

@@ -108,3 +108,39 @@ def test_evoked_window_batch_matches_jax():
         *(jnp.asarray(a) for a in (tr, td, div, st, amps)), 900)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-5 * float(np.abs(want).max()))
+
+
+def test_demix_fidelity_at_30hz_matches_jax():
+    """ROADMAP C3, settled: on one timeline (N=50, 30 s at 20 kHz,
+    30 Hz, phase 24's connection probability and spontaneous rate, one
+    seed) demixed on the int4d2 wire by the shipped QAT checkpoint, the
+    port's mean per-trial fidelity R2 is the JAX package's (the
+    timelines are equal; the demixes agree to ~4e-7 of their peak). A
+    30 Hz fidelity below the prediction is the simulation's and the
+    demixer's, not the port's."""
+    from circuitmap_tpu.demix import NeuralDemixer as JaxDemixer
+    from circuitmap_torch.demix import NeuralDemixer
+    from circuitmap_torch.utils.metrics import r2_score
+
+    def fidelity(true, demixed):
+        return float(np.mean([r2_score(t, d) for t, d in zip(true, demixed)
+                              if t.std() > 0]))
+
+    kw = dict(N=50, H=10, expt_len=30 * 20000, stim_freq=30,
+              connection_prob=0.1, spont_rate=3, verbose=False)
+    np.random.seed(0)
+    want = jsim.simulate_continuous_experiment(**kw)
+    np.random.seed(0)
+    got = tsim.simulate_continuous_experiment(device="cpu", **kw)
+    np.testing.assert_array_equal(got["obs_responses"], want["obs_responses"])
+    ck = "demixers/nwd_ie_ChroME2f_int4d2qat.npz"
+    dem_jax = np.asarray(JaxDemixer(path=ck)(
+        want["obs_responses"], transfer_dtype="int4d2", verbose=False))
+    dem = NeuralDemixer(ck, device="cpu")(
+        got["obs_responses"], transfer_dtype="int4d2", verbose=False)
+    np.testing.assert_allclose(dem, dem_jax, rtol=0,
+                               atol=1e-5 * np.abs(dem_jax).max())
+    f_jax = fidelity(want["true_responses"], dem_jax)
+    f_port = fidelity(got["true_responses"], dem)
+    assert f_port >= f_jax - 0.01
+    assert abs(f_port - f_jax) < 1e-4, (f_port, f_jax)

@@ -17,7 +17,15 @@ can fall either way under another reduction order). In a row sweep a
 flip changes every later row through the residual, so with the gate on
 only the decisions are compared. The Laplace kernel computes in double from float32
 inputs and is held to the plain version run in float64 on the same
-inputs, per neuron relative to its largest entry, at 1e-5.
+inputs, per neuron relative to its largest entry, at 1e-5. The float64
+instances (the sweep in double, the Laplace kernel with double I/O) run
+the same algebra as their float64 plain versions. The sweeps: 1e-10 of
+the largest entry, and not one gate decision apart. The Laplace kernel
+with double I/O: within 10 times the distance the float64 plain version
+itself moves when its input S moves by one ulp (``laplace_ulp_spread``:
+~1e-9 on phi, ~1e-8 on cov at these inputs; the card measured the
+kernel 1.0e-8 / 2.8e-8 from it), not 1e-10, which the recursion's own
+conditioning does not allow.
 """
 
 import numpy as np
@@ -467,9 +475,9 @@ def test_laplace_kernel_flattens_batch_dims(cuda):
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda):
     t = _sweep_inputs(16, 200, (45.0, 55.0), device=cuda)
-    with pytest.raises(TypeError, match="float32"):
+    with pytest.raises(TypeError, match="float32 or float64"):
         _sweep(sweep_cuda.sweep_spikes_blocked,
-               {k: (v.double() if v.is_floating_point() else v)
+               {k: (v.half() if v.is_floating_point() else v)
                 for k, v in t.items()}, 1.0)
     with pytest.raises(ValueError, match="block_size"):
         sweep_cuda.sweep_spikes_blocked(
@@ -490,9 +498,106 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         torch.testing.assert_close(call(fn, wide, 0.0),
                                    call(plain_fn, wide, 0.0),
                                    rtol=1e-4, atol=1e-5)
-    args = [a.to(cuda).double() for a in _laplace_stats(8, 4)]
-    with pytest.raises(TypeError, match="float32"):
+    args = [a.to(cuda).half() for a in _laplace_stats(8, 4)]
+    with pytest.raises(TypeError, match="float32 or float64"):
         laplace_cuda.laplace_from_stats(*args)
+
+
+def _f64(t):
+    return {k: (v.double() if v.is_floating_point() else v)
+            for k, v in t.items()}
+
+
+def _hold_f64(ker, plain):
+    """A float64 kernel against its float64 plain version: 1e-10 of the
+    largest entry (the same algebra, sums in another order), and with
+    the gate on not one gate decision apart."""
+    assert ker.dtype == torch.float64
+    assert (ker - plain).abs().max() <= 1e-10 * plain.abs().max()
+    assert torch.equal(ker.sum(-1) == 0, plain.sum(-1) == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,N,K,powers", [
+    (8, 203, 5000, (45.0, 55.0, 65.0)),
+    (12, 100, 3001, (45.0, 55.0, 65.0)),
+    (48, 203, 2000, (45.0, 55.0, 65.0)),
+    (8, 64, 2000, tuple(30.0 + 2.0 * i for i in range(24))),
+    # past the float64 form's on-chip limit (41,344 at 8 rows)
+    (8, 16, 60000, (45.0, 55.0, 65.0)),
+])
+def test_sweep_kernel_matches_plain_float64(cuda, block, N, K, powers):
+    t = _f64(_sweep_inputs(N, K, powers, device=cuda, block=block,
+                           H=max(1, N // 10)))
+    on_chip = sweep_cuda.launch_plan(
+        1, K, sweep_cuda.sub_steps(block)[1], len(powers), 8).on_chip
+    assert on_chip == (K < 41344)
+    fn = sweep_cuda.sweep_spikes_blocked
+    before, before64 = fn.launches, fn.launches_f64
+    for gate in (0.0, 1.0):
+        _hold_f64(_sweep(fn, t, gate, block_size=block),
+                  _sweep(sweep_cuda.sweep_spikes_blocked_torch, t, gate,
+                         block_size=block))
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_f64) == (before + 2, before64 + 2)
+
+
+@pytest.mark.cuda
+def test_row_and_batched_kernels_match_plain_float64(cuda):
+    t = _f64(_stacked(3, 101, 3000, (45.0, 55.0, 65.0), cuda, seed=4))
+    one = {k: (v if k == "powers" else v[0]) for k, v in t.items()}
+    for gate in (0.0, 1.0):
+        _hold_f64(_row(sweep_row_cuda.sweep_spikes_row, one, gate),
+                  _row(sweep_row_cuda.sweep_spikes_row_torch, one, gate))
+        _hold_f64(_row(sweep_row_cuda.sweep_spikes_row_batched, t, gate),
+                  _row(sweep_row_cuda.sweep_spikes_row_batched_torch, t,
+                       gate))
+        _hold_f64(_sweep(sweep_cuda.sweep_spikes_blocked_batched, t, gate),
+                  _sweep(sweep_cuda.sweep_spikes_blocked_batched_torch, t,
+                         gate))
+    torch.cuda.synchronize()
+    assert sweep_row_cuda.sweep_spikes_row_batched.launches_f64 >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P1", [4, 17, 25])
+def test_laplace_kernel_float64_io(cuda, P1):
+    args = [a.to(cuda).double() for a in _laplace_stats(300, P1, seed=P1)]
+    fn = laplace_cuda.laplace_from_stats
+    before = fn.launches_f64
+    phi, cov = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches_f64 == before + 1 and phi.dtype == torch.float64
+    errs = _laplace_errors((phi, cov), laplace_cuda.laplace_from_stats_torch(
+        *args))
+    spread = laplace_ulp_spread(*args)
+    assert all(e <= 10 * s for e, s in zip(errs, spread)), (errs, spread)
+
+
+def _laplace_errors(got, want):
+    """(phi's largest difference over its largest entry, the largest
+    per-neuron difference of cov over that neuron's largest entry)."""
+    (phi, cov), (phi64, cov64) = got, want
+    per = (cov - cov64).abs().flatten(1).amax(1) \
+        / cov64.abs().flatten(1).amax(1)
+    return ((phi - phi64).abs().max() / phi64.abs().max()).item(), \
+        per.max().item()
+
+
+def laplace_ulp_spread(S, C, levels, pp, pc, seed=0):
+    """How far the float64 plain version moves when S moves by one ulp
+    (each entry up or down at random): ``_laplace_errors`` of the two.
+    The recursion is ill-conditioned at closely spaced levels (the 2x2
+    Hessian) and its Armijo ties fall either way, so on these inputs it
+    moves by ~1e-9 (phi) and ~1e-8 (cov): no float64 implementation that
+    sums in another order can sit closer than that to it."""
+    g = torch.Generator(device=S.device).manual_seed(seed)
+    sign = torch.randint(0, 2, S.shape, generator=g, device=S.device).to(
+        S.dtype) * 2 - 1
+    nudged = S * (1 + sign * torch.finfo(S.dtype).eps)
+    return _laplace_errors(
+        laplace_cuda.laplace_from_stats_torch(nudged, C, levels, pp, pc),
+        laplace_cuda.laplace_from_stats_torch(S, C, levels, pp, pc))
 
 
 def test_cpu_tensors_take_the_plain_versions():

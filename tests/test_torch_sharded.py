@@ -246,8 +246,13 @@ def one_rank_group(monkeypatch):
     monkeypatch.setattr(dist, "get_rank", lambda group=None: 0)
 
 
-def test_float64_on_cuda_shards_raises(sim):
+def test_float64_resolves_on_cuda_shards(sim):
     mesh = TrialMesh.__new__(TrialMesh)
     mesh.devices = (torch.device("cuda", 0),)
-    with pytest.raises(NotImplementedError, match="float32 only"):
-        sharded._fit_dtype(mesh, torch.float64)
+    assert sharded._fit_dtype(mesh, torch.float64) == torch.float64
+    assert sharded._fit_dtype(mesh, "float64") == torch.float64
+    assert sharded._fit_dtype(mesh, np.float32) == torch.float32
+    with pytest.raises(TypeError, match="float32 or float64"):
+        sharded._fit_dtype(mesh, torch.float16)
+    mesh.devices = (torch.device("cpu"),)
+    assert sharded._fit_dtype(mesh, torch.float16) == torch.float16

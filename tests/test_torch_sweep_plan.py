@@ -76,3 +76,41 @@ def test_plans_above_the_compile_time_levels(P):
         plan = cluster_plan(1, 20000, rows, P)
         assert plan == cluster_plan(1, 20000, rows, 17)
         assert plan.on_chip and plan.smem_bytes <= sweep_cuda.SMEM_PER_CTA
+
+
+def _largest_on_chip_k(rows, P, item):
+    lo, hi = 4, 2_000_000
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if cluster_plan(1, mid, rows, P, 16, item).on_chip:
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+@pytest.mark.parametrize("rows", [1, 8, 32])
+def test_float64_plan_halves_the_on_chip_limit(rows):
+    # in float64 (8-byte elements) the kernel's layout is always the
+    # runtime-level one; against float32 in that layout (24 levels), the
+    # largest K whose slice stays on chip is about half (the fixed parts
+    # do not halve), and the float32 limit at the main path's 3 levels
+    # stays where it was
+    k4, k8 = (_largest_on_chip_k(rows, 24, item) for item in (4, 8))
+    assert 0.49 < k8 / k4 <= 0.5
+    assert _largest_on_chip_k(rows, 3, 8) == k8
+    assert _largest_on_chip_k(1, 3, 4) == 231424
+    plan = cluster_plan(1, k8, rows, 3, 16, 8)
+    assert plan.on_chip and plan.smem_bytes <= sweep_cuda.SMEM_PER_CTA
+    assert not cluster_plan(1, k8 + 1, rows, 3, 16, 8).on_chip
+
+
+def test_float64_plans_at_the_main_path_width():
+    # N=1000/K=20000 in float64: on chip at 8 rows and at one row; the
+    # K=60000 sweep of the float64 off-chip check is not
+    assert cluster_plan(1, 20000, 8, 3, 16, 8).on_chip
+    assert cluster_plan(4, 15000, 1, 3, 16, 8).on_chip
+    assert not cluster_plan(1, 60000, 8, 3, 16, 8).on_chip
+    assert sweep_cuda.dynamic_levels(3, 8) and not sweep_cuda.dynamic_levels(3)
+    with pytest.raises(ValueError, match="2-byte"):
+        cluster_plan(1, 100, 8, 3, 16, 2)
