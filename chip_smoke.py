@@ -98,7 +98,21 @@ name its two uses.
   ``memory-cliff --quick`` and ``compile-study --warm-only`` in
   processes of their own, ``profile-fit``, ``profile-demixer``,
   ``profile-online``, ``scaling-study --quick`` and ``wire-study`` (one
-  seed) in process, every output in a temporary directory.
+  seed) in process, every output in a temporary directory;
+* the host library (phase 31, ``phase_native``): the stim sparsify, the
+  int4d2 and int8 encodes, the int4d2 decode and the windows with their
+  charges of phase 24's timeline, each at full size bit for bit against
+  its numpy version, host ms of both; then the host stages it now
+  carries (phase 30's ``profile-fit`` stim upload and ``profile-demixer``
+  host encode, phase 5's end to end and fit only);
+* data-parallel demixer training (phase 32, ``phase_mesh_training``):
+  ``NeuralDemixer.train(mesh=["cuda:0"] * 2)`` on phase 22's data, its
+  first 3 steps and those of ``mesh=["cuda:0", "cpu"]`` (two replicas,
+  the global batch's BatchNorm) against the one-device steps, one epoch
+  of each (val loss within 5%), a profiled 100-step mesh epoch;
+* the sweep-frontier study (phase 33, ``phase_frontier``) at N=1000,
+  K=20000, seed 0: blocks 1, 8, 10, 12, 16 and perm8, each arm's
+  truth-R2 at least 0.98.
 
 The sweep is held against its plain version at both schedules at
 N=1000/K=20000 and N=200/K=100000, at one row a step at N=16/K=300000
@@ -647,7 +661,8 @@ def phase_main_path():
     log(f"fit-only median of 3 warm runs: {statistics.median(fit_only):.4f} s "
         f"{fit_only}")
     log(f"truth-R2 {r2:.6f} (JAX package on this data: 0.9968)")
-    return by_path, sim, dem, model, statistics.median(e2e)
+    return (by_path, sim, dem, model, statistics.median(e2e),
+            statistics.median(fit_only))
 
 
 def profiled(fn, label):
@@ -656,7 +671,8 @@ def profiled(fn, label):
     busy time and idle share (1 - the union of device intervals / the
     span) and the 10 device operations with the most total time. Returns
     the device rows of ``key_averages()``, None where the profiler saw
-    no device time."""
+    no device time; ``profiled.last`` keeps the wall and busy ms and the
+    idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -686,6 +702,8 @@ def profiled(fn, label):
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     fit_us = span.end - span.start
+    profiled.last = dict(wall_ms=fit_us / 1e3, busy_ms=busy / 1e3,
+                         idle=1 - busy / fit_us)
     rows = [a for a in prof.key_averages()
             if a.device_type == cuda and a.key != label]
     rows.sort(key=lambda a: a.self_device_time_total, reverse=True)
@@ -2123,7 +2141,8 @@ def phase_continuous(trained):
     probability 0.1, 3 Hz spontaneous events), its windows demixed on the
     int4d2 wire by the shipped QAT checkpoint and by phase 22's network
     (mean per-trial R2 against the true responses), and a 50-iteration
-    CAVIaR fit of the shipped demix. Hold: no NaN."""
+    CAVIaR fit of the shipped demix. Hold: no NaN. Returns the launches,
+    the record and the timeline with its stim times (phase 31)."""
     from circuitmap_torch import Model, NeuralDemixer, \
         simulate_continuous_experiment
     from circuitmap_torch.utils.metrics import r2_score
@@ -2156,7 +2175,8 @@ def phase_continuous(trained):
         if np.isnan(np.asarray(model.state[key])).any():
             raise AssertionError(f"continuous fit: posterior {key} is NaN")
     return launches, dict(sim_s=sim_s, fidelity_r2=r2s, fit_s=fit_s,
-                          truth_r2=r2, windows=int(obs.shape[0]))
+                          truth_r2=r2, windows=int(obs.shape[0])), \
+        (expt["pscs"], expt["stim_times"])
 
 
 def phase_analysis(sim, dem, model):
@@ -3353,35 +3373,45 @@ def wf_distributed(tmp, dem, sim, rec, paths):
     return secs
 
 
-QAT_RTOL = 1e-4  # training on the card sums in another order each run
+# both fine-tunes run with torch.backends.cudnn.deterministic set, so
+# training repeats bit for bit (the U-Net resize's backward is a product)
+QAT_RTOL = 0.0
 
 
 def wf_demixer(tmp, rec, paths):
     """train-qat-demixer (int4d2, 5,000 pairs, 1 epoch) against the same
     fine-tune in process (the pairs drawn with the same seeds, the wire
-    rule applied, ``train``): the epoch's losses and the trained state
-    within QAT_RTOL (state-wide, as phase 22). Then export-ckpt of what
-    the command wrote, reloaded. Neither launches a fit kernel."""
+    rule applied, ``train``), both with cuDNN's deterministic
+    algorithms: the epoch's losses and the trained state within QAT_RTOL
+    (state-wide, as phase 22). Then export-ckpt of what the command
+    wrote, reloaded. Neither launches a fit kernel."""
     import torch
     from circuitmap_torch.demix import convert
     from circuitmap_torch.demix.demixer import NeuralDemixer, wire_transform
 
-    np.random.seed(0)
-    qat = f"{tmp}/qat.npz"
-    out, secs, launches = cli_command(
-        "train-qat-demixer", ["--decimate", 2, "--size", 5000, "--epochs", 1,
-                              "--pretrained", TRAIN_BASE, "--out", qat])
-    paths["cmd_train_qat_demixer"] = launches
-    meta = json.loads(out.strip().splitlines()[-1])
-    if meta["device"] != torch.cuda.get_device_name(0):
-        raise AssertionError(f"train-qat-demixer record {meta}")
-    np.random.seed(0)
-    dm = NeuralDemixer(str(TRAIN_BASE), seed=0)
-    dm.generate_training_data(**dict(QAT_DATA, size=5000))
-    dm.training_data, dm.test_data = (
-        (wire_transform(x, bits=4, decimate=2), y)
-        for x, y in (dm.training_data, dm.test_data))
-    (hist,) = dm.train(epochs=1, learning_rate=2e-3, seed=0, verbose=False)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        np.random.seed(0)
+        qat = f"{tmp}/qat.npz"
+        out, secs, launches = cli_command(
+            "train-qat-demixer", ["--decimate", 2, "--size", 5000,
+                                  "--epochs", 1, "--pretrained", TRAIN_BASE,
+                                  "--out", qat])
+        paths["cmd_train_qat_demixer"] = launches
+        meta = json.loads(out.strip().splitlines()[-1])
+        if meta["device"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"train-qat-demixer record {meta}")
+        np.random.seed(0)
+        dm = NeuralDemixer(str(TRAIN_BASE), seed=0)
+        dm.generate_training_data(**dict(QAT_DATA, size=5000))
+        dm.training_data, dm.test_data = (
+            (wire_transform(x, bits=4, decimate=2), y)
+            for x, y in (dm.training_data, dm.test_data))
+        (hist,) = dm.train(epochs=1, learning_rate=2e-3, seed=0,
+                           verbose=False)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     loss_d = max(abs(meta[f"final_{k}"] - hist[k]) / abs(hist[k])
                  for k in ("train_loss", "val_loss"))
     state_d = state_rel_diff(convert.load_params(qat), dm.net.state_dict())
@@ -4113,6 +4143,206 @@ def phase_commands():
     return paths, rec
 
 
+# -- phases 31-33: the host library, data-parallel training, the frontier --
+
+def same_bits(a, b):
+    """True iff two results (arrays, tuples of arrays, None or a string)
+    are equal bit for bit."""
+    if isinstance(a, tuple) or isinstance(b, tuple):
+        return (isinstance(a, tuple) and isinstance(b, tuple)
+                and len(a) == len(b)
+                and all(same_bits(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray) and isinstance(b, np.ndarray):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and np.array_equal(np.ascontiguousarray(a).view(np.uint8),
+                                   np.ascontiguousarray(b).view(np.uint8)))
+    return a == b
+
+
+def host_ms(fn, reps=5):
+    """Median host milliseconds of ``fn`` over ``reps`` runs."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_native(sim, timeline, main_e2e_s, main_fit_s, commands):
+    """Phase 31: the host library (``circuitmap_torch/utils/native.py``)
+    on the main map, each function at full size against its numpy
+    version, bit for bit, with host ms (median of 5) of both: the stim
+    sparsify of the 1000 x 20,000 stim (``solvers/_common._sparsify``,
+    float64 in simulate's Fortran layout), the int4d2 and int8 encodes of the
+    20,000 x 900 traces and the int4d2 decode (``utils/quant.py``'s
+    calls), and the windows with their charges of phase 24's timeline
+    (``utils/io.window_continuous_recording``'s call). Then the host
+    stages the library now carries: ``profile-fit``'s stim upload and
+    init and ``profile-demixer``'s host encode (phase 30), beside phase
+    5's end to end and fit only."""
+    from circuitmap_torch.solvers import _common
+    from circuitmap_torch.utils import io, native, quant
+
+    log("phase 31: the host library on the main map, native against "
+        "plain (numpy), bit for bit")
+    t0 = time.time()
+    native.library()
+    log(f"host library ready in {time.time() - t0:.2f} s "
+        f"({'built' if native.built else 'cached'}, "
+        f"{native.library_path().name})")
+    stim, psc = sim["stim_matrix"], sim["psc"]
+    levels = np.asarray((0.0, *POWERS), np.float32)
+    packed, scale = quant.encode_int4_traces(psc, decimate=2)
+    pscs, stim_times = timeline
+    cases = [
+        ("sparsify_stim", lambda: _common._sparsify(stim, levels),
+         lambda: native.sparsify_stim_plain(
+             stim, levels, _common.hologram_cap(stim.shape[0]))),
+        ("encode_int4d2", lambda: quant.encode_int4_traces(psc, 2),
+         lambda: native.encode_traces_int4_plain(psc, 2)),
+        ("encode_int8", lambda: quant.quantise_int8(psc),
+         lambda: native.encode_traces_int8_plain(psc)),
+        ("decode_int4d2",
+         lambda: quant.decode_int4_traces(packed, scale, psc.shape[1], 2),
+         lambda: native.decode_traces_int4_plain(packed, scale,
+                                                 psc.shape[1], 2)),
+        ("extract_windows_with_charge",
+         lambda: io.window_continuous_recording(pscs, stim_times,
+                                                with_charge=True),
+         lambda: native.extract_windows_with_charge_plain(pscs,
+                                                          stim_times)),
+    ]
+    rec = {}
+    for name, fast, plain in cases:
+        got, want = fast(), plain()
+        if not same_bits(got, want):
+            raise AssertionError(f"host library {name}: not bit for bit its "
+                                 "numpy version")
+        rec[name] = dict(native_ms=host_ms(fast), plain_ms=host_ms(plain))
+        log(f"{name}: bit for bit; native {rec[name]['native_ms']:.3f} ms, "
+            f"plain {rec[name]['plain_ms']:.3f} ms "
+            f"({rec[name]['plain_ms'] / rec[name]['native_ms']:.1f}x)")
+    stages = commands["profile-fit"]["stages_best_ms"]
+    rec["profile_fit_stim_prep_ms"] = stages["stim_prep"]
+    rec["profile_demixer_host_encode_ms"] = commands["profile-demixer"][
+        "host_encode_ms"]
+    rec["main_e2e_s"], rec["main_fit_s"] = main_e2e_s, main_fit_s
+    log(f"the stages it carries: profile-fit stim upload and init "
+        f"{stages['stim_prep']:.3f} ms, profile-demixer host encode "
+        f"{rec['profile_demixer_host_encode_ms']:.3f} ms; phase 5: end to "
+        f"end {main_e2e_s:.4f} s, fit only {main_fit_s:.4f} s")
+    return rec
+
+
+MESH_TRAIN = ["cuda:0"] * 2  # phase 32's mesh: two shards of the card
+# and a mesh of two devices, the card and the host: global BatchNorm's
+# psums across replicas and their gradients' sum before each step
+MESH_TRAIN_REPLICAS = ["cuda:0", "cpu"]
+
+
+def phase_mesh_training(trained):
+    """Phase 32: ``NeuralDemixer.train(mesh=["cuda:0"] * 2)`` on phase
+    22's data (50,000 int4d2-wire pairs, lr 2e-3, batch 64), from
+    demixers/nwd_ie_ChroME2f.npz. Shards on one device run as one part
+    of the batch, so this mesh runs the one-device step; the first 3
+    steps also run on ``MESH_TRAIN_REPLICAS`` (the card and the host,
+    two replicas with the global batch's BatchNorm). Holds: the first 3
+    steps (train on its first 3 batches' pairs) of both meshes within
+    1e-4 of the state of the same steps on one device; one epoch's
+    validation loss within 5% of the one-device epoch's. Prints each
+    epoch's s and steps/s and the idle share of a profiled 100-step
+    mesh epoch."""
+    import torch
+    from circuitmap_torch import NeuralDemixer
+    from circuitmap_torch.parallel import trial_mesh
+
+    log(f"phase 32: data-parallel demixer training, train(mesh="
+        f"{MESH_TRAIN}), phase 22's data")
+    mesh = trial_mesh(devices=MESH_TRAIN)
+    (x_tr, y_tr), (x_te, y_te) = trained.training_data, trained.test_data
+    lr, batch = 2e-3, 64
+
+    def run(mesh, train, test, epochs=1, seed=0):
+        d = NeuralDemixer(str(TRAIN_BASE))
+        d.training_data, d.test_data = train, test
+        torch.cuda.synchronize()
+        t0 = time.time()
+        hist = d.train(epochs=epochs, learning_rate=lr, batch_size=batch,
+                       seed=seed, verbose=False, mesh=mesh)
+        torch.cuda.synchronize()
+        return d, hist, time.time() - t0
+
+    rows = np.random.default_rng(0).permutation(x_tr.shape[0])[:3 * batch]
+    few = (x_tr[rows], y_tr[rows])
+    no_test = (x_te[:0], y_te[:0])
+    one, _, _ = run(None, few, no_test)
+    rec = {}
+    for key, m in (("three_steps_rel", mesh),
+                   ("three_steps_rel_replicas",
+                    trial_mesh(devices=MESH_TRAIN_REPLICAS))):
+        two, _, _ = run(m, few, no_test)
+        rec[key] = rel = state_rel_diff(two.net.state_dict(),
+                                        one.net.state_dict())
+        log(f"3 steps, {m} vs one device: max |diff| / max |entry| over "
+            f"the state {rel:.3e}")
+        if rel > 1e-4:
+            raise AssertionError(f"{m}'s first 3 training steps differ "
+                                 f"from the one-device steps by {rel:.3e} "
+                                 "> 1e-4")
+    n_steps = x_tr.shape[0] // batch
+    for name, m in (("single", None), ("mesh", mesh)):
+        _, hist, secs = run(m, trained.training_data, trained.test_data)
+        rec[name] = dict(epoch_s=secs, steps_per_s=n_steps / secs,
+                         **hist[0])
+        log(f"{name}: one epoch ({n_steps} steps) in {secs:.2f} s, "
+            f"{n_steps / secs:.1f} steps/s; {hist[0]}")
+    v1, v2 = rec["single"]["val_loss"], rec["mesh"]["val_loss"]
+    if not abs(v2 - v1) <= 0.05 * abs(v1):
+        raise AssertionError(f"mesh epoch's val loss {v2:.6f} is not within "
+                             f"5% of the one-device epoch's {v1:.6f}")
+    n_prof = PROFILED_STEPS * batch
+    profiled(lambda: run(mesh, (x_tr[:n_prof], y_tr[:n_prof]), no_test,
+                         seed=1),
+             f"mesh_train_epoch_of_{PROFILED_STEPS}_steps")
+    rec["profiled"] = getattr(profiled, "last", None)
+    return rec
+
+
+def phase_frontier():
+    """Phase 33: the sweep-frontier study
+    (``circuitmap_torch.scripts.sweep_frontier_study``) at N=1000,
+    K=20000, seed 0, 50 iterations, every arm of its grid (blocks 1, 8,
+    10, 12, 16 and perm8; the JAX study's xla8 has no counterpart), on
+    the int4 wire with its QAT checkpoint. Holds: every arm's truth-R2
+    >= 0.98. Returns (the launches of the study, its rows)."""
+    import contextlib
+    import io as _io
+    import tempfile
+
+    from circuitmap_torch.scripts import sweep_frontier_study as sf
+
+    log("phase 33: the sweep-frontier study at N=1000, K=20000, seed 0")
+    blocks = sf.grid(False)[2]
+    qat = HERE / "demixers" / "nwd_ie_ChroME2f_int4qat.npz"
+    reset_counts()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(_io.StringIO()):
+        rows = sf.run_study([(N, K)], [0], blocks, 50, None,
+                            f"{tmp}/frontier.json", str(qat))
+    launches = kernel_launches(read_counts())
+    log(f"{len(rows)} arms in {time.time() - t0:.1f} s; launches {launches}")
+    for row in rows:
+        log(f"  B={row['block']}: truth-R2 {row['r2']:.4f}, warm "
+            f"{row['fit_warm_s']:.3f} s, cold {row['fit_cold_s']:.1f} s, "
+            f"launches {row['launches']}")
+    low = [r["block"] for r in rows if not r["r2"] >= 0.98]
+    if low:
+        raise AssertionError(f"frontier arms below truth-R2 0.98: {low}")
+    return launches, rows
+
+
 def main():
     try:
         import torch
@@ -4152,7 +4382,8 @@ def main():
     sweep_rec["long_blocks"] = repaired["blocks"]
     laplace_rec["many_buckets"] = repaired["laplace"]
     paths = {}
-    paths["main"], sim, dem, model, main_e2e_s = phase_main_path()
+    (paths["main"], sim, dem, model, main_e2e_s,
+     main_fit_s) = phase_main_path()
     laplace_profiled_ms = phase_profile(sim, dem)
     row_rec = phase_row_sweep()
     row_rec["p16_max_abs_err"] = wide["row_p16_max_abs_err"]
@@ -4179,7 +4410,8 @@ def main():
     paths.update(fits)
     trained, solvers["training"] = phase_training(sim, dem)
     solvers["template_fit"] = phase_template_fit(dem)
-    paths["continuous"], solvers["continuous"] = phase_continuous(trained)
+    (paths["continuous"], solvers["continuous"],
+     timeline) = phase_continuous(trained)
     solvers["analysis"] = phase_analysis(sim, dem, model)
     serve_paths, solvers["serve"] = phase_serve(
         sim, dem, main_e2e_s, solvers["online"]["steady_median_ms"])
@@ -4193,6 +4425,11 @@ def main():
     paths.update(f64_paths)
     cmd_paths, solvers["commands"] = phase_commands()
     paths.update(cmd_paths)
+    solvers["native"] = phase_native(sim, timeline, main_e2e_s, main_fit_s,
+                                     solvers["commands"])
+    del timeline
+    solvers["mesh_training"] = phase_mesh_training(trained)
+    paths["frontier"], solvers["frontier"] = phase_frontier()
     log(f"solvers: {json.dumps(solvers)}")
     laplace_rec["main_path_profiled_ms"] = laplace_profiled_ms
     records = (sweep_rec, laplace_rec, row_rec, *f64_records)

@@ -14,26 +14,30 @@ and ``train``, SGD on the mean squared error with the JAX package's
 batches (``np.random.default_rng(seed).permutation`` an epoch) and its
 per-epoch history. The training set is uploaded once and each step's
 batch gathered on the device; BatchNorm runs in train mode and keeps
-its running averages (momentum 0.1). Inference and training share one
-``nn.Module``: ``__call__`` puts it in eval mode, ``train`` in train
-mode. Convolutions run with cuDNN's TF32 off in both.
+its running averages (momentum 0.1). ``train(mesh=)`` is data-parallel:
+the batch splits over the mesh's shards, the weights are replicated, and
+BatchNorm normalises with the global batch's statistics, so a step
+equals the one-device step up to the order of its sums. Inference and
+training share one ``nn.Module``: ``__call__`` puts it in eval mode,
+``train`` in train mode. Convolutions run with cuDNN's TF32 off in both.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import time
 
 import numpy as np
 import torch
 
-from .._device import resolve_device, torch_dtype
+from .._device import highest_matmul, resolve_device, torch_dtype
 from ..ops.monotone import monotone_decay_filter
 from ..solvers._common import prepare_traces
 from ..utils.quant import PackedInt4Traces, _pool2, _upsample2
 from . import convert
 from .datagen import generate_psc_dataset
-from .unet import NWDUNet, init_nwd_params
+from .unet import NWDUNet, forward_shards, init_nwd_params
 
 
 def resolve_transfer_dtype(token):
@@ -97,6 +101,45 @@ def wire_transform(traces, bits=4, decimate=1):
     return np.ascontiguousarray(_upsample2(q, T), dtype=np.float32)
 
 
+def _global_batch_norm(mesh, nets, name, hs):
+    """Train-mode BatchNorm of block ``name`` over the mesh's global
+    batch: every shard is normalised with the mean and the biased
+    variance of all the shards' activations ``hs`` [b, C, L] (two psums:
+    the mean, then the centred sum of squares), and each replica's
+    running statistics take the global mean and unbiased variance, as
+    ``nn.BatchNorm1d`` does for one batch. Differentiable: ``psum`` is
+    ``.to()`` and ``+``."""
+    n = sum(h.shape[0] for h in hs) * hs[0].shape[2]
+    mean = [m / n for m in mesh.psum([h.sum(dim=(0, 2)) for h in hs])]
+    cent = [h - m[None, :, None] for h, m in zip(hs, mean)]
+    var = [v / n for v in mesh.psum([torch.square(c).sum(dim=(0, 2))
+                                     for c in cent])]
+    bns = [getattr(net, name).bn for net in nets]
+
+    def update(bn, m, v):
+        with torch.no_grad():
+            bn.running_mean.mul_(1 - bn.momentum).add_(bn.momentum * m)
+            bn.running_var.mul_(1 - bn.momentum).add_(
+                bn.momentum * v * n / max(n - 1, 1))
+            bn.num_batches_tracked.add_(1)
+
+    mesh.rep(update, bns, mean, var)  # once per replica
+    return [c * torch.rsqrt(v + bn.eps)[None, :, None]
+            * bn.weight[None, :, None] + bn.bias[None, :, None]
+            for c, v, bn in zip(cent, var, bns)]
+
+
+def _sum_grads(replicas):
+    """Give every replica the sum of the replicas' gradients (added on
+    the first replica's device, in replica order)."""
+    for params in zip(*(r.parameters() for r in replicas)):
+        total = params[0].grad
+        for q in params[1:]:
+            total = total + q.grad.to(total.device)
+        for q in params:
+            q.grad = total.to(q.device)
+
+
 def mesh_compatible(mesh):
     """True iff ``NeuralDemixer.__call__(mesh=mesh)`` can shard rows: a
     power-of-two shard count up to 1024, the JAX package's rule (there
@@ -139,13 +182,17 @@ class NeuralDemixer:
         self.training_data = None
         self.test_data = None
 
-    def _precision(self, deterministic=False):
+    def _precision(self, deterministic=False, devices=None):
         # the JAX head runs at HIGHEST precision; cuDNN would run a
         # float32 convolution in TF32 by default. ``deterministic``
-        # (inference) takes cuDNN's deterministic algorithms only: the
-        # transposed convolutions' default one sums with atomics, and two
-        # demixes of one block then differ in the last bits
-        if self.device.type == "cuda":
+        # (inference; training when the caller sets
+        # ``torch.backends.cudnn.deterministic``, since it slows the
+        # step) takes cuDNN's deterministic algorithms only: the
+        # transposed convolutions' default one sums with atomics, and
+        # two demixes of one block then differ in the last bits.
+        # ``devices``: where the network runs (a mesh's), else its own
+        # device
+        if any(d.type == "cuda" for d in devices or (self.device,)):
             return torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
                                               deterministic=deterministic)
         return contextlib.nullcontext()
@@ -276,25 +323,49 @@ class NeuralDemixer:
             )
         return self.training_data, self.test_data
 
-    def _loss(self, x, y):
-        """Mean squared error of the network on inputs x [B, T] against
-        targets y [B, T], in the module's current mode."""
-        return torch.mean(torch.square(self.net(x[:, None, :])[:, 0, :] - y))
+    def _loss(self, x, y, net=None):
+        """Mean squared error of ``net`` (the module's own by default) on
+        inputs x [B, T] against targets y [B, T], in its current mode."""
+        net = self.net if net is None else net
+        return torch.mean(torch.square(net(x[:, None, :])[:, 0, :] - y))
 
-    def _val_loss(self, x, y, chunk=4096):
+    def _mesh_loss(self, parts, shares, nets, x, y):
+        """The mean squared error over a global batch x, y [B, T] (on the
+        mesh's first device), split once per distinct device of the mesh
+        (``parts``: a mesh of one shard per device): a device that holds
+        ``shares[j]`` of the mesh's shards takes that many shards' rows,
+        joined, and runs them through its replica ``nets[j]`` in train
+        mode with the global batch's BatchNorm statistics. Shards on one
+        device so share one forward."""
+        rows = x.shape[0] // sum(shares)
+
+        def split(a):
+            return [c.to(d) for c, d in zip(
+                torch.split(a, [rows * s for s in shares]), parts.devices)]
+
+        outs = forward_shards(
+            nets, [a[:, None, :] for a in split(x)],
+            lambda name, hs: _global_batch_norm(parts, nets, name, hs))
+        sq = [torch.sum(torch.square(o[:, 0, :] - b))
+              for o, b in zip(outs, split(y))]
+        return parts.psum(sq)[0] / y.numel()
+
+    def _val_loss(self, x, y, chunk=4096, net=None):
         """Eval-mode MSE over a test set x, y [n, T] on the device, in
         chunks (BatchNorm reads its running statistics, so chunks do not
-        change the value beyond the order of the sum); the module's mode
-        is restored."""
+        change the value beyond the order of the sum) by ``net`` (the
+        module's own by default); its mode is restored."""
         if x.shape[0] == 0:
             return 0.0
-        was_training = self.net.training
-        self.net.eval()
-        with torch.no_grad(), self._precision():
+        net = self.net if net is None else net
+        was_training = net.training
+        net.eval()
+        with torch.no_grad(), self._precision(deterministic=True,
+                                              devices=(x.device,)):
             total = sum(torch.sum(torch.square(
-                self.net(x[i:i + chunk, None, :])[:, 0, :] - y[i:i + chunk]))
+                net(x[i:i + chunk, None, :])[:, 0, :] - y[i:i + chunk]))
                 for i in range(0, x.shape[0], chunk))
-        self.net.train(was_training)
+        net.train(was_training)
         return float(total) / y.numel()
 
     def train(self, epochs=1000, batch_size=64, learning_rate=1e-2,
@@ -311,14 +382,26 @@ class NeuralDemixer:
         ``{"epoch", "train_loss", "val_loss"}`` a epoch: the mean of the
         epoch's step losses and the eval-mode loss on the test set
         afterwards. With ``save_path`` the weights are written (in-repo
-        ``.npz``) every ``save_every`` epochs and at the end. ``mesh=``
-        (data-parallel multi-GPU training) is ROADMAP item A9b, not
-        ported yet.
+        ``.npz``) every ``save_every`` epochs and at the end.
+
+        ``mesh`` (a ``parallel.TrialMesh`` of this process; its shards
+        may share a device): data-parallel training. The pairs go to the
+        mesh's first device; each batch splits along the batch axis over
+        the shards (it must divide over them), and the shards on one
+        device run their rows joined, as one forward (a mesh on one
+        device so runs the one-device step). The weights are
+        replicated once per device (this module's own network where the
+        mesh holds its device), BatchNorm normalises with the global
+        batch's statistics and the loss is the global batch's mean, so a
+        step equals the one-device step up to the order of its sums.
+        Replicas on distinct devices add their gradients before each
+        step and so step alike; this module's network ends with the
+        first shard's weights.
+
+        With ``torch.backends.cudnn.deterministic`` set, training on the
+        card repeats bit for bit (cuDNN's deterministic algorithms; the
+        U-Net's resize then trains as a product, with no atomics).
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (data-parallel multi-GPU training) is ROADMAP item "
-                "A9b and not ported yet")
         if data_path is not None:
             data = np.load(data_path)
             train = (data["training_inputs"], data["training_targets"])
@@ -329,39 +412,71 @@ class NeuralDemixer:
                     "no training data: call generate_training_data() or "
                     "pass data_path")
             train, test = self.training_data, self.test_data
+        n = len(train[0])
+        batch_size = min(batch_size, n)  # datasets smaller than one batch
+        if mesh is None:
+            home, nets = self.device, [self.net]
+        else:
+            from ..parallel.mesh import TrialMesh
+            from ..parallel.sharded import _require_local
+
+            _require_local(mesh, "NeuralDemixer.train(mesh=)")
+            if batch_size % mesh.size:
+                raise ValueError(
+                    f"effective batch_size={batch_size} (dataset n={n}) "
+                    f"must divide over the {mesh.size}-device mesh")
+            home = mesh.devices[0]
+            parts = TrialMesh(mesh.distinct)  # one batch part per device
+            shares = [mesh.devices.count(d) for d in mesh.distinct]
+            nets = [self.net if d == self.device else
+                    copy.deepcopy(self.net).to(d) for d in mesh.distinct]
 
         def up(a):
             return torch.from_numpy(np.ascontiguousarray(
-                a, dtype=np.float32)).to(self.device)
+                a, dtype=np.float32)).to(home)
 
-        x_tr, y_tr, x_te, y_te = (up(a) for a in (*train, *test))
         dtype = next(self.net.parameters()).dtype
-        x_tr, y_tr, x_te, y_te = (a.to(dtype) for a in (x_tr, y_tr, x_te,
-                                                       y_te))
-        n = x_tr.shape[0]
-        batch_size = min(batch_size, n)  # datasets smaller than one batch
+        x_tr, y_tr, x_te, y_te = (up(a).to(dtype) for a in (*train, *test))
         steps = max(n // batch_size, 1)
-        opt = torch.optim.SGD(self.net.parameters(), lr=learning_rate)
+        opts = [torch.optim.SGD(r.parameters(), lr=learning_rate)
+                for r in nets]
+
+        def step(idx):
+            for opt in opts:
+                opt.zero_grad(set_to_none=True)
+            if len(nets) == 1:  # one device: its BatchNorm sees the batch
+                loss = self._loss(x_tr[idx], y_tr[idx], nets[0])
+            else:
+                loss = self._mesh_loss(parts, shares, nets, x_tr[idx],
+                                       y_tr[idx])
+            loss.backward()
+            if len(nets) > 1:
+                _sum_grads(nets)
+            for opt in opts:
+                opt.step()
+            return loss.detach()
+
+        def sync():  # this module's network takes the first replica's weights
+            if nets[0] is not self.net:
+                self.net.load_state_dict(nets[0].state_dict())
+
         rng = np.random.default_rng(seed)
         t0 = time.time()
         history = []
-        self.net.train()
+        for r in nets:
+            r.train()
         try:
-            with self._precision():
+            with self._precision(
+                    deterministic=torch.backends.cudnn.deterministic,
+                    devices=None if mesh is None else mesh.distinct), \
+                    highest_matmul():  # the resize's product (unet._resize)
                 for epoch in range(epochs):
                     perm = torch.from_numpy(
                         rng.permutation(n)[: steps * batch_size].reshape(
-                            steps, batch_size)).to(self.device)
-                    losses = []
-                    for s in range(steps):
-                        idx = perm[s]
-                        opt.zero_grad(set_to_none=True)
-                        loss = self._loss(x_tr[idx], y_tr[idx])
-                        loss.backward()
-                        opt.step()
-                        losses.append(loss.detach())
+                            steps, batch_size)).to(home)
+                    losses = [step(perm[s]) for s in range(steps)]
                     mean_loss = float(torch.mean(torch.stack(losses)))
-                    val = self._val_loss(x_te, y_te)
+                    val = self._val_loss(x_te, y_te, net=nets[0])
                     history.append({"epoch": epoch, "train_loss": mean_loss,
                                     "val_loss": val})
                     if verbose and (epoch % max(epochs // 10, 1) == 0
@@ -369,8 +484,10 @@ class NeuralDemixer:
                         print(f"epoch {epoch}: train={mean_loss:.5f} "
                               f"val={val:.5f}")
                     if save_path is not None and (epoch + 1) % save_every == 0:
+                        sync()
                         self.save(save_path)
         finally:
+            sync()
             self.net.eval()
         if save_path is not None:
             self.save(save_path)

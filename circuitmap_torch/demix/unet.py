@@ -10,14 +10,20 @@ alone (demix/convert.py).
 
 Numerics: the JAX head runs at ``Precision.HIGHEST``; on the GPU the
 demixer therefore runs its convolutions with cuDNN's TF32 off
-(demix/demixer.py). BatchNorm (eps 1e-5) runs in eval mode for
+(demix/demixer.py). The graph is :func:`forward_shards`, written over
+a list of shards so that the data-parallel trainer can normalise over
+the global batch; ``NWDUNet.forward`` is its one-shard case. BatchNorm
+(eps 1e-5) runs in eval mode for
 inference (running statistics, so every trace is demixed independently
 of its batch) and in train mode for training: batch statistics, and a
 running-average update with momentum 0.1 from the batch mean and the
 unbiased batch variance, which is the JAX package's
 ``update_running_stats``. Gradients come from autograd (the JAX
 package's custom VJP of the transposed convolution works around slow
-XLA autodiff on the CPU; cuDNN needs none).
+XLA autodiff on the CPU; cuDNN needs none). With
+``torch.backends.cudnn.deterministic`` set, training's linear resize is
+a product with its weights (``_resize``), so that training on the card
+repeats bit for bit.
 
 :func:`init_nwd_params` draws a fresh network from an explicit
 ``torch.Generator`` by the JAX package's rule (``init_nwd_params``:
@@ -28,6 +34,8 @@ jax.random's; tests carry weights across with
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn as nn
@@ -43,14 +51,34 @@ UP_SPECS = [(32, 16, 16, 1), (48, 16, 16, 1), (32, 16, 32, 1), (32, 4, 32, 2)]
 OUT_SPEC = dict(in_ch=4, out_ch=1, kernel=256, padding=255, dilation=2)
 
 
+def _resize(h, size):
+    """The up blocks' linear resize, ``F.interpolate(h, size,
+    mode="linear", align_corners=False)``. When training asks for
+    repeatable results (``torch.backends.cudnn.deterministic`` set while
+    autograd records) it is the product with the resize's weights
+    instead, so its backward is a product too: interpolate's backward
+    adds with atomics on the card, and two training runs of the same
+    data would part in the last bits each step and drift apart."""
+    if (torch.backends.cudnn.deterministic and torch.is_grad_enabled()
+            and h.requires_grad):
+        return h @ _resize_weights(h.shape[-1], size, h.device, h.dtype)
+    return F.interpolate(h, size=size, mode="linear", align_corners=False)
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_weights(length, size, device, dtype):
+    """The linear resize from ``length`` to ``size`` samples as its
+    [length, size] weights (interpolate's own, applied to the identity)."""
+    eye = torch.eye(length, device=device, dtype=dtype)
+    return F.interpolate(eye[None], size=size, mode="linear",
+                         align_corners=False)[0]
+
+
 class _Down(nn.Module):
     def __init__(self, ci, co, k, dilation):
         super().__init__()
         self.conv = nn.Conv1d(ci, co, k, dilation=dilation)
         self.bn = nn.BatchNorm1d(co, eps=BN_EPS, momentum=BN_MOMENTUM)
-
-    def forward(self, x):
-        return F.relu(self.bn(self.conv(F.avg_pool1d(x, 3, stride=2))))
 
 
 class _Up(nn.Module):
@@ -58,11 +86,6 @@ class _Up(nn.Module):
         super().__init__()
         self.deconv = nn.ConvTranspose1d(ci, co, k, stride=stride)
         self.bn = nn.BatchNorm1d(co, eps=BN_EPS, momentum=BN_MOMENTUM)
-
-    def forward(self, x, size, skip=None):
-        up = F.interpolate(F.relu(self.bn(self.deconv(x))), size=size,
-                           mode="linear", align_corners=False)
-        return up if skip is None else torch.cat([up, skip], dim=1)
 
 
 class _Head(nn.Module):
@@ -74,8 +97,39 @@ class _Head(nn.Module):
         self.bn = nn.BatchNorm1d(s["out_ch"], eps=BN_EPS,
                                  momentum=BN_MOMENTUM)
 
-    def forward(self, x):
-        return F.relu(self.bn(self.conv(x)))
+
+def forward_shards(nets, xs, norm):
+    """The U-Net's graph over shards in lockstep: ``nets`` holds one
+    network per shard (shards on one device share one), ``xs`` the
+    shards' [b, 1, L] inputs, and ``norm(name, hs)`` returns the
+    normalised per-shard pre-activations ``hs`` of block ``name``
+    (``dblock1``..``dblock4``, ``ublock1``..``ublock4``, ``conv``).
+    Every shard reaches a block's normalisation before any goes on, so
+    ``norm`` may reduce over all of them: the data-parallel trainer's
+    global-batch BatchNorm (``demixer._global_batch_norm``). Returns the
+    shards' [b, 1, L] outputs."""
+    def down(name, hs):
+        hs = [getattr(net, name).conv(F.avg_pool1d(h, 3, stride=2))
+              for net, h in zip(nets, hs)]
+        return [F.relu(h) for h in norm(name, hs)]
+
+    def up(name, hs, size, skips=None):
+        hs = [getattr(net, name).deconv(h) for net, h in zip(nets, hs)]
+        hs = [_resize(F.relu(h), size) for h in norm(name, hs)]
+        if skips is None:
+            return hs
+        return [torch.cat([h, skip], dim=1) for h, skip in zip(hs, skips)]
+
+    e1 = down("dblock1", xs)
+    e2 = down("dblock2", e1)
+    e3 = down("dblock3", e2)
+    e4 = down("dblock4", e3)
+    d1 = up("ublock1", e4, e3[0].shape[-1], e3)
+    d2 = up("ublock2", d1, e2[0].shape[-1], e2)
+    d3 = up("ublock3", d2, e1[0].shape[-1], e1)
+    d4 = up("ublock4", d3, xs[0].shape[-1])
+    hs = [net.conv.conv(h) for net, h in zip(nets, d4)]
+    return [F.relu(h) for h in norm("conv", hs)]
 
 
 class NWDUNet(nn.Module):
@@ -90,15 +144,9 @@ class NWDUNet(nn.Module):
         self.conv = _Head()
 
     def forward(self, x):
-        e1 = self.dblock1(x)
-        e2 = self.dblock2(e1)
-        e3 = self.dblock3(e2)
-        e4 = self.dblock4(e3)
-        d1 = self.ublock1(e4, e3.shape[-1], skip=e3)
-        d2 = self.ublock2(d1, e2.shape[-1], skip=e2)
-        d3 = self.ublock3(d2, e1.shape[-1], skip=e1)
-        d4 = self.ublock4(d3, x.shape[-1])
-        return self.conv(d4)
+        # one shard, each block normalised by its own BatchNorm
+        return forward_shards(
+            [self], [x], lambda name, hs: [getattr(self, name).bn(hs[0])])[0]
 
 
 def init_nwd_params(generator, dtype=torch.float32):

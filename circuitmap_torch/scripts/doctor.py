@@ -3,7 +3,8 @@
 
 Deployments of the fit path fail in ways that look alike from the API (a
 hang, or a CUDA error): no usable GPU, a driver that does not answer,
-no ``nvcc`` to build the kernels, a missing demixer checkpoint. This
+no ``nvcc`` to build the kernels, no ``g++`` to build the host library,
+a missing demixer checkpoint. This
 command probes each layer and prints one PASS/WARN/FAIL line per check;
 exit code 0 iff no FAIL.
 
@@ -132,6 +133,26 @@ def check_native(device):
                       "or set CUDA_HOME); CPU fits (device='cpu') are "
                       "unaffected")
     return (WARN if device.type == "cpu" else FAIL), detail
+
+
+def check_host_lib():
+    """The host library (utils/native.py: the stim sparsify, the trace
+    wires, windowing): built for this source, or g++ builds it now."""
+    from ..utils import native
+
+    lib = native.library_path()
+    detail = {"built": lib.exists(), "library": lib.name}
+    try:
+        native.library()
+    except RuntimeError as exc:
+        detail["error"] = str(exc).splitlines()[0]
+        detail["hint"] = ("every fit and trace wire runs through this "
+                          "library and there is no numpy fallback: "
+                          "install g++ (or build it where g++ is, with "
+                          "`python -m circuitmap_torch warm-cache`, and "
+                          "share $CIRCUITMAP_TORCH_BUILD_DIR)")
+        return FAIL, detail
+    return PASS, detail
 
 
 def check_zoo():
@@ -290,6 +311,7 @@ def main(argv=None):
         ("versions", check_versions, ()),
         ("host", check_host, ()),
         ("native-lib", check_native, (device,)),
+        ("host-lib", check_host_lib, ()),
         ("demixer-zoo", check_zoo, ()),
         ("compile-cache", check_compile_cache, ()),
         ("cpu-fallback", check_cpu_fallback, (args.timeout,)),

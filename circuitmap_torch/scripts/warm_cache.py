@@ -1,10 +1,12 @@
-"""Build the CUDA kernel library and run the pipeline once for deployment
-shapes (port of ``scripts_tpu/warm_cache.py``).
+"""Build the CUDA kernel library and the host library and run the
+pipeline once for deployment shapes (port of
+``scripts_tpu/warm_cache.py``).
 
 ``python -m circuitmap_torch warm-cache --shape 1000x20000 --iters 50``
 
 A fresh checkout pays nvcc's build of the kernel library (~30 s on an
-H100 host) and a process's first fit pays CUDA and cuDNN set-up. A
+H100 host) and g++'s of the host library (``utils/native.py``, a few
+seconds), and a process's first fit pays CUDA and cuDNN set-up. A
 deployment knows its shapes in advance; running this once after install
 (or per image build) moves the build out of the first real experiment:
 the library lands in the build directory (``--cache-dir``, else
@@ -97,6 +99,12 @@ def main(argv=None):
         Path(args.cache_dir).mkdir(parents=True, exist_ok=True)
         os.environ[_build.BUILD_DIR_ENV] = str(Path(args.cache_dir).resolve())
     device = resolve_device(args.device)
+    from ..utils import native
+
+    t0 = time.perf_counter()
+    native.library()
+    print("host library ready in %.1fs (%s)" % (
+        time.perf_counter() - t0, "built" if native.built else "cached"))
     if device.type == "cuda":
         t0 = time.perf_counter()
         _build.library()
@@ -127,6 +135,6 @@ def main(argv=None):
     print("warm-cache done: %d shape(s) in %.1fs; cache=%s entries=%s"
           % (len(args.shape), total, cache, n_entries))
     if device.type != "cuda":
-        print("note: a CPU fit launches no CUDA kernel, so nothing was "
-              "built; run on the GPU (no --device cpu) to fill the "
-              "build directory")
+        print("note: a CPU fit launches no CUDA kernel, so only the host "
+              "library was built; run on the GPU (no --device cpu) to "
+              "build the kernels too")

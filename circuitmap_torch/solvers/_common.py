@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .._device import torch_dtype
+from ..utils import native
 from ..utils.quant import (PackedInt4Traces, _upsample2, encode_int4_traces,
                            quantise_int8, unpack_int4_codes)
 
@@ -221,38 +222,26 @@ def _power_mismatch_error(levels_np):
         "them from the stim matrix)")
 
 
+def hologram_cap(N, max_fill=0.125):
+    """The most targets a column of an N-neuron stim may hold for the
+    hologram form: ``max_fill`` of the neurons, and at most 96 (the
+    device rebuild makes one pass over [N, K] per target)."""
+    return max(1, min(int(N * max_fill), 96))
+
+
 def _sparsify(stim_np, levels_np, max_fill=0.125):
     """Column-sparse hologram form (targets int16 [H, K], -1 padded;
     buckets int8 [H, K]; per-neuron counts per power [N, P]), or None
-    when dense is cheaper. Raises when stim holds values the level
+    when dense is cheaper. One threaded pass of the host library
+    (``native.sparsify_stim``). Raises when stim holds values the level
     table cannot represent."""
-    N, K = stim_np.shape
-    if N > 32766:
+    if stim_np.dtype not in (np.float32, np.float64):
+        stim_np = stim_np.astype(np.float64)
+    out = native.sparsify_stim(stim_np, levels_np,
+                               hologram_cap(stim_np.shape[0], max_fill))
+    if isinstance(out, str):  # "overflow": too dense for hologram form
         return None
-    h_cap = max(1, min(int(N * max_fill), 96))
-    mask = stim_np != 0
-    nz_k, nz_n = np.nonzero(mask.T)  # sorted by column
-    if nz_k.size == 0:
-        return None
-    counts = np.bincount(nz_k, minlength=K)
-    H = int(counts.max())
-    if H > h_cap:
-        return None
-    offsets = np.concatenate([[0], np.cumsum(counts)])
-    slots = np.arange(nz_k.size) - offsets[nz_k]
-    targets = np.full((H, K), -1, dtype=np.int16)
-    tbucket = np.zeros((H, K), dtype=np.int8)
-    targets[slots, nz_k] = nz_n.astype(np.int16)
-    vals32 = stim_np[nz_n, nz_k].astype(np.float32)
-    buckets = np.searchsorted(levels_np, vals32)
-    safe = np.minimum(buckets, levels_np.size - 1)
-    if not np.array_equal(levels_np[safe], vals32):
-        raise _power_mismatch_error(levels_np)
-    buckets = buckets.astype(np.int8)
-    tbucket[slots, nz_k] = buckets
-    power_counts = np.zeros((N, levels_np.size - 1))
-    np.add.at(power_counts, (nz_n, buckets.astype(np.int64) - 1), 1.0)
-    return targets, tbucket, power_counts
+    return out
 
 
 def _bucketise_dense(stim_np, levels_np):

@@ -5,7 +5,8 @@ Loaders for the reference's on-disk formats (.mat / .npy / .npz, and
 MATLAB v7.3 / HDF5 files through h5py) and exporters for the fitted
 state (savemat + npz, the reference's run_circuitmap_main.py:58-63).
 ``h5py`` and ``scipy.io`` are imported only when a file needs them.
-Continuous recordings are memory-mapped and windowed in numpy.
+Continuous recordings are memory-mapped and windowed in the host
+library (``utils/native.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+
+from . import native
 
 
 # HDF5 file signature — what a MATLAB "-v7.3" .mat actually is
@@ -262,15 +265,12 @@ def window_continuous_recording(timeline, stim_times, pre=100, width=900,
                                 with_charge=False):
     """Slice a continuous recording into [K, width] float32 response
     windows starting ``pre`` samples before each stim time (zero-padded
-    at the recording's edges). ``with_charge`` also returns each
-    window's trapezoidal charge (float64), the solvers' observation."""
-    timeline = np.ascontiguousarray(timeline, dtype=np.float32)
-    stim_times = np.ascontiguousarray(stim_times, dtype=np.int64)
-    T = timeline.size
-    idx = stim_times[:, None] - pre + np.arange(width)[None, :]
-    valid = (idx >= 0) & (idx < T)
-    windows = np.where(valid, timeline[np.clip(idx, 0, T - 1)],
-                       0.0).astype(np.float32)
+    at the recording's edges), in the host library's threaded pass
+    (``native.extract_windows``). ``with_charge`` also returns each
+    window's trapezoidal charge (float64), the solvers' observation, from
+    the same pass."""
     if with_charge:
-        return windows, np.trapezoid(windows.astype(np.float64), axis=-1)
-    return windows
+        return native.extract_windows_with_charge(
+            np.asarray(timeline), np.asarray(stim_times), pre, width)
+    return native.extract_windows(np.asarray(timeline),
+                                  np.asarray(stim_times), pre, width)

@@ -1,18 +1,32 @@
-"""Host-side trace-wire codecs: the port's own copy of the numpy paths
-of ``circuitmap_tpu/utils/quant.py`` (per-trace peak int8 and int4
-codes, the 2x mean-pool of the int4d2 wire and its linear upsample, the
-host decode and the ``PackedInt4Traces`` container of an int4 body),
-plus the torch unpack that runs on the device.
+"""Host-side trace-wire codecs (port of ``circuitmap_tpu/utils/quant.py``):
+per-trace peak int8 and int4 codes, the 2x mean-pool of the int4d2 wire
+and its linear upsample, the host decode and the ``PackedInt4Traces``
+container of an int4 body, plus the torch unpack that runs on the
+device.
 
-Quantisation always happens in float32 whatever the input dtype, so the
-codes are bit-identical to the JAX package's (and to the QAT trainer's
-train-time transform).
+The encoders and the host decode run in the host library
+(``utils/native.py``, one threaded pass over the source), as the JAX
+package's do; its numpy versions are ``native.*_plain``. Quantisation
+always happens in float32 whatever the input dtype, so the codes are
+bit-identical to the JAX package's (and to the QAT trainer's train-time
+transform).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import native
+
+
+def _native_layout(part):
+    """``part`` as the host library reads it: C-contiguous, float32 or
+    float64 (every other dtype is cast to float32 first, which is what
+    the encoders do to each sample anyway)."""
+    dtype = part.dtype if part.dtype in (np.float32, np.float64) \
+        else np.float32
+    return np.ascontiguousarray(part, dtype=dtype)
 
 
 def _pool2(x):
@@ -67,13 +81,17 @@ def quantise_pack_int4(src, out_rows=None):
 
 
 def encode_int4_traces(part, decimate=1, out_rows=None):
-    """cast to f32 -> (mean-pool by ``decimate``) -> int4 pack."""
+    """The int4 wire of a [B, T] chunk in its source dtype: cast to f32
+    -> (mean-pool by ``decimate``) -> int4 pack, in the host library
+    (``native.encode_traces_int4``). Returns (packed uint8 [out_rows or
+    B, ceil(T'/2)], scale f32 [B])."""
+    part = np.asarray(part)
+    if part.ndim != 2:
+        raise ValueError(f"expected a [B, T] chunk, got {part.shape}")
     if decimate not in (1, 2):
         raise ValueError(f"decimate must be 1 or 2, got {decimate!r}")
-    src = np.asarray(part, dtype=np.float32)
-    if decimate == 2:
-        src = _pool2(src)
-    return quantise_pack_int4(src, out_rows=out_rows)
+    return native.encode_traces_int4(_native_layout(part), decimate,
+                                     out_rows)
 
 
 def unpack_int4_codes(packed, n_codes):
@@ -97,14 +115,25 @@ def unpack_int4_codes(packed, n_codes):
 def decode_int4_traces(packed, scale, t_true, decimate=1):
     """Dense float32 [rows, t_true] reconstruction of an int4/int4d2
     trace wire on the host: unpack, multiply the per-trace scale and,
-    for ``decimate=2``, upsample back to ``t_true``. The same arithmetic
-    as the device unpack (``solvers/_common.unpack_int4_traces``)."""
-    th = (t_true + 1) // 2 if decimate == 2 else t_true
-    traces = unpack_int4_codes(packed, th).astype(np.float32)
-    traces = traces * np.asarray(scale, dtype=np.float32)[:, None]
-    if decimate == 2:
-        traces = _upsample2(traces, t_true)
-    return traces
+    for ``decimate=2``, upsample back to ``t_true``, in the host library
+    (``native.decode_traces_int4``). The same arithmetic as the device
+    unpack (``solvers/_common.unpack_int4_traces``). Bytes past the
+    codes a row needs are ignored."""
+    packed = np.asarray(packed)
+    t_true = int(t_true)
+    t2 = (t_true + 1) // 2 if decimate == 2 else t_true
+    width = (t2 + 1) // 2
+    if packed.ndim != 2 or packed.shape[1] < width:
+        raise ValueError(f"packed must be [rows, >= {width}] for "
+                         f"t_true={t_true}, decimate={decimate}; got "
+                         f"{packed.shape}")
+    packed = np.ascontiguousarray(packed[:, :width]).astype(np.uint8,
+                                                            copy=False)
+    out = native.decode_traces_int4(packed, scale, t_true, decimate)
+    if out is None:
+        raise ValueError(f"scale must be [rows={packed.shape[0]}], got "
+                         f"{np.shape(scale)}")
+    return out
 
 
 class PackedInt4Traces:
@@ -205,21 +234,25 @@ class PackedInt4Traces:
 
 
 def quantise_int8(part, out=None):
-    """Per-trace peak/127 int8 codes for a [..., T] block, in f32.
+    """Per-trace peak/127 int8 codes for a [..., T] block, in f32, in
+    the host library (``native.encode_traces_int8`` on the [rows, T]
+    view).
 
     Returns ``(codes int8 [..., T], scale f32 [...])`` (scale 1.0 for
-    all-zero rows); ``out`` optionally receives the codes. Raises on
-    non-finite input.
+    all-zero rows); ``out`` (C-contiguous int8 [..., T]) optionally
+    receives the codes. Raises on non-finite input.
     """
-    part = np.asarray(part, dtype=np.float32)
-    scale = (np.abs(part).max(axis=-1) / np.float32(127.0)).astype(
-        np.float32)
-    if not np.isfinite(scale).all():
-        raise ValueError(
-            "traces contain non-finite samples (or peaks above float32 "
-            "range); the int8 trace wire requires finite traces")
-    scale = np.where(scale > 0, scale, np.float32(1.0))
-    if out is None:
-        out = np.empty(part.shape, dtype=np.int8)
-    np.rint(part / scale[..., None], out=out, casting="unsafe")
-    return out, scale
+    part = _native_layout(np.asarray(part))
+    lead, t = part.shape[:-1], part.shape[-1]
+    flat_out = None
+    if out is not None:
+        if (out.dtype != np.int8 or out.shape != part.shape
+                or not out.flags["C_CONTIGUOUS"]):
+            raise ValueError(
+                f"out must be C-contiguous int8 {part.shape}, got "
+                f"{out.dtype} {out.shape}")
+        flat_out = out.reshape(-1, t)
+    codes, scale = native.encode_traces_int8(part.reshape(-1, t),
+                                             out=flat_out)
+    return (out if out is not None else codes.reshape(part.shape),
+            scale.reshape(lead))

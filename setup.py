@@ -11,6 +11,8 @@ setup(
     package_data={
         "circuitmap_tpu.native": ["*.cpp", "*.so"],
         "circuitmap_torch": ["csrc/*.cu", "csrc/*.cuh"],
+        "circuitmap_torch.native": ["*.cpp"],
+        "circuitmap_torch.scripts": ["*.sh"],
     },
     python_requires=">=3.10",
     install_requires=[

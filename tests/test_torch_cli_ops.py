@@ -19,6 +19,7 @@ import torch
 
 from circuitmap_tpu.utils.probes import run_probe_cmd as jax_run_probe_cmd
 from circuitmap_torch.__main__ import _GROUPS, main
+from circuitmap_torch.utils import native
 from circuitmap_torch.utils.probes import run_probe_cmd
 
 REPO = Path(__file__).resolve().parent.parent
@@ -55,16 +56,34 @@ def test_doctor_passes_on_the_cpu_without_the_gpu_probe(tmp_path, capsys):
     out = capsys.readouterr().out
     assert rc == 0, out
     checks = json.loads(path.read_text())
-    assert list(checks) == ["versions", "host", "native-lib", "demixer-zoo",
-                            "compile-cache", "cpu-fallback", "accelerator"]
+    assert list(checks) == ["versions", "host", "native-lib", "host-lib",
+                            "demixer-zoo", "compile-cache", "cpu-fallback",
+                            "accelerator"]
     assert checks["cpu-fallback"]["status"] == "PASS"
+    assert checks["host-lib"]["status"] == "PASS"
+    assert checks["host-lib"]["library"].startswith("libcircuitmap_host_")
     assert checks["accelerator"]["status"] == "SKIP"
     assert checks["versions"]["torch"] == torch.__version__
     assert {"built", "nvcc", "library"} <= set(checks["native-lib"])
     for name in checks:
         assert any(line.split()[1] == name for line in out.splitlines()
                    if line[:4] in ("PASS", "WARN", "FAIL", "SKIP")), name
-    assert "doctor: 7 checks in" in out
+    assert "doctor: 8 checks in" in out
+
+
+def test_doctor_fails_the_host_library_check_without_gxx(tmp_path,
+                                                         monkeypatch):
+    """No library for this source and no g++ to build one: FAIL, with
+    the hint, whatever the device."""
+    from circuitmap_torch.scripts import doctor
+
+    monkeypatch.setattr(native, "COMPILER", str(tmp_path / "no-g++"))
+    monkeypatch.setattr(native, "_libs", {})
+    monkeypatch.setenv("CIRCUITMAP_TORCH_BUILD_DIR", str(tmp_path / "b"))
+    status, detail = doctor.check_host_lib()
+    assert status == "FAIL" and detail["built"] is False
+    assert "did not run" in detail["error"]
+    assert "install g++" in detail["hint"]
 
 
 def test_doctor_fails_the_accelerator_check_without_a_gpu(no_cuda, capsys):
@@ -109,7 +128,11 @@ def test_hw_smoke_writes_no_record_by_default(capsys, monkeypatch, tmp_path):
     assert capsys.readouterr().out.count("(requested)") == 5
 
 
-def test_warm_cache_runs_a_small_shape_on_the_cpu(tmp_path, capsys):
+def test_warm_cache_runs_a_small_shape_on_the_cpu(tmp_path, capsys,
+                                                  monkeypatch):
+    # --cache-dir sets the build directory for the rest of the process;
+    # the worker's later tests (and their subprocesses) keep the usual one
+    monkeypatch.setenv("CIRCUITMAP_TORCH_BUILD_DIR", str(tmp_path / "build"))
     main(["warm-cache", "--shape", "30x300", "--iters", "5", "--demixer",
           str(REPO / "demixers" / "nwd_ie_ChroME2f_int4d2qat.npz"),
           "--transfer-dtype", "int4d2", "--device", "cpu", "--cache-dir",
@@ -119,7 +142,9 @@ def test_warm_cache_runs_a_small_shape_on_the_cpu(tmp_path, capsys):
     last = [ln for ln in out.splitlines() if ln.startswith("warm-cache")]
     assert last and last[0].startswith("warm-cache done: 1 shape(s) in")
     assert f"cache={tmp_path / 'build'}" in last[0]
-    assert (tmp_path / "build").is_dir()
+    assert "host library ready in" in out and "(built)" in out
+    assert [p.name for p in (tmp_path / "build").glob("*.so")] == [
+        native.library_path().name]
 
 
 @pytest.mark.parametrize("command", ["reference-baseline", "parity-vr"])

@@ -1,6 +1,6 @@
 """circuitmap_torch stands on its own.
 
-The port and ``chip_smoke.py`` import neither JAX nor circuitmap_tpu nor
+The port, ``chip_smoke.py`` and ``bench_torch.py`` import neither JAX nor circuitmap_tpu nor
 the JAX package's scripts (an AST scan, and subprocesses that run a CPU
 fit, or import every command module, and then inspect ``sys.modules``); every entry point runs on the GPU unless asked for the
 CPU, and raises rather than falling back when there is no GPU.
@@ -19,7 +19,7 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "circuitmap_tpu", "scripts_tpu")
 PORT_FILES = sorted((REPO / "circuitmap_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "bench_torch.py"]
 # the modules of the streaming, resumable and closed-loop slice, of
 # the training, continuous-simulation and analysis slice, of the
 # serving slice and of the multi-device slice, which must be among the
@@ -33,7 +33,7 @@ SLICE_MODULES = ("utils/checkpoint.py", "solvers/resumable.py",
                  "utils/io.py", "utils/synthetic.py", "utils/quant.py",
                  "parallel/mesh.py", "parallel/sharded.py",
                  "parallel/distributed.py", "parallel/sweep.py",
-                 "utils/profiling.py", "ops/_counts.py")
+                 "utils/profiling.py", "ops/_counts.py", "utils/native.py")
 
 
 # the workflow commands, one module per script of scripts_tpu/
@@ -45,7 +45,8 @@ SCRIPT_MODULES = ("run_loho_cv", "generate_fanout_jobs", "run_1v10_pipeline",
                   "doctor", "hw_smoke", "warm_cache", "probe_memory_cliff",
                   "run_scaling_study", "wire_fidelity_study",
                   "measure_many_compile", "profile_fit_entry",
-                  "profile_demixer", "profile_online")
+                  "profile_demixer", "profile_online",
+                  "sweep_frontier_study", "over_cliff_sharded")
 
 
 def _imported_roots(path):
@@ -293,9 +294,6 @@ ABSENT_BY_DESIGN = {
     "demix/__init__.py": {"nwd_unet_forward"},
     # jax.jit of laplace_phi_update; the port runs eagerly
     "solvers/_laplace.py": {"laplace_phi_update_jit"},
-    # the native host encoder, queued (ROADMAP A4); numpy codes here
-    "native/__init__.py": None,
-    "utils/native.py": None,
     # the Pallas kernels; their CUDA counterparts are ops/sweep_cuda.py,
     # ops/sweep_row_cuda.py and ops/laplace_cuda.py
     "ops/sweep_pallas.py": None,

@@ -666,6 +666,29 @@ def test_demixer_is_deterministic_on_the_card(cuda):
 
 
 @pytest.mark.cuda
+def test_training_is_deterministic_on_the_card(cuda, monkeypatch):
+    """With ``torch.backends.cudnn.deterministic`` set, two trainings of
+    one network on the same pairs end bit for bit alike on the card,
+    with the same history (the training resize is a product, with none
+    of interpolate's atomic adds in its backward)."""
+    from circuitmap_torch.demix.demixer import NeuralDemixer
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((640, 900)) * 0.1).astype(np.float32)
+    pairs = (x, np.maximum(x, 0) * 0.5)
+    runs = []
+    for _ in range(2):
+        d = NeuralDemixer("demixers/nwd_ie_ChroME2f.npz", device=cuda)
+        d.training_data, d.test_data = pairs, (x[:64], pairs[1][:64])
+        hist = d.train(epochs=2, batch_size=64, verbose=False)
+        runs.append((hist, d.net.state_dict()))
+    (h1, s1), (h2, s2) = runs
+    assert h1 == h2
+    assert all(torch.equal(s1[k], s2[k]) for k in s1)
+
+
+@pytest.mark.cuda
 def test_two_shard_mesh_on_one_card_matches_the_unsharded_fit(cuda):
     """A trial mesh of two shards on one card (the counterpart of JAX's
     virtual mesh) fits N=200, K=2,000 to the unsharded fit's gate

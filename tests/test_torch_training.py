@@ -21,6 +21,7 @@ the wire transform and the checkpoint formats are held exactly.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 import jax
 import jax.numpy as jnp
 
@@ -121,20 +122,177 @@ def test_train_matches_jax_train(jax_params, data, tmp_path):
             torch.testing.assert_close(saved[k], v, rtol=0, atol=0)
 
 
-def test_train_reads_data_path_and_refuses_mesh(jax_params, data, tmp_path):
+def test_train_reads_data_path(jax_params, data, tmp_path):
     td = NeuralDemixer(params=jax_params, device="cpu")
     with pytest.raises(RuntimeError, match="no training data"):
         td.train(epochs=1, verbose=False)
     path = tmp_path / "d.npz"
     np.random.seed(1)
     td.generate_training_data(save_path=str(path), size=40, seed=2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        td.train(epochs=1, mesh=object(), verbose=False)
     other = NeuralDemixer(params=jax_params, device="cpu")
     h1 = td.train(epochs=1, batch_size=16, verbose=False)
     h2 = other.train(epochs=1, batch_size=16, data_path=str(path),
                      verbose=False)
     assert h1 == h2
+
+
+# -- data-parallel training (train(mesh=)) -----------------------------------
+# A mesh step splits the batch over the shards and normalises with the
+# global batch's BatchNorm statistics, so it equals the one-device step
+# up to the order of its sums: held per tensor at rtol 1e-5 / atol 1e-6
+# (the JAX package's own mesh test, tests/test_demixer.py). "cpu" and
+# "cpu:0" are distinct devices to the mesh: two replicas whose gradients
+# are added before each step; the shards on one device run as one part
+# of the batch ("2" and "4": the one-device step; "3+1" splits it 48/16
+# over two replicas).
+MESHES = {"2": ["cpu"] * 2, "4": ["cpu"] * 4,
+          "2-replicas": ["cpu", "cpu:0", "cpu", "cpu:0"],
+          "3+1": ["cpu", "cpu", "cpu", "cpu:0"]}
+
+
+def _close_state(got, want):
+    for k, v in want.items():
+        if v.is_floating_point():
+            torch.testing.assert_close(got[k], v, rtol=1e-5, atol=1e-6,
+                                       msg=k)
+        else:
+            assert torch.equal(got[k], v), k
+
+
+def _one_step(jax_params, batch, mesh=None):
+    td = NeuralDemixer(params=jax_params, device="cpu")
+    td.training_data = batch
+    td.test_data = (batch[0][:0], batch[1][:0])
+    hist = td.train(epochs=1, batch_size=len(batch[0]), learning_rate=1e-2,
+                    seed=0, verbose=False, mesh=mesh)
+    return td, hist
+
+
+@pytest.mark.parametrize("devices", list(MESHES.values()), ids=list(MESHES))
+def test_mesh_step_equals_the_single_step_and_jax(jax_params, data,
+                                                  devices):
+    from circuitmap_torch.parallel import trial_mesh
+
+    (x, y), _ = data
+    batch = (x[:64], y[:64])
+    single, h1 = _one_step(jax_params, batch)
+    meshed, h2 = _one_step(jax_params, batch, trial_mesh(devices=devices))
+    _close_state(meshed.net.state_dict(), single.net.state_dict())
+    np.testing.assert_allclose(h2[0]["train_loss"], h1[0]["train_loss"],
+                               rtol=1e-5)
+    # the JAX step on train's batch (its first permutation)
+    perm = np.random.default_rng(0).permutation(64)
+    jp, jloss = jdemixer._train_step(
+        jax.tree_util.tree_map(jnp.asarray, jax_params),
+        jnp.asarray(batch[0][perm], jnp.float32),
+        jnp.asarray(batch[1][perm], jnp.float32), jnp.float32(1e-2))
+    want = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    # (the JAX state counts no BatchNorm steps: floating entries only)
+    _close_state(meshed.net.state_dict(),
+                 {k: v for k, v in want.items() if v.is_floating_point()})
+    np.testing.assert_allclose(h2[0]["train_loss"], float(jloss), rtol=1e-5)
+    assert not meshed.net.training
+
+
+def test_mesh_training_follows_the_single_device_trajectory(jax_params,
+                                                            data, tmp_path):
+    """3 epochs on a 4-shard mesh of two replicas against the one-device
+    run: within 5% a epoch (the reduction-order noise grows through
+    BatchNorm and SGD), as tests/test_demixer.py holds the JAX package's;
+    save_path and save_every behave as without a mesh."""
+    from circuitmap_torch.parallel import trial_mesh
+
+    train, test = data
+    runs = []
+    for mesh in (None, trial_mesh(devices=MESHES["2-replicas"])):
+        td = NeuralDemixer(params=jax_params, device="cpu")
+        td.training_data, td.test_data = (train[0][:128], train[1][:128]), test
+        path = tmp_path / f"w{0 if mesh is None else 1}.npz"
+        hist = td.train(epochs=3, batch_size=32, learning_rate=1e-2,
+                        verbose=False, mesh=mesh, save_path=str(path),
+                        save_every=2)
+        runs.append((td, hist, path))
+    (_, ha, _), (tb, hb, path) = runs
+    assert [h["epoch"] for h in hb] == [0, 1, 2]
+    for a, b in zip(ha, hb):
+        for key in ("train_loss", "val_loss"):
+            assert abs(a[key] - b[key]) <= 0.05 * abs(a[key]), (key, a, b)
+    assert hb[-1]["train_loss"] < hb[0]["train_loss"]
+    saved = convert.load_params(path)
+    for k, v in tb.net.state_dict().items():
+        if v.is_floating_point():
+            torch.testing.assert_close(saved[k], v, rtol=0, atol=0)
+
+
+def test_mesh_training_refuses_what_it_cannot_split(jax_params, data):
+    from circuitmap_torch.parallel import TrialMesh, trial_mesh
+
+    (x, y), test = data
+    td = NeuralDemixer(params=jax_params, device="cpu")
+    td.training_data, td.test_data = (x[:60], y[:60]), test
+    with pytest.raises(ValueError, match="must divide over the 4-device "
+                                         "mesh"):
+        td.train(epochs=1, batch_size=30, verbose=False,
+                 mesh=trial_mesh(devices=["cpu"] * 4))
+    # the effective batch is min(batch_size, n): 60 pairs over 8 shards
+    with pytest.raises(ValueError, match="batch_size=60 .*8-device"):
+        td.train(epochs=1, batch_size=64, verbose=False,
+                 mesh=trial_mesh(devices=["cpu"] * 8))
+    group_mesh = TrialMesh(["cpu"])
+    group_mesh.group = object()  # a mesh over a process group
+    with pytest.raises(ValueError, match="one process"):
+        td.train(epochs=1, verbose=False, mesh=group_mesh)
+    with pytest.raises(TypeError, match="TrialMesh"):
+        td.train(epochs=1, verbose=False, mesh=object())
+
+
+@pytest.mark.parametrize("length,size", [(7, 15), (112, 225), (10, 10)])
+def test_training_resize_is_interpolates(length, size, monkeypatch):
+    """The U-Net's resize (``unet._resize``) is ``F.interpolate``'s
+    linear resize; with ``torch.backends.cudnn.deterministic`` set and
+    autograd recording it is the product with the resize's weights
+    (which repeats on the card), equal to interpolate to the last bits,
+    with interpolate's gradient."""
+    from circuitmap_torch.demix.unet import _resize
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 4, length, dtype=torch.float64, generator=gen,
+                    requires_grad=True)
+    grad = torch.randn(3, 4, size, dtype=torch.float64, generator=gen)
+    want = F.interpolate(x, size=size, mode="linear", align_corners=False)
+    (gw,) = torch.autograd.grad(want, x, grad)
+    for flag in (False, True):
+        monkeypatch.setattr(torch.backends.cudnn, "deterministic", flag)
+        with torch.no_grad():
+            assert torch.equal(_resize(x, size), want)
+        got = _resize(x, size)
+        assert (got.grad_fn.name() == "UpsampleLinear1DBackward0") != flag
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+        (gg,) = torch.autograd.grad(got, x, grad)
+        torch.testing.assert_close(gg, gw, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("flag", [False, True])
+def test_train_takes_cudnn_determinism_from_the_caller(jax_params, data,
+                                                       monkeypatch, flag):
+    """Training asks for cuDNN's deterministic algorithms exactly when
+    the caller set ``torch.backends.cudnn.deterministic`` (they slow a
+    step on the card); the test set's loss always takes them, as the
+    demixer's inference does."""
+    (x, y), test = data
+    td = NeuralDemixer(params=jax_params, device="cpu")
+    td.training_data, td.test_data = (x[:32], y[:32]), (x[:8], y[:8])
+    asked = []
+    precision = td._precision
+
+    def recording(deterministic=False, devices=None):
+        asked.append(deterministic)
+        return precision(deterministic, devices)
+
+    monkeypatch.setattr(td, "_precision", recording)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", flag)
+    td.train(epochs=1, batch_size=32, verbose=False)
+    assert asked == [flag, True]  # the epochs, then the test set's loss
 
 
 def test_generate_psc_dataset_equals_jax():
