@@ -34,6 +34,7 @@ import torch
 from .._device import highest_matmul, resolve_device, torch_dtype
 from ..ops.monotone import monotone_decay_filter
 from ..solvers._common import prepare_traces
+from ..utils.profiling import span
 from ..utils.quant import PackedInt4Traces, _pool2, _upsample2
 from . import convert
 from .datagen import generate_psc_dataset
@@ -225,6 +226,7 @@ class NeuralDemixer:
         self._mesh_nets = (mesh, versions, nets)
         return nets
 
+    @span("cm.demix")
     def __call__(self, traces, monotone_filter_start=500,
                  monotone_filter_inplace=True, verbose=True,
                  keep_on_device=False, chunk_size=4096,
@@ -292,10 +294,12 @@ class NeuralDemixer:
                             else traces[a:b])
                     part = prepare_traces(rows, torch.float32, dev,
                                           trace_wire=wire)
-                    out = self._demix_batch(
-                        part, None if nets is None else nets[dev])
-                    outs.append(monotone_decay_filter(
-                        out, start=int(monotone_filter_start)).to(home))
+                    with span("cm.demix.net"):
+                        out = self._demix_batch(
+                            part, None if nets is None else nets[dev])
+                        out = monotone_decay_filter(
+                            out, start=int(monotone_filter_start))
+                    outs.append(out.to(home))
                 chunks.append(outs[0] if len(outs) == 1 else
                               torch.cat(outs, dim=0))
         dev = chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=0)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .utils.profiling import span
 
 
 def default_priors(N):
@@ -101,7 +102,8 @@ class Model:
                              else {str(f) for f in _materialize})
         t0 = time.time()
         try:
-            runner(obs, stimuli, fit_options, device)
+            with span("cm.fit"):
+                runner(obs, stimuli, fit_options, device)
         finally:
             self._materialize = None
         self.time = time.time() - t0
@@ -116,7 +118,9 @@ class Model:
         return value.detach().as_subclass(DeviceField)
 
     def _update_state(self, **fields):
-        self.state.update({k: self._pull(k, v) for k, v in fields.items()})
+        with span("cm.fit.pull"):
+            self.state.update({k: self._pull(k, v)
+                               for k, v in fields.items()})
 
     def summary(self, stim=None, verbose=True):
         """Per-neuron posterior summary (``circuitmap_torch.summarize``);

@@ -75,6 +75,8 @@ import time
 
 import numpy as np
 
+from .utils.profiling import Metrics, span
+
 DEFAULT_PORT = 8799
 # process exit code when --request-timeout-s fires: distinct from
 # crash codes so a supervisor (systemd Restart=always, runit, a shell
@@ -610,12 +612,14 @@ class FitService:
                 "demix requested but the server was started without a "
                 "demixer (pass --demixer to `circuitmap_torch serve`)")
 
-    def _maybe_demix(self, psc, opts):
+    def _maybe_demix(self, psc, opts, stages=None):
         """Demix on request (`demix` option; default: iff the server
         was started with a demixer). The output stays on the device and
         feeds the solver directly. When demixing, ``trace_wire``
         configures the demixer's host→device upload; when not, the
-        option is left in ``opts`` for the solver's raw-trace wire."""
+        option is left in ``opts`` for the solver's raw-trace wire.
+        ``stages``: the request's ``Metrics``, which gets the demix's
+        ``cm.serve.demix`` span."""
         want = bool(opts.pop("demix", self.demixer is not None))
         if not want:
             return psc
@@ -626,9 +630,10 @@ class FitService:
         # mesh), but only for a request whose resolved options carry the
         # mesh: a {"sharded": false} opt-out or a cosamp fit runs the
         # single-device solver
-        return self.demixer(psc, verbose=False, keep_on_device=True,
-                            transfer_dtype=wire,
-                            mesh=self._demix_mesh(opts))
+        with span("cm.serve.demix", stages):
+            return self.demixer(psc, verbose=False, keep_on_device=True,
+                                transfer_dtype=wire,
+                                mesh=self._demix_mesh(opts))
 
     @staticmethod
     def _demix_mesh(opts):
@@ -685,14 +690,17 @@ class FitService:
                 "seconds": round(time.monotonic() - t0, 2)}
         return payload
 
-    def do_demix(self, body, options_header):
+    def do_demix(self, body, options_header, stages=None):
+        """``stages``: the request's ``Metrics``, which gets the
+        ``cm.serve.decode``, ``demix`` and ``encode`` spans."""
         opts = self._parse_options(
             options_header, frozenset(("trace_wire", "response_wire")),
             "demix")
-        arrays = _decode_arrays(_load_npz(body))
-        if "psc" not in arrays:
-            raise _BadRequest("npz must carry 'psc' [K, T]")
-        _require_finite("psc", arrays["psc"])
+        with span("cm.serve.decode", stages):
+            arrays = _decode_arrays(_load_npz(body))
+            if "psc" not in arrays:
+                raise _BadRequest("npz must carry 'psc' [K, T]")
+            _require_finite("psc", arrays["psc"])
         if self.demixer is None:
             raise _BadRequest("server started without a demixer")
         # RESPONSE wire: the same quantised vocabulary the request body
@@ -700,18 +708,22 @@ class FitService:
         response_wire = opts.pop("response_wire", None)
         wire = self._wire_token(opts)
         self.n_demixes += 1
-        out = self.demixer(arrays["psc"], verbose=False,
-                           transfer_dtype=wire)
-        if response_wire is None:
-            return "application/npz", _npz_bytes(demixed=out)
-        try:
-            enc = _encode_psc(np.asarray(out), str(response_wire))
-        except ValueError as exc:
-            raise _BadRequest(str(exc)) from None
-        return "application/npz", _npz_bytes(
-            **{"demixed" + k[len("psc"):]: v for k, v in enc.items()})
+        with span("cm.serve.demix", stages):
+            out = self.demixer(arrays["psc"], verbose=False,
+                               transfer_dtype=wire)
+        with span("cm.serve.encode", stages):
+            if response_wire is None:
+                return "application/npz", _npz_bytes(demixed=out)
+            try:
+                enc = _encode_psc(np.asarray(out), str(response_wire))
+            except ValueError as exc:
+                raise _BadRequest(str(exc)) from None
+            return "application/npz", _npz_bytes(
+                **{"demixed" + k[len("psc"):]: v for k, v in enc.items()})
 
-    def do_fit(self, body, options_header):
+    def do_fit(self, body, options_header, stages=None):
+        """``stages``: the request's ``Metrics``, which gets the
+        ``cm.serve.decode``, ``demix``, ``fit`` and ``encode`` spans."""
         import torch
 
         from .model import Model
@@ -729,23 +741,24 @@ class FitService:
                 f"unknown fit response_wire {response_wire!r}; only "
                 "'int8' is supported (per-row peak codes on the [N, K] "
                 "lam posterior — use return_fields to drop it instead)")
-        raw = _load_npz(body)
-        # a sparse-shipped design reconstructs from its (validated,
-        # tiny) level table — finite by construction, so the dense
-        # [N, K] isfinite pass is only paid for dense-shipped bodies
-        stim_trusted = "stim_sparse_targets" in raw
-        arrays = _decode_arrays(raw)
-        if "psc" not in arrays or "stim" not in arrays:
-            raise _BadRequest("npz must carry 'psc' [K, T|1] and "
-                              "'stim' [N, K]")
-        psc, stim = arrays["psc"], arrays["stim"]
-        if psc.shape[0] != stim.shape[1]:
-            raise _BadRequest(
-                f"psc carries {psc.shape[0]} trials but stim "
-                f"{stim.shape[1]} — psc is [K, T], stim [N, K]")
-        _require_finite("psc", psc)
-        if not stim_trusted:
-            _require_finite("stim", stim)
+        with span("cm.serve.decode", stages):
+            raw = _load_npz(body)
+            # a sparse-shipped design reconstructs from its (validated,
+            # tiny) level table — finite by construction, so the dense
+            # [N, K] isfinite pass is only paid for dense-shipped bodies
+            stim_trusted = "stim_sparse_targets" in raw
+            arrays = _decode_arrays(raw)
+            if "psc" not in arrays or "stim" not in arrays:
+                raise _BadRequest("npz must carry 'psc' [K, T|1] and "
+                                  "'stim' [N, K]")
+            psc, stim = arrays["psc"], arrays["stim"]
+            if psc.shape[0] != stim.shape[1]:
+                raise _BadRequest(
+                    f"psc carries {psc.shape[0]} trials but stim "
+                    f"{stim.shape[1]} — psc is [K, T], stim [N, K]")
+            _require_finite("psc", psc)
+            if not stim_trusted:
+                _require_finite("stim", stim)
         method = opts.pop("method", "caviar")
         if method not in ("caviar", "cavi_sns", "mbcs", "cosamp"):
             raise _BadRequest(
@@ -765,44 +778,49 @@ class FitService:
         if (self.mesh is not None and sharded is not False
                 and method != "cosamp"):  # cosamp is host-side: no mesh path
             opts["mesh"] = self.mesh
-        obs = self._maybe_demix(psc, opts)
+        obs = self._maybe_demix(psc, opts, stages)
         if method != "cosamp":  # the host baseline takes no verbose
             opts.setdefault("verbose", False)
         model = Model(stim.shape[0], priors=self.priors)
         try:
             # return_fields also gates the device→host pull: a
             # summary-only response never pays for lam [N, K]
-            model.fit(obs, stim, method=method, fit_options=opts,
-                      device=self.torch_device, _materialize=return_fields)
+            with span("cm.serve.fit", stages):
+                model.fit(obs, stim, method=method, fit_options=opts,
+                          device=self.torch_device,
+                          _materialize=return_fields)
         except (ValueError, TypeError) as exc:
             # solver-side validation (bad powers, an option the chosen
             # method doesn't take, shape mismatches) is a client error,
             # not a server fault — the request, not the server, is wrong
             raise _BadRequest(f"{method} rejected the request: {exc}")
         self.n_fits += 1
-        # include device-resident (un-pulled) fields so a typo'd
-        # return_fields 400 names the FULL available set; the filter
-        # then keeps only requested fields, which Model already pulled
-        out = {k: v for k, v in model.state.items()
-               if isinstance(v, (np.ndarray, torch.Tensor))}
-        out["fit_time_s"] = np.float64(model.time)
-        if model.history:
-            out.update({f"history_{k}": v for k, v in model.history.items()
-                        if v is not None})
-        out = _filter_fields(out, return_fields)
-        out = {k: np.asarray(v) for k, v in out.items()}
-        if response_wire == "int8":
-            # lam dominates the response size (80 MB f32 at N=1000,
-            # K=20000; spike posteriors in [0, 1]) — per-row peak int8
-            # codes quarter it at <=0.4%-of-peak step error. History
-            # arrays keep full precision (opt-in and rare)
-            if "lam" in out:
-                enc = encode_psc_int8(np.asarray(out.pop("lam")))
-                out["lam_q8"] = enc["psc_q8"]
-                out["lam_q8_scale"] = enc["psc_q8_scale"]
-        return "application/npz", _npz_bytes(**out)
+        with span("cm.serve.encode", stages):
+            # include device-resident (un-pulled) fields so a typo'd
+            # return_fields 400 names the FULL available set; the filter
+            # then keeps only requested fields, which Model already
+            # pulled
+            out = {k: v for k, v in model.state.items()
+                   if isinstance(v, (np.ndarray, torch.Tensor))}
+            out["fit_time_s"] = np.float64(model.time)
+            if model.history:
+                out.update({f"history_{k}": v
+                            for k, v in model.history.items()
+                            if v is not None})
+            out = _filter_fields(out, return_fields)
+            out = {k: np.asarray(v) for k, v in out.items()}
+            if response_wire == "int8":
+                # lam dominates the response size (80 MB f32 at N=1000,
+                # K=20000; spike posteriors in [0, 1]) — per-row peak
+                # int8 codes quarter it at <=0.4%-of-peak step error.
+                # History arrays keep full precision (opt-in and rare)
+                if "lam" in out:
+                    enc = encode_psc_int8(np.asarray(out.pop("lam")))
+                    out["lam_q8"] = enc["psc_q8"]
+                    out["lam_q8_scale"] = enc["psc_q8_scale"]
+            return "application/npz", _npz_bytes(**out)
 
-    def _maybe_demix_many(self, pscs, opts):
+    def _maybe_demix_many(self, pscs, opts, stages=None):
         """Batch variant of ``_maybe_demix``: one demixer call over the
         flattened [B*K, T] block, reshaped back on the device."""
         want = bool(opts.pop("demix", self.demixer is not None))
@@ -816,9 +834,10 @@ class FitService:
         self.n_demixes += 1
         flat_in = (pscs.flat() if isinstance(pscs, PackedInt4Traces)
                    else np.asarray(pscs).reshape(b * k, t))
-        flat = self.demixer(flat_in, verbose=False, keep_on_device=True,
-                            transfer_dtype=wire,
-                            mesh=self._demix_mesh(opts))
+        with span("cm.serve.demix", stages):
+            flat = self.demixer(flat_in, verbose=False, keep_on_device=True,
+                                transfer_dtype=wire,
+                                mesh=self._demix_mesh(opts))
         return flat.reshape(b, k, flat.shape[-1])
 
     def _resolve_many_mesh(self, opts):
@@ -1049,13 +1068,15 @@ class FitService:
             out.update(meta)
         return "application/npz", _npz_bytes(**out)
 
-    def do_fit_many(self, body, options_header):
+    def do_fit_many(self, body, options_header, stages=None):
         """Fit B same-shape experiments in one request
         (``solvers.caviar_many`` — or ``sns_many``/``mbcs_many`` via
         the ``method`` option) — the server's replacement for a SLURM
         job array. Ragged batches (different trial counts) arrive as a
         concatenated body + 'k_trues' (``_fit_many_ragged``; all three
-        methods)."""
+        methods). ``stages``: the request's ``Metrics``, which gets the
+        ``cm.serve.decode`` span and, for a same-shape batch, the
+        ``demix``, ``fit`` and ``encode`` spans."""
         opts = self._parse_options(options_header, _FIT_MANY_OPTION_KEYS,
                                    "fit_many")
         method = str(opts.pop("method", "caviar"))
@@ -1069,12 +1090,14 @@ class FitService:
         # Client/server version skew is a designed-for scenario (the
         # client deploys numpy-only on acquisition machines)
         wire_meta = bool(opts.pop("wire_meta", False))
-        raw = _load_npz(body)
-        # sparse-shipped designs reconstruct from validated level
-        # tables — skip the dense isfinite pass for those (see do_fit)
-        stim_trusted = ("stim_sparse_targets" in raw
-                        or "stims_sparse_targets" in raw)
-        arrays = _decode_arrays(raw)
+        with span("cm.serve.decode", stages):
+            raw = _load_npz(body)
+            # sparse-shipped designs reconstruct from validated level
+            # tables — skip the dense isfinite pass for those (see
+            # do_fit)
+            stim_trusted = ("stim_sparse_targets" in raw
+                            or "stims_sparse_targets" in raw)
+            arrays = _decode_arrays(raw)
         if "k_trues" in arrays:
             # ragged batch: one concatenated [sum_K, T] trace block +
             # one flat [N, sum_K] stim (the SINGLE-experiment wire,
@@ -1101,17 +1124,20 @@ class FitService:
             raise _BadRequest(
                 f"pscs carries {pscs.shape[1]} trials but stims "
                 f"{stims.shape[2]} — pscs is [B, K, T], stims [B, N, K]")
-        _require_finite("pscs", pscs)
-        if not stim_trusted:
-            _require_finite("stims", stims)
+        with span("cm.serve.decode", stages):
+            _require_finite("pscs", pscs)
+            if not stim_trusted:
+                _require_finite("stims", stims)
         self._resolve_many_mesh(opts)
-        obs = self._maybe_demix_many(pscs, opts)
-        results = self._run_many(obs, stims, opts, method=method)
-        results = [_filter_fields(r, return_fields, "fit_many")
-                   for r in results]
-        out = {key: np.stack([np.asarray(r[key]) for r in results])
-               for key in results[0]}
-        return "application/npz", _npz_bytes(**out)
+        obs = self._maybe_demix_many(pscs, opts, stages)
+        with span("cm.serve.fit", stages):
+            results = self._run_many(obs, stims, opts, method=method)
+        with span("cm.serve.encode", stages):
+            results = [_filter_fields(r, return_fields, "fit_many")
+                       for r in results]
+            out = {key: np.stack([np.asarray(r[key]) for r in results])
+                   for key in results[0]}
+            return "application/npz", _npz_bytes(**out)
 
     def do_warm(self, options_header):
         """Run the demix+fit pipeline once on synthetic data of the given
@@ -1577,7 +1603,8 @@ def _make_handler(service, server_box):
                 raise _BadRequest(
                     f"body {length / 1e6:.0f} MB exceeds the server's "
                     f"--max-mb {max_body / 1e6:.0f}")
-            return self.rfile.read(length)
+            with span("cm.serve.read", self.stages):
+                return self.rfile.read(length)
 
         def _route(self):
             from urllib.parse import unquote
@@ -1618,11 +1645,12 @@ def _make_handler(service, server_box):
                     return service.do_stream_delete(unquote(parts[2]))
             if method == "POST":
                 if path == "/demix":
-                    return service.do_demix(self._body(), opts)
+                    return service.do_demix(self._body(), opts, self.stages)
                 if path == "/fit":
-                    return service.do_fit(self._body(), opts)
+                    return service.do_fit(self._body(), opts, self.stages)
                 if path == "/fit_many":
-                    return service.do_fit_many(self._body(), opts)
+                    return service.do_fit_many(self._body(), opts,
+                                               self.stages)
                 if path == "/warm":
                     return service.do_warm(opts)
                 if path == "/profile":
@@ -1635,6 +1663,15 @@ def _make_handler(service, server_box):
                     return ("application/json",
                             json.dumps({"shutting_down": True}).encode())
             return None
+
+        def _stage_seconds(self):
+            """{stage: host seconds} of the request's ``cm.serve.*``
+            spans, for its log row."""
+            out = {}
+            for r in self.stages.records:
+                key = r["name"][len("cm.serve."):]
+                out[key] = out.get(key, 0.0) + r["seconds"]
+            return {k: round(v, 6) for k, v in out.items()}
 
         def _metric(self, status, t0, bytes_out):
             if metrics_fh is None:
@@ -1649,6 +1686,7 @@ def _make_handler(service, server_box):
                     "bytes_in": int(self.headers.get("Content-Length", 0)
                                     or 0),
                     "bytes_out": bytes_out,
+                    "stages": self._stage_seconds(),
                 }) + "\n")
                 metrics_fh.flush()
             except Exception:  # monitoring must never break serving
@@ -1665,6 +1703,8 @@ def _make_handler(service, server_box):
 
         def _handle_tracked(self):
             t0 = time.perf_counter()
+            # the request's stages, in host seconds, for its log row
+            self.stages = Metrics()
             try:
                 routed = self._route()
             except _Unauthorized as exc:
@@ -1684,7 +1724,8 @@ def _make_handler(service, server_box):
                 return self._json_error(
                     404, f"no route {self.command} {self.path}")
             try:
-                self._reply(200, *routed)
+                with span("cm.serve.write", self.stages):
+                    self._reply(200, *routed)
             except BrokenPipeError:
                 # client went away mid-response: the dashboard must see
                 # a failure, not a 200 with undelivered bytes
@@ -1949,6 +1990,18 @@ class FitClient:
         self.retry_backoff_s = float(retry_backoff_s)
 
     def _request(self, method, path, body=None, options=None):
+        return self._decode(*self._exchange(method, path, body, options))
+
+    @staticmethod
+    def _decode(payload, ctype):
+        if ctype.startswith("application/npz"):
+            return {k: v for k, v in
+                    np.load(io.BytesIO(payload), allow_pickle=False).items()}
+        return json.loads(payload)
+
+    def _exchange(self, method, path, body=None, options=None):
+        """Send one request; returns the response's (bytes, content
+        type)."""
         import urllib.error
         import urllib.request
 
@@ -1992,10 +2045,7 @@ class FitClient:
                 if attempt + 1 >= attempts:
                     raise
                 time.sleep(self.retry_backoff_s * (2 ** attempt))
-        if ctype.startswith("application/npz"):
-            return {k: v for k, v in
-                    np.load(io.BytesIO(payload), allow_pickle=False).items()}
-        return json.loads(payload)
+        return payload, ctype
 
     def health(self):
         return self._request("GET", "/health")
@@ -2044,12 +2094,13 @@ class FitClient:
 
     @staticmethod
     def _body(psc, stim, sparse_stim, psc_wire):
-        arrays = _encode_psc(psc, psc_wire)
-        if stim is not None:
-            sparse = encode_stim_sparse(stim) if sparse_stim else None
-            arrays.update(sparse if sparse is not None
-                          else {"stim": np.asarray(stim)})
-        return _npz_bytes(**arrays)
+        with span("cm.client.encode"):
+            arrays = _encode_psc(psc, psc_wire)
+            if stim is not None:
+                sparse = encode_stim_sparse(stim) if sparse_stim else None
+                arrays.update(sparse if sparse is not None
+                              else {"stim": np.asarray(stim)})
+            return _npz_bytes(**arrays)
 
     def fit(self, psc, stim, method="caviar", demix=None,
             sparse_stim=True, psc_wire=None, return_fields=None,
@@ -2091,13 +2142,15 @@ class FitClient:
                 else return_fields)]
         if response_wire is not None:
             opts["response_wire"] = str(response_wire)
-        out = self._request("POST", "/fit",
-                            body=self._body(psc, stim, sparse_stim,
-                                            psc_wire),
-                            options=opts)
-        if "lam_q8" in out:
-            out["lam"] = (out.pop("lam_q8").astype(np.float32)
-                          * out.pop("lam_q8_scale")[..., None])
+        response = self._exchange("POST", "/fit",
+                                  body=self._body(psc, stim, sparse_stim,
+                                                  psc_wire),
+                                  options=opts)
+        with span("cm.client.decode"):
+            out = self._decode(*response)
+            if "lam_q8" in out:
+                out["lam"] = (out.pop("lam_q8").astype(np.float32)
+                              * out.pop("lam_q8_scale")[..., None])
         return out
 
     def fit_many(self, pscs, stims, demix=None, sparse_stim=True,

@@ -23,6 +23,7 @@ import torch
 
 from .._device import torch_dtype
 from ..utils import native
+from ..utils.profiling import span
 from ..utils.quant import (PackedInt4Traces, _upsample2, encode_int4_traces,
                            quantise_int8, unpack_int4_codes)
 
@@ -180,15 +181,18 @@ def prepare_traces(y_psc, dtype, device, trace_wire=None):
                                device=device)
     arr = np.asarray(y_psc)
     if trace_wire == "f16":
-        h = torch.from_numpy(np.asarray(arr, dtype=np.float16))
+        with span("cm.wire.encode"):
+            h = torch.from_numpy(np.asarray(arr, dtype=np.float16))
         return h.to(device).to(dtype)
     if trace_wire == "int8":
-        q, scale = quantise_int8(arr)
+        with span("cm.wire.encode"):
+            q, scale = quantise_int8(arr)
         return (torch.from_numpy(q).to(device).to(dtype)
                 * torch.from_numpy(scale).to(device)[:, None].to(dtype))
     if trace_wire in ("int4", "int4d2"):
         dec = 2 if trace_wire == "int4d2" else 1
-        packed, scale = encode_int4_traces(arr, decimate=dec)
+        with span("cm.wire.encode"):
+            packed, scale = encode_int4_traces(arr, decimate=dec)
         return unpack_int4_traces(packed, scale, arr.shape[1], dec,
                                   device).to(dtype)
     return torch.as_tensor(np.asarray(arr, dtype=np.float32),

@@ -46,6 +46,7 @@ from ..ops.sweep_cuda import (_sweep_row_blocks,
 from ..ops.sweep_row_cuda import (sweep_spikes_row, sweep_spikes_row_batched,
                                   sweep_spikes_row_torch)
 from ..ops.truncnorm import sample_truncated_normal, truncated_normal_mean
+from ..utils.profiling import span
 from ._common import (prepare_stim_and_init, prepare_traces,
                       stim_upload_plan, warn_data_thin_design,
                       warn_single_chip_envelope)
@@ -554,36 +555,45 @@ def caviar(
 
     warn_single_chip_envelope(*np.shape(stim), what="caviar()", dtype=dtype,
                               device=dev)
-    stim_np, plan = stim_upload_plan(stim, powers)
-    y_psc = prepare_traces(y_psc, dtype, dev, trace_wire=trace_wire)
-    y, active = prepare_observations(y_psc, y_xcorr_thresh)
-    stim_t, lam_mask, lam0, _, _, powers_dev_np, pc_np = prepare_stim_and_init(
-        stim_np, active, dtype, dev, plan)
-    warn_data_thin_design(pc_np, stim_t.shape[1], what="caviar()")
-    powers_t = _as(powers_dev_np, dtype, dev)
-    hyper = tuple(_as(a, dtype, dev) for a in (
-        mu_prior, beta_prior, shape_prior, rate_prior, phi_prior,
-        phi_cov_prior))
-    final, snaps, elbo_out = _run_caviar(
-        y, stim_t, lam0, lam_mask, powers_t,
-        power_counts_of(stim_t, powers_t, dtype), hyper,
-        [seeded_generator(seed, dev)],
-        iters=int(iters), num_mc_samples=int(num_mc_samples),
-        minimum_spike_count=int(minimum_spike_count),
-        delay_spont_est=int(delay_spont_est), msrmp=float(msrmp),
-        scale_factor=float(scale_factor), penalty=float(penalty),
-        max_backtrack_iters=int(max_backtrack_iters), tol=float(tol),
-        spont_orthogonality=float(spont_orthogonality),
-        analytic_mc=bool(analytic_mc), save_histories=bool(save_histories),
-        sweep_block_size=block_size, update_order=update_order,
-        track_elbo=bool(track_elbo),
-        elbo_tol=None if elbo_tol is None else float(elbo_tol))
+    # the stim stage is two spans: the host sparsify, then (once the
+    # observations' mask is known) the upload, the init, the priors and
+    # the power counts
+    with span("cm.fit.stim"):
+        stim_np, plan = stim_upload_plan(stim, powers)
+    with span("cm.fit.traces"):
+        y_psc = prepare_traces(y_psc, dtype, dev, trace_wire=trace_wire)
+        y, active = prepare_observations(y_psc, y_xcorr_thresh)
+    with span("cm.fit.stim"):
+        stim_t, lam_mask, lam0, _, _, powers_dev_np, pc_np = (
+            prepare_stim_and_init(stim_np, active, dtype, dev, plan))
+        warn_data_thin_design(pc_np, stim_t.shape[1], what="caviar()")
+        powers_t = _as(powers_dev_np, dtype, dev)
+        hyper = tuple(_as(a, dtype, dev) for a in (
+            mu_prior, beta_prior, shape_prior, rate_prior, phi_prior,
+            phi_cov_prior))
+        power_counts = power_counts_of(stim_t, powers_t, dtype)
+    with span("cm.fit.loop"):
+        final, snaps, elbo_out = _run_caviar(
+            y, stim_t, lam0, lam_mask, powers_t, power_counts, hyper,
+            [seeded_generator(seed, dev)],
+            iters=int(iters), num_mc_samples=int(num_mc_samples),
+            minimum_spike_count=int(minimum_spike_count),
+            delay_spont_est=int(delay_spont_est), msrmp=float(msrmp),
+            scale_factor=float(scale_factor), penalty=float(penalty),
+            max_backtrack_iters=int(max_backtrack_iters), tol=float(tol),
+            spont_orthogonality=float(spont_orthogonality),
+            analytic_mc=bool(analytic_mc),
+            save_histories=bool(save_histories),
+            sweep_block_size=block_size, update_order=update_order,
+            track_elbo=bool(track_elbo),
+            elbo_tol=None if elbo_tol is None else float(elbo_tol))
     mu, beta, lam, shape, rate, phi, phi_cov, z, _ = final
 
     if fn_scan:
-        mu, beta, lam, z, phi, phi_cov, n_rec = _reconnect_and_refit(
-            stim_t, lam, mu, beta, z, powers_t, phi, phi_cov, hyper[4],
-            hyper[5], float(msrmp), float(minimum_spike_count))
+        with span("cm.fit.scan"):
+            mu, beta, lam, z, phi, phi_cov, n_rec = _reconnect_and_refit(
+                stim_t, lam, mu, beta, z, powers_t, phi, phi_cov, hyper[4],
+                hyper[5], float(msrmp), float(minimum_spike_count))
         if verbose:
             print(f"Reconnected {n_rec} neurons previously attributed to "
                   "spontaneous activity.")

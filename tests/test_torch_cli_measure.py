@@ -87,8 +87,11 @@ def _json_line(out):
 # ------------------------------------------------------------ profiling
 
 def test_metrics_records_equal_the_jax_class(tmp_path, monkeypatch):
+    # the JAX class times with time.time, the port's with perf_counter
     clock = iter(np.arange(0.0, 100.0, 0.25))
+    perf = iter(np.arange(0.0, 100.0, 0.25))
     monkeypatch.setattr(time, "time", lambda: float(next(clock)))
+    monkeypatch.setattr(time, "perf_counter", lambda: float(next(perf)))
     records = []
     for cls, path in ((jax_profiling.Metrics, tmp_path / "jax.jsonl"),
                       (profiling.Metrics, tmp_path / "port.jsonl")):
@@ -213,6 +216,9 @@ def test_profile_fit_prints_the_jax_record(monkeypatch, capsys):
     assert jax_record_keys("profile_fit_entry.py") <= set(rec)
     assert set(rec["stages_best_ms"]) == {"observations", "stim_prep",
                                           "fit_scan", "reconnect", "pull"}
+    # the fit's own spans: host ms, and the device ms of their launches
+    assert set(rec["stages_device_ms"]) == set(rec["stages_best_ms"])
+    assert all(v >= 0 for v in rec["stages_device_ms"].values())
     assert rec["staged_sum_ms"] == pytest.approx(
         sum(rec["stages_best_ms"].values()), abs=0.01)
     assert rec["whole_fit_ms"] > 0

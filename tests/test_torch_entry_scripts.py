@@ -1,10 +1,8 @@
 """The port's entry scripts on the CPU: the NeuroCAAS shell entry point
 ``circuitmap_torch/scripts/run_circuitmap_main.sh`` (its fit's files, as
-``python -m circuitmap_torch fit`` writes them, zipped) and
-``bench_torch.py --small`` (one JSON line, no ``vs_baseline``).
+``python -m circuitmap_torch fit`` writes them, zipped).
 """
 
-import json
 import os
 import shutil
 import subprocess
@@ -106,19 +104,3 @@ def test_shell_entry_point_needs_its_paths(tmp_path):
     proc = _run([])
     assert proc.returncode != 0
     assert "usage: run_circuitmap_main.sh DATA CONFIG OUT_DIR" in proc.stderr
-
-
-def test_bench_torch_small_prints_one_json_line(monkeypatch, capsys):
-    monkeypatch.syspath_prepend(str(REPO))
-    import bench_torch
-
-    monkeypatch.setattr(bench_torch, "REPEATS", 1)
-    assert bench_torch.main(["--small", "--device", "cpu"]) == 0
-    lines = capsys.readouterr().out.strip().splitlines()
-    record = json.loads(lines[-1])
-    assert record["metric"] == "demix+caviar_fit_N200_K2000_iters50"
-    assert record["unit"] == "seconds" and record["value"] > 0
-    assert record["fit_only_seconds"] > 0
-    assert record["device"] == "cpu" and record["trace_wire"] == "int4d2"
-    assert "vs_baseline" not in record
-    assert record["weight_recovery_r2"] > 0.98  # measured 0.9983

@@ -1,6 +1,6 @@
 """circuitmap_torch stands on its own.
 
-The port, ``chip_smoke.py`` and ``bench_torch.py`` import neither JAX nor circuitmap_tpu nor
+The port and ``chip_smoke.py`` import neither JAX nor circuitmap_tpu nor
 the JAX package's scripts (an AST scan, and subprocesses that run a CPU
 fit, or import every command module, and then inspect ``sys.modules``); every entry point runs on the GPU unless asked for the
 CPU, and raises rather than falling back when there is no GPU.
@@ -19,7 +19,7 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "circuitmap_tpu", "scripts_tpu")
 PORT_FILES = sorted((REPO / "circuitmap_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "bench_torch.py"]
+    REPO / "chip_smoke.py"]
 # the modules of the streaming, resumable and closed-loop slice, of
 # the training, continuous-simulation and analysis slice, of the
 # serving slice and of the multi-device slice, which must be among the
