@@ -125,7 +125,11 @@ the CTAs of each cluster, and at one row a step at the arguments
 CAVI-SnS and MBCS-ARD give it (phase 12); the Laplace kernel at [1000]
 and [4, 1000] lanes and at 17, 25, 65 and 1025 buckets,
 timed on the device (a CUDA graph of 20 launches) and per wrapper call,
-its bound counting the Armijo candidates those inputs need. One warm
+its bound counting the Armijo candidates those inputs need; the U-Net's
+up-block epilogue kernel (ReLU, linear resize, skip concat) at its four
+shapes and 4096 rows, held to ATen's ops to the last bit in float32 and
+bfloat16 and timed beside them (phase 3d), and its four launches a
+chunk of the main path's int4d2 demix (phase 5). One warm
 main-path fit runs under torch.profiler (phase 5b: the top device
 operations, the Laplace total, the device's idle share), and one warm
 2-iteration CAVI-SnS fit (phase 13).
@@ -275,7 +279,8 @@ def sweep_call(fn, a, gate_active, dtype=None, **kw):
 
 def counters():
     """Each kernel's wrappers, whose ``launches`` count its launches."""
-    from circuitmap_torch.ops import laplace_cuda, sweep_cuda, sweep_row_cuda
+    from circuitmap_torch.ops import (laplace_cuda, resize_cuda, sweep_cuda,
+                                      sweep_row_cuda)
 
     return {
         "sweep_blocked": (sweep_cuda.sweep_spikes_blocked,
@@ -283,6 +288,7 @@ def counters():
         "laplace": (laplace_cuda.laplace_from_stats,),
         "sweep_row": (sweep_row_cuda.sweep_spikes_row,
                       sweep_row_cuda.sweep_spikes_row_batched),
+        "relu_resize_cat": (resize_cuda.relu_resize_cat,),
     }
 
 
@@ -316,10 +322,18 @@ def kernel_launches(counts):
 
 def launch_dict(b1, b2, b3, f64=(0, 0, 0)):
     """kernel_launches()'s dict of B1, B2 and B3 launches in float32,
-    and in float64 ``f64``."""
+    and in float64 ``f64``; no launch of the demixer's epilogue (U1)."""
     return {"sweep_blocked": b1, "laplace": b2, "sweep_row": b3,
             "sweep_blocked_f64": f64[0], "laplace_f64": f64[1],
-            "sweep_row_f64": f64[2]}
+            "sweep_row_f64": f64[2], "relu_resize_cat": 0,
+            "relu_resize_cat_f64": 0}
+
+
+def fit_kernel_launches(launches):
+    """kernel_launches()'s dict without the demixer's epilogue (U1): the
+    fit's kernels alone."""
+    return {k: v for k, v in launches.items()
+            if not k.startswith("relu_resize_cat")}
 
 
 def cluster_fields(E, K, rows, P=len(POWERS)):
@@ -412,6 +426,75 @@ def phase_sweep():
                 bound_by="bytes", library_ms=None,
                 bound_share=bound_ms / ms, rows_per_step=8,
                 **cluster_fields(1, K, 8)), (a, ker1)
+
+
+# (C, L_in, L_out, Cs) of the U-Net's up blocks ublock1..4 at 900 samples
+UNET_UP = ((16, 32, 65, 32), (16, 80, 162, 16), (16, 193, 387, 16),
+           (4, 804, 900, 0))
+DEMIX_CHUNK = 4096
+
+
+def phase_epilogue():
+    """The U-Net's up-block epilogue kernel (``csrc/resize.cu``: ReLU,
+    linear resize, skip concat) at its four shapes and a 4096-row chunk,
+    against ATen's ops (relu, ``F.interpolate``, cat: the path it
+    replaced, the ``library_ms`` yardstick) and its plain version; device
+    time from a CUDA graph of 20 launches. The bfloat16 instance is held
+    to ATen's bfloat16 ops at the same shapes. Its launches are counted
+    on the paths (phase 5: four a chunk of the main path's demix)."""
+    import torch
+    import torch.nn.functional as F
+    from circuitmap_torch.ops import resize_cuda as rc
+
+    log("phase 3d: U-Net up-block epilogue (ReLU, linear resize, skip "
+        f"concat) at {DEMIX_CHUNK} rows vs ATen's ops and the plain version")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ms = plain_ms = library_ms = nbytes = 0
+    err, differ, shapes = 0.0, {}, {}
+    for C, L_in, L_out, Cs in UNET_UP:
+        h = torch.randn(DEMIX_CHUNK, C, L_in, device="cuda", generator=gen)
+        skip = (torch.randn(DEMIX_CHUNK, Cs, L_out, device="cuda",
+                            generator=gen) if Cs else None)
+
+        def aten(h=h, skip=skip, L_out=L_out):
+            out = F.interpolate(F.relu(h), size=L_out, mode="linear",
+                                align_corners=False)
+            return out if skip is None else torch.cat([out, skip], dim=1)
+
+        for dtype in (torch.float32, torch.bfloat16):
+            hd = h.to(dtype)
+            sd = None if skip is None else skip.to(dtype)
+            got, want = rc.relu_resize_cat(hd, L_out, sd), aten(hd, sd)
+            err = max(err, (got.float() - want.float()).abs().max().item())
+            differ[str(dtype)[6:]] = (differ.get(str(dtype)[6:], 0)
+                                      + int((got != want).sum()))
+        k_ms = graph_ms(lambda: rc.relu_resize_cat(h, L_out, skip))
+        p_ms = cuda_ms(lambda: rc.relu_resize_cat_torch(h, L_out, skip))
+        a_ms = cuda_ms(aten, reps=5, warmup=1)
+        b = DEMIX_CHUNK * (C * L_in + (C + 2 * Cs) * L_out) * 4
+        shapes[f"{L_in}->{L_out}"] = dict(
+            ms=k_ms, plain_ms=p_ms, library_ms=a_ms,
+            bound_ms=b / PEAK_BYTES_PER_S * 1e3)
+        ms, plain_ms, library_ms, nbytes = (ms + k_ms, plain_ms + p_ms,
+                                            library_ms + a_ms, nbytes + b)
+        log(f"{L_in}->{L_out} (C={C}, skip {Cs}): kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.3f} ms, ATen {a_ms:.3f} ms, bound "
+            f"{shapes[f'{L_in}->{L_out}']['bound_ms']:.4f} ms")
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    log(f"a chunk: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, ATen "
+        f"{library_ms:.3f} ms, byte bound {bound_ms:.4f} ms ({nbytes} B at "
+        f"3.35 TB/s), {bound_ms / ms:.1%} of the bound; max |kernel - "
+        f"ATen| {err:.3e}, elements that differ {differ}")
+    if err > 0:
+        raise AssertionError("the epilogue kernel differs from ATen's ops")
+    return dict(name="relu_resize_cat", route="cuda",
+                source="circuitmap_torch/csrc/resize.cu",
+                replaces="none (an XLA gather: circuitmap_tpu/demix/unet.py::"
+                         "resize_linear)",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=library_ms,
+                bound_share=bound_ms / ms, rows=DEMIX_CHUNK, shapes=shapes,
+                differ=differ)
 
 
 OPS_PER_BUCKET = 30  # one bucket's share of a direction or an objective
@@ -605,6 +688,7 @@ def phase_main_path():
     import torch
     from circuitmap_torch import Model, NeuralDemixer, simulate
     from circuitmap_torch.ops.laplace_cuda import laplace_from_stats
+    from circuitmap_torch.ops.resize_cuda import relu_resize_cat
     from circuitmap_torch.ops.sweep_cuda import sweep_spikes_blocked
     from circuitmap_torch.utils.metrics import r2_score
 
@@ -630,7 +714,8 @@ def phase_main_path():
     torch.cuda.synchronize()
     first_s = time.time() - t0
     launches = {"sweep_blocked": sweep_spikes_blocked.launches,
-                "laplace": laplace_from_stats.launches}
+                "laplace": laplace_from_stats.launches,
+                "relu_resize_cat": relu_resize_cat.launches}
     by_path = kernel_launches(read_counts())
     r2 = r2_score(sim["weights"], model.state["mu"])
     log(f"first run {first_s:.3f} s; launches {launches}; truth-R2 {r2:.4f}")
@@ -641,6 +726,9 @@ def phase_main_path():
         raise AssertionError("demixed traces are not finite [K, 900]")
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel never launched on the main path: {launches}")
+    if launches["relu_resize_cat"] != 4 * -(-K // DEMIX_CHUNK):
+        raise AssertionError("the demix must launch the epilogue kernel four "
+                             f"times a {DEMIX_CHUNK}-row chunk: {launches}")
     if r2 < 0.98:
         raise AssertionError(f"truth-R2 {r2:.4f} < 0.98")
 
@@ -3135,8 +3223,8 @@ def wf_loho(tmp, rec, paths):
         f"{FANOUT_JOBS} workers (`python -m circuitmap_torch loho-cv --fold "
         f"I` in subprocesses): {bsecs:.3f} s; their fold files equal the "
         f"sweep's records")
-    require_launches(not any(flaunch.values()), "fanout-jobs", flaunch,
-                     "none")
+    require_launches(not any(fit_kernel_launches(flaunch).values()),
+                     "fanout-jobs", flaunch, "no fit kernel")
     rec.update(loho_cv_s=secs, fanout_s=fsecs, fanout_script_s=bsecs,
                loho_folds=len(folds),
                loho_mse=[r["held_out_mse"] for r in sweep])
@@ -3425,7 +3513,8 @@ def wf_demixer(tmp, rec, paths):
     paths["cmd_export_ckpt"] = elaunch
     for what, counts in (("train-qat-demixer", launches),
                          ("export-ckpt", elaunch)):
-        require_launches(not any(counts.values()), what, counts, "none")
+        require_launches(not any(fit_kernel_launches(counts).values()),
+                         what, counts, "no fit kernel")
     back, trained = (convert.load_params(p) for p in (f"{tmp}/qat.ckpt", qat))
     if not all(torch.equal(back[k], v) for k, v in trained.items()):
         raise AssertionError("the exported checkpoint does not reload bit "
@@ -3569,8 +3658,10 @@ def wf_studies(tmp, sim, dem, model, rec, paths):
                             f"{tmp}/sf.npz"])
     total += secs
     paths["cmd_signal_fidelity"] = launches
-    require_launches(not any(launches.values()), "signal-fidelity",
-                     launches, "none (no fit)")
+    require_launches(
+        not any(fit_kernel_launches(launches).values())
+        and launches["relu_resize_cat"] > 0, "signal-fidelity", launches,
+        "no fit kernel; the demixer's epilogue kernel")
     sf = dict(np.load(f"{tmp}/sf.npz"))
     if any(np.isnan(v).any() for v in sf.values()):
         raise AssertionError("signal-fidelity output holds a NaN")
@@ -4373,6 +4464,7 @@ def main():
     sweep_rec, sweep_state = phase_sweep()
     laplace_rec = phase_laplace(sweep_state)
     del sweep_state
+    epilogue_rec = phase_epilogue()
     wide = phase_blocks_and_levels()
     sweep_rec["pinned_blocks"] = wide["blocks"]
     sweep_rec["p16"] = wide["sweep_p16"]
@@ -4432,7 +4524,7 @@ def main():
     paths["frontier"], solvers["frontier"] = phase_frontier()
     log(f"solvers: {json.dumps(solvers)}")
     laplace_rec["main_path_profiled_ms"] = laplace_profiled_ms
-    records = (sweep_rec, laplace_rec, row_rec, *f64_records)
+    records = (sweep_rec, laplace_rec, row_rec, epilogue_rec, *f64_records)
     for rec in records:
         # launches: the sum over the paths driven, each counted from 0
         rec["launches_by_path"] = {path: c.get(rec["name"], 0)

@@ -23,7 +23,9 @@ package's custom VJP of the transposed convolution works around slow
 XLA autodiff on the CPU; cuDNN needs none). With
 ``torch.backends.cudnn.deterministic`` set, training's linear resize is
 a product with its weights (``_resize``), so that training on the card
-repeats bit for bit.
+repeats bit for bit. In inference on the card an up block's ReLU, resize
+and skip concat run as one kernel (``ops/resize_cuda.py``), equal to
+ATen's ops to the last bit.
 
 :func:`init_nwd_params` draws a fresh network from an explicit
 ``torch.Generator`` by the JAX package's rule (``init_nwd_params``:
@@ -40,6 +42,8 @@ import functools
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops import resize_cuda
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -72,6 +76,18 @@ def _resize_weights(length, size, device, dtype):
     eye = torch.eye(length, device=device, dtype=dtype)
     return F.interpolate(eye[None], size=size, mode="linear",
                          align_corners=False)[0]
+
+
+def _relu_resize_cat(h, size, skip):
+    """An up block's epilogue after its BatchNorm: ReLU, the linear
+    resize to ``size`` samples, then ``skip``'s channels (if any). U-Net
+    inference on the card takes one kernel (``ops/resize_cuda.py``);
+    the CPU and autograd recording through ``h`` (training: the kernel
+    has no backward) take ATen's ops and ``_resize``."""
+    if h.is_cuda and not (torch.is_grad_enabled() and h.requires_grad):
+        return resize_cuda.relu_resize_cat(h, size, skip)
+    h = _resize(F.relu(h), size)
+    return h if skip is None else torch.cat([h, skip], dim=1)
 
 
 class _Down(nn.Module):
@@ -114,11 +130,10 @@ def forward_shards(nets, xs, norm):
         return [F.relu(h) for h in norm(name, hs)]
 
     def up(name, hs, size, skips=None):
-        hs = [getattr(net, name).deconv(h) for net, h in zip(nets, hs)]
-        hs = [_resize(F.relu(h), size) for h in norm(name, hs)]
-        if skips is None:
-            return hs
-        return [torch.cat([h, skip], dim=1) for h, skip in zip(hs, skips)]
+        hs = norm(name, [getattr(net, name).deconv(h)
+                         for net, h in zip(nets, hs)])
+        skips = [None] * len(hs) if skips is None else skips
+        return [_relu_resize_cat(h, size, skip) for h, skip in zip(hs, skips)]
 
     e1 = down("dblock1", xs)
     e2 = down("dblock2", e1)

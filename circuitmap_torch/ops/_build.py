@@ -126,6 +126,12 @@ def _declare(lib):
     for fn in (lib.cm_laplace_f32, lib.cm_laplace_f64):
         fn.argtypes = [p] * 7 + [i] * 4 + [p]
         fn.restype = i
+    # h, skip, lo, hi, frac, out, then B, C, Cs, L_in, L_out, G, share
+    # (long long), vec, staged
+    for fn in (lib.cm_relu_resize_cat_f32, lib.cm_relu_resize_cat_f64,
+               lib.cm_relu_resize_cat_bf16, lib.cm_relu_resize_cat_f16):
+        fn.argtypes = [p] * 6 + [i] * 6 + [ctypes.c_longlong, i, i, p]
+        fn.restype = i
     lib.cm_error_string.argtypes = [i]
     lib.cm_error_string.restype = ctypes.c_char_p
     return lib

@@ -25,15 +25,20 @@ with double I/O: within 10 times the distance the float64 plain version
 itself moves when its input S moves by one ulp (``laplace_ulp_spread``:
 ~1e-9 on phi, ~1e-8 on cov at these inputs; the card measured the
 kernel 1.0e-8 / 2.8e-8 from it), not 1e-10, which the recursion's own
-conditioning does not allow.
+conditioning does not allow. The U-Net's epilogue kernel (ReLU, linear
+resize, skip concat) is held to ATen's ops: float32, bfloat16 and
+float16 within one ulp of each output in their own type (it computes
+ATen's arithmetic, the 16-bit types in float as ATen's kernel does; one
+ulp leaves room for the contraction of a multiply-add), float64 within
+1e-12.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from circuitmap_torch.ops import (_build, laplace_cuda, sweep_cuda,
-                                  sweep_row_cuda)
+from circuitmap_torch.ops import (_build, laplace_cuda, resize_cuda,
+                                  sweep_cuda, sweep_row_cuda)
 
 
 @pytest.fixture
@@ -725,3 +730,138 @@ def test_two_shard_mesh_on_one_card_matches_the_unsharded_fit(cuda):
     assert torch.equal(single[0] != 0, sharded[0] != 0)
     np.testing.assert_allclose(sharded[0].cpu().numpy(),
                                single[0].cpu().numpy(), rtol=2e-3, atol=2e-3)
+
+
+# (C, L_in, L_out, Cs) of the U-Net's up blocks ublock1..4 at 900 samples
+UNET_UP = [(16, 32, 65, 32), (16, 80, 162, 16), (16, 193, 387, 16),
+           (4, 804, 900, 0)]
+
+
+def _aten_epilogue(h, size, skip):
+    import torch.nn.functional as F
+
+    out = F.interpolate(F.relu(h), size=size, mode="linear",
+                        align_corners=False)
+    return out if skip is None else torch.cat([out, skip], dim=1)
+
+
+EPILOGUE_DTYPES = [torch.float32, torch.float64, torch.bfloat16,
+                   torch.float16]
+
+
+def _hold_epilogue(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if want.dtype == torch.float64:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+        return
+    if want.dtype == torch.float32:
+        ulp = torch.nextafter(want.abs(), torch.full_like(want, np.inf)) - \
+            want.abs()
+    else:  # the spacing of the 16-bit type at |want|, computed in float
+        info = torch.finfo(want.dtype)
+        w = want.float()
+        ulp = torch.ldexp(torch.full_like(w, info.eps),
+                          torch.frexp(w).exponent - 1)
+        sub = info.tiny * info.eps  # the spacing of its subnormals
+        ulp = torch.where(w == 0, sub, torch.clamp(ulp, min=sub))
+        got, want = got.float(), w
+    assert bool(((got - want).abs() <= ulp).all())
+
+
+def _epilogue_inputs(B, C, L_in, L_out, Cs, dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    h = torch.randn(B, C, L_in, generator=gen, dtype=torch.float64)
+    skip = torch.randn(B, Cs, L_out, generator=gen, dtype=torch.float64)
+    return h.to(device, dtype), skip.to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", EPILOGUE_DTYPES)
+@pytest.mark.parametrize("C,L_in,L_out,Cs", UNET_UP)
+def test_epilogue_kernel_matches_aten(cuda, C, L_in, L_out, Cs, dtype):
+    """At the U-Net's four up-block shapes, a whole chunk (4096 rows),
+    the last chunk of a 20,000-trace map (3616) and one row, with and
+    without the skip."""
+    for B in (1, 4096, 3616):
+        h, skip = _epilogue_inputs(B, C, L_in, L_out, Cs, dtype, cuda, B)
+        for sk in ((skip, None) if Cs else (None,)):
+            before = (resize_cuda.relu_resize_cat.launches,
+                      resize_cuda.relu_resize_cat.launches_f64)
+            got = resize_cuda.relu_resize_cat(h, L_out, sk)
+            torch.cuda.synchronize()
+            f64 = int(dtype == torch.float64)
+            assert (resize_cuda.relu_resize_cat.launches,
+                    resize_cuda.relu_resize_cat.launches_f64) == (
+                        before[0] + 1, before[1] + f64)
+            _hold_epilogue(got, _aten_epilogue(h, L_out, sk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", EPILOGUE_DTYPES)
+def test_epilogue_kernel_off_the_unet_shapes(cuda, dtype):
+    """The kernel's other paths: lines too long for one block (channel
+    groups, each copying a share of the skip), a line longer than a
+    block's shared memory (read from h, not staged), odd lengths and a
+    misaligned tensor (no 16-byte vectors), a downsample and one input
+    sample."""
+    for B, C, L_in, L_out, Cs, offset in [
+            (3, 5, 3000 if dtype == torch.float64 else 7000, 7001, 3, 0),
+            (2, 3, 30000, 30001, 2, 0),
+            (5, 3, 37, 101, 2, 0), (4, 4, 193, 387, 16, 1),
+            (2, 6, 900, 450, 4, 0), (2, 3, 1, 4, 1, 0)]:
+        h, skip = _epilogue_inputs(B, C, L_in, L_out, Cs, dtype, cuda)
+        if offset:  # contiguous, one element past a 16-byte boundary
+            flat = torch.empty(h.numel() + offset, dtype=dtype, device=cuda)
+            h = flat[offset:].view_as(h).copy_(h)
+        got = resize_cuda.relu_resize_cat(h, L_out, skip)
+        _hold_epilogue(got, _aten_epilogue(h, L_out, skip))
+
+
+@pytest.mark.cuda
+def test_epilogue_kernel_repeats_bit_for_bit(cuda):
+    h, skip = _epilogue_inputs(4096, 16, 193, 387, 16, torch.float32, cuda)
+    first = resize_cuda.relu_resize_cat(h, 387, skip)
+    assert torch.equal(resize_cuda.relu_resize_cat(h, 387, skip), first)
+
+
+@pytest.mark.cuda
+def test_demixer_launches_the_epilogue_kernel_four_times_a_chunk(cuda):
+    """``NeuralDemixer.__call__`` on 4097 rows: two chunks, four up
+    blocks each. A training step with autograd recording launches none
+    (the kernel has no backward); its validation loss, under no_grad,
+    does."""
+    from circuitmap_torch.demix.demixer import NeuralDemixer
+
+    rng = np.random.default_rng(0)
+    raw = (rng.standard_normal((4097, 900)) * 0.1).astype(np.float32)
+    d = NeuralDemixer("demixers/nwd_ie_ChroME2f.npz", device=cuda)
+    fn = resize_cuda.relu_resize_cat
+    before = fn.launches
+    d(raw, verbose=False)
+    assert fn.launches == before + 8
+    x = torch.as_tensor(raw[:64], device=cuda)
+    d.net.train()
+    before = fn.launches
+    d._loss(x, torch.relu(x)).backward()
+    assert fn.launches == before
+    d._val_loss(x, torch.relu(x))
+    assert fn.launches == before + 4
+    # a bfloat16 network takes the kernel too (no quiet way round it)
+    bf16 = NeuralDemixer("demixers/nwd_ie_ChroME2f.npz", device=cuda,
+                         compute_dtype=torch.bfloat16)
+    before = fn.launches
+    out = bf16(raw, verbose=False)
+    assert fn.launches == before + 8 and np.isfinite(np.asarray(out)).all()
+
+
+@pytest.mark.cuda
+def test_epilogue_kernel_refuses_what_it_does_not_take(cuda):
+    h, skip = _epilogue_inputs(2, 16, 193, 387, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="no relu_resize_cat kernel"):
+        resize_cuda.relu_resize_cat(h.cpu(), 387, skip.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        resize_cuda.relu_resize_cat(h.transpose(0, 1), 387)
+    with pytest.raises(ValueError, match="skip must be"):
+        resize_cuda.relu_resize_cat(h, 387, skip[..., :386].contiguous())
+    with pytest.raises(ValueError, match="skip must be"):
+        resize_cuda.relu_resize_cat(h, 387, skip.cpu())
