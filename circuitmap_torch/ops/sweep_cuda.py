@@ -27,7 +27,8 @@ float64 always at run time). The same kernel runs the strictly
 sequential sweep (1 row a step, ``ops/sweep_row_cuda.py``).
 :func:`cluster_plan` lays out its launch. Each wrapper counts its
 launches in ``launches`` and, of those, the float64 ones in
-``launches_f64`` (``ops/_counts.py``).
+``launches_f64``, and each launch's layout and step count, a
+:class:`SweepLaunch`, in ``plans`` (``ops/_counts.py``).
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from typing import NamedTuple
 import torch
 
 from .._device import highest_matmul
-from ._counts import count_launch, reset_launches
+from ._counts import count_launch, count_plan, reset_launches
 from .pava import isotonic_fit_at_max_batched
 
 BLOCK = 8                 # rows a step by default
@@ -180,7 +181,8 @@ def sweep_spikes_blocked(y, stim, mu, beta, lam, sig, m0, m1, lam_mask,
     out = _launch(*_expt_axis(y, stim, mu, beta, lam), sig,
                   *_expt_axis(m0, m1, lam_mask), powers,
                   *_expt_axis(power_counts, border), msrmp_eff,
-                  minimum_spike_count, gate_active, block_size)
+                  minimum_spike_count, gate_active, block_size,
+                  sweep_spikes_blocked)
     count_launch(sweep_spikes_blocked, out.dtype)
     return out[0]
 
@@ -210,7 +212,7 @@ def sweep_spikes_blocked_batched(y, stim, mu, beta, lam, sig, m0, m1,
         raise ValueError(f"no sweep kernel for device {lam.device}")
     out = _launch(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
                   power_counts, border, msrmp_eff, minimum_spike_count,
-                  gate_active, block_size)
+                  gate_active, block_size, sweep_spikes_blocked_batched)
     count_launch(sweep_spikes_blocked_batched, out.dtype)
     return out
 
@@ -259,6 +261,18 @@ class ClusterPlan(NamedTuple):
     on_chip: bool
     depth: int
     smem_bytes: int
+
+
+class SweepLaunch(NamedTuple):
+    """What a wrapper's ``plans`` counts of one cluster-sweep launch: its
+    :class:`ClusterPlan`'s ``cluster``, ``cols``, ``on_chip`` and ring
+    ``depth``, and ``nsteps``, the dependent block steps it chains (one
+    a row at one row a step)."""
+    cluster: int
+    cols: int
+    on_chip: bool
+    depth: int
+    nsteps: int
 
 
 def dynamic_levels(P, item=4):
@@ -344,12 +358,14 @@ def sub_steps(block):
 
 def launch_cluster_sweep(rows, y, stim, mu, beta, lam, sig, m0, m1,
                          lam_mask, powers, power_counts, steps, msrmp_eff,
-                         minimum_spike_count, gate_active):
+                         minimum_spike_count, gate_active, counter):
     """One launch of the cluster sweep over E experiments ([E, ...]
     arrays) at ``rows`` rows a block (any size; above MAX_BLOCK a block
     runs as :func:`sub_steps` against the residual of its start);
     ``steps``: [E, ceil(N/rows)] block indices, or [E, N] rows at one
-    row a step. Returns the new lam [E, N, K]."""
+    row a step. The launch's :class:`SweepLaunch` is counted in the
+    ``plans`` of ``counter``, the wrapper that launches it. Returns the
+    new lam [E, N, K]."""
     from . import _build
 
     what = "sweep" if rows > 1 else "row-sweep"
@@ -386,14 +402,17 @@ def launch_cluster_sweep(rows, y, stim, mu, beta, lam, sig, m0, m1,
         plan.depth, plan.smem_bytes,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "sweep_cluster")
+    count_plan(counter, SweepLaunch(plan.cluster, plan.cols, plan.on_chip,
+                                    plan.depth, nsteps))
     return out
 
 
 def _launch(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
             power_counts, border, msrmp_eff, minimum_spike_count,
-            gate_active, block_size):
+            gate_active, block_size, counter):
     if block_size < 1:
         raise ValueError(f"block_size must be >= 1, got {block_size}")
     return launch_cluster_sweep(
         block_size, y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
-        power_counts, border, msrmp_eff, minimum_spike_count, gate_active)
+        power_counts, border, msrmp_eff, minimum_spike_count, gate_active,
+        counter)

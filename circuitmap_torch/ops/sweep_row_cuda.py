@@ -75,7 +75,7 @@ def sweep_spikes_row(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
     out = _launch(*_expt_axis(y, stim, mu, beta, lam), sig,
                   *_expt_axis(m0, m1, lam_mask), powers,
                   *_expt_axis(power_counts, order), msrmp_eff,
-                  minimum_spike_count, gate_active)
+                  minimum_spike_count, gate_active, sweep_spikes_row)
     count_launch(sweep_spikes_row, out.dtype)
     return out[0]
 
@@ -102,7 +102,7 @@ def sweep_spikes_row_batched(y, stim, mu, beta, lam, sig, m0, m1, lam_mask,
         raise ValueError(f"no row-sweep kernel for device {lam.device}")
     out = _launch(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
                   power_counts, order, msrmp_eff, minimum_spike_count,
-                  gate_active)
+                  gate_active, sweep_spikes_row_batched)
     count_launch(sweep_spikes_row_batched, out.dtype)
     return out
 
@@ -111,7 +111,9 @@ reset_launches(sweep_spikes_row_batched)
 
 
 def _launch(y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
-            power_counts, order, msrmp_eff, minimum_spike_count, gate_active):
+            power_counts, order, msrmp_eff, minimum_spike_count, gate_active,
+            counter):
     return launch_cluster_sweep(
         1, y, stim, mu, beta, lam, sig, m0, m1, lam_mask, powers,
-        power_counts, order, msrmp_eff, minimum_spike_count, gate_active)
+        power_counts, order, msrmp_eff, minimum_spike_count, gate_active,
+        counter)

@@ -353,6 +353,44 @@ def test_sweep_block_size_resolution():
         tcav._resolve_sweep("auto", 0, gpu)
 
 
+def _blockwise_counts(N, K, H, P, seed=0):
+    """[N, P] trials per neuron per power of a blockwise design (passes
+    over a random partition of the N neurons into H-spot holograms,
+    each swept over the P powers, cut at K trials): H * K / N
+    stimulations per neuron on average."""
+    rng = np.random.default_rng(seed)
+    n_holo = N // H
+    passes = -(-K // (P * n_holo))
+    targets = np.concatenate(
+        [np.tile(rng.permutation(N).reshape(n_holo, H), (P, 1))
+         for _ in range(passes)])[:K]
+    level = np.tile(np.repeat(np.arange(P), n_holo), passes)[:K]
+    counts = np.zeros((N, P))
+    np.add.at(counts, (targets, level[:, None]), 1.0)
+    return counts
+
+
+@pytest.mark.parametrize("K,warns", [(40000, False), (19000, True)])
+def test_data_thin_preflight_at_two_thousand_neurons(K, warns):
+    """N=2000 is where the preflight arms. The benchmark's 2,000-neuron
+    map (K=40,000, H=10: 200 stimulations per neuron, as the N=1000 map
+    has) stays silent; at 95 a neuron, under the ~100 floor, it warns."""
+    import warnings
+
+    from circuitmap_torch.solvers import _common
+
+    counts = _blockwise_counts(2000, K, 10, 3)
+    assert counts.sum(1).mean() == 10 * K / 2000
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _common.warn_data_thin_design(counts, K, what="caviar()")
+    thin = [w for w in caught
+            if issubclass(w.category, _common.DataThinDesignWarning)]
+    assert len(thin) == int(warns)
+    if warns:
+        assert "~95 times" in str(thin[0].message)
+
+
 def test_cuda_fit_with_more_levels_than_the_kernels_raises_at_resolution():
     """The CUDA kernels take any number of power levels (1..16 fixed at
     compile time, more at run time), so resolving the levels of a stim

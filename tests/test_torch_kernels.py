@@ -131,6 +131,9 @@ def _levels(n):
     (64, 203, 5001, (45.0, 55.0, 65.0)),
     (125, 300, 5000, (45.0, 55.0, 65.0)),
     (48, 203, 5000, _levels(24)),
+    # K=40,000 at 8 rows a step: on chip with no room for the prefetch
+    # ring (the N=2000, K=40,000 map's plan, depth 0)
+    (8, 203, 40000, (45.0, 55.0, 65.0)),
 ])
 def test_sweep_kernel_matches_plain_at_pinned_blocks_and_levels(
         cuda, block, N, K, powers):
@@ -141,14 +144,21 @@ def test_sweep_kernel_matches_plain_at_pinned_blocks_and_levels(
     t = _sweep_inputs(N, K, powers, device=cuda, block=block,
                       H=min(10, max(1, N // 10)), connected=0.05)
     kw = dict(block_size=block)
-    before = sweep_cuda.sweep_spikes_blocked.launches
-    ker = _sweep(sweep_cuda.sweep_spikes_blocked, t, 0.0, **kw)
+    fn = sweep_cuda.sweep_spikes_blocked
+    plan = sweep_cuda.launch_plan(1, K, sweep_cuda.sub_steps(block)[1],
+                                  len(powers))
+    # each launch counts its plan: layout, ring depth and block steps
+    launch = sweep_cuda.SweepLaunch(plan.cluster, plan.cols, plan.on_chip,
+                                    plan.depth, -(-N // block))
+    before, before_plan = fn.launches, fn.plans.get(launch, 0)
+    ker = _sweep(fn, t, 0.0, **kw)
     plain = _sweep(sweep_cuda.sweep_spikes_blocked_torch, t, 0.0, **kw)
     torch.testing.assert_close(ker, plain, rtol=1e-4, atol=1e-5)
-    ker1 = _sweep(sweep_cuda.sweep_spikes_blocked, t, 1.0, **kw)
+    ker1 = _sweep(fn, t, 1.0, **kw)
     plain1 = _sweep(sweep_cuda.sweep_spikes_blocked_torch, t, 1.0, **kw)
     torch.cuda.synchronize()
-    assert sweep_cuda.sweep_spikes_blocked.launches == before + 2
+    assert fn.launches == before + 2
+    assert fn.plans[launch] == before_plan + 2
     off_k, off_p = ker1.sum(1) == 0, plain1.sum(1) == 0
     assert int((off_k != off_p).sum()) <= max(0, N // 200)
 

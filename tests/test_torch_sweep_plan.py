@@ -2,12 +2,17 @@
 host function the CUDA kernel takes its layout from: the CTAs' column
 slices cover exactly the K trials, each starts on a 16-byte boundary,
 and no CTA asks for more shared memory than sm_90 gives one
-(232,448 bytes)."""
+(232,448 bytes). Each launch counts its plan in its wrapper's
+``plans``, which the launch path keeps on any machine."""
+
+import types
 
 import pytest
+import torch
 
-from circuitmap_torch.ops import sweep_cuda
-from circuitmap_torch.ops.sweep_cuda import cluster_plan
+from circuitmap_torch.ops import _build, sweep_cuda
+from circuitmap_torch.ops._counts import count_plan, reset_launches
+from circuitmap_torch.ops.sweep_cuda import SweepLaunch, cluster_plan
 
 
 @pytest.mark.parametrize("E", [1, 4, 9])
@@ -49,6 +54,89 @@ def test_main_path_plans_keep_the_sweep_on_chip():
     # 1..32 rows a step, as the pinned sweep_block_size allows on CUDA
     with pytest.raises(ValueError, match="rows=33"):
         cluster_plan(1, 100, 33)
+
+
+def test_map2000_plan_runs_without_the_ring():
+    # N=2000/K=40000 at 8 rows a step: r, y, mask and est of 2,500
+    # columns stay on chip and leave no room for one slot of the ring,
+    # so no step's rows are prefetched; 250 block steps a launch
+    plan = cluster_plan(1, 40000, 8, 3)
+    assert (plan.cluster, plan.cols, plan.on_chip, plan.depth) == (
+        16, 2500, True, 0)
+    assert plan.smem_bytes + 4 * 2 * 8 * plan.cols > sweep_cuda.SMEM_PER_CTA
+    assert cluster_plan(1, 30000, 8, 3).depth == 1
+
+
+class _Kernel:
+    """The kernels' library with the sweep's entry point stubbed: it
+    records its arguments and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def cm_sweep_cluster_f32(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def _launch_stubbed(monkeypatch, N, K, rows, counter):
+    """launch_cluster_sweep on CPU tensors against the stub, at 16 CTAs;
+    returns the stub's calls."""
+    lib = _Kernel()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(sweep_cuda, "_cluster_admitted", lambda *a: True)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    g = torch.Generator().manual_seed(0)
+    stim = (torch.rand((1, N, K), generator=g) < 0.005) * 55.0
+    lam = torch.rand((1, N, K), generator=g) * (stim > 0)
+    powers = torch.tensor([45.0, 55.0, 65.0])
+    counts = torch.stack([(stim == p).sum(-1) for p in powers], -1).float()
+    vec = torch.rand((1, N), generator=g)
+    steps = torch.arange(-(-N // rows))[None]
+    sweep_cuda.launch_cluster_sweep(
+        rows, torch.rand((1, K), generator=g), stim, vec, vec, lam, 0.1, vec,
+        vec, torch.ones((1, K)), powers, counts, steps, 0.3, 3.0, 1.0,
+        counter)
+    return lib.calls
+
+
+def test_each_launch_counts_its_plan_and_reset_clears_it(monkeypatch):
+    # the counter on a wrapper of its own, so the module's counts stay
+    def wrapper():
+        pass
+
+    reset_launches(wrapper)
+    assert (wrapper.launches, wrapper.launches_f64, wrapper.plans) == (
+        0, 0, {})
+    for _ in range(3):
+        (args,) = _launch_stubbed(monkeypatch, 2000, 400, 8, wrapper)
+    plan = cluster_plan(1, 400, 8, 3)
+    # N=2000 at 8 rows a step: 250 dependent block steps, the kernel's
+    # nsteps argument (after E, N, K and P)
+    want = SweepLaunch(16, plan.cols, plan.on_chip, plan.depth, 250)
+    assert wrapper.plans == {want: 3}
+    assert args[16:21] == (1, 2000, 400, 3, 250)
+    _launch_stubbed(monkeypatch, 29, 301, 1, wrapper)
+    assert wrapper.plans[SweepLaunch(*cluster_plan(1, 301, 1, 3)[:4],
+                                     29)] == 1
+    count_plan(wrapper, want)
+    assert wrapper.plans[want] == 4
+    reset_launches(wrapper)
+    assert wrapper.plans == {} and wrapper.launches == 0
+
+
+def test_every_sweep_wrapper_carries_a_plan_count():
+    # the benchmark reads the blocked wrapper's; each wrapper passes
+    # itself to launch_cluster_sweep as the counter
+    from circuitmap_torch.ops import sweep_row_cuda
+
+    for fn in (sweep_cuda.sweep_spikes_blocked,
+               sweep_cuda.sweep_spikes_blocked_batched,
+               sweep_row_cuda.sweep_spikes_row,
+               sweep_row_cuda.sweep_spikes_row_batched):
+        assert isinstance(fn.plans, dict)
 
 
 @pytest.mark.parametrize("rows", [7, 12, 16, 32])
