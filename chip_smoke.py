@@ -129,7 +129,12 @@ its bound counting the Armijo candidates those inputs need; the U-Net's
 up-block epilogue kernel (ReLU, linear resize, skip concat) at its four
 shapes and 4096 rows, held to ATen's ops to the last bit in float32 and
 bfloat16 and timed beside them (phase 3d), and its four launches a
-chunk of the main path's int4d2 demix (phase 5). One warm
+chunk of the main path's int4d2 demix (phase 5); W1, the weight
+update's Gram over the design's co-stimulation lists, at both benchmark
+maps' shapes against the dense product within a sequential sum's
+rounding bound, timed beside it, with the crossover between them over
+even, uneven and skewed designs in float32 and float64 (phase 3e), and
+its launch every iteration of the main path's fit (phase 5). One warm
 main-path fit runs under torch.profiler (phase 5b: the top device
 operations, the Laplace total, the device's idle share), and one warm
 2-iteration CAVI-SnS fit (phase 13).
@@ -279,8 +284,8 @@ def sweep_call(fn, a, gate_active, dtype=None, **kw):
 
 def counters():
     """Each kernel's wrappers, whose ``launches`` count its launches."""
-    from circuitmap_torch.ops import (laplace_cuda, resize_cuda, sweep_cuda,
-                                      sweep_row_cuda)
+    from circuitmap_torch.ops import (gram_cuda, laplace_cuda, resize_cuda,
+                                      sweep_cuda, sweep_row_cuda)
 
     return {
         "sweep_blocked": (sweep_cuda.sweep_spikes_blocked,
@@ -289,6 +294,7 @@ def counters():
         "sweep_row": (sweep_row_cuda.sweep_spikes_row,
                       sweep_row_cuda.sweep_spikes_row_batched),
         "relu_resize_cat": (resize_cuda.relu_resize_cat,),
+        "costim_gram": (gram_cuda.costim_gram,),
     }
 
 
@@ -320,18 +326,20 @@ def kernel_launches(counts):
     return out
 
 
-def launch_dict(b1, b2, b3, f64=(0, 0, 0)):
+def launch_dict(b1, b2, b3, f64=(0, 0, 0), w1=(0, 0)):
     """kernel_launches()'s dict of B1, B2 and B3 launches in float32,
-    and in float64 ``f64``; no launch of the demixer's epilogue (U1)."""
+    and in float64 ``f64``; W1's (the Gram) in float32 and float64
+    ``w1``; no launch of the demixer's epilogue (U1)."""
     return {"sweep_blocked": b1, "laplace": b2, "sweep_row": b3,
             "sweep_blocked_f64": f64[0], "laplace_f64": f64[1],
             "sweep_row_f64": f64[2], "relu_resize_cat": 0,
-            "relu_resize_cat_f64": 0}
+            "relu_resize_cat_f64": 0, "costim_gram": w1[0],
+            "costim_gram_f64": w1[1]}
 
 
 def fit_kernel_launches(launches):
     """kernel_launches()'s dict without the demixer's epilogue (U1): the
-    fit's kernels alone."""
+    fit's kernels alone (B1 to B5, W1)."""
     return {k: v for k, v in launches.items()
             if not k.startswith("relu_resize_cat")}
 
@@ -495,6 +503,191 @@ def phase_epilogue():
                 bound_by="bytes", library_ms=library_ms,
                 bound_share=bound_ms / ms, rows=DEMIX_CHUNK, shapes=shapes,
                 differ=differ)
+
+
+# phase 3e: W1's designs against the dense product, K = 20 N: (N, H, kind);
+# "even" H targets every trial, uniform over the neurons; "uneven" 1 to
+# 2H - 1 targets a trial (H on average); "hot" H targets drawn with
+# lognormal weights (sigma 1) over the neurons, so some take many trials
+GRAM_DESIGNS = (
+    (300, 10, "even"), (400, 10, "even"), (500, 10, "even"),
+    (500, 20, "even"), (500, 30, "even"), (1000, 40, "even"),
+    (1000, 60, "even"), (1000, 80, "even"), (2000, 60, "even"),
+    (2000, 96, "even"), (1000, 10, "uneven"), (1000, 30, "uneven"),
+    (2000, 40, "uneven"), (1000, 10, "hot"), (1000, 40, "hot"),
+    (2000, 10, "hot"), (2000, 40, "hot"), (500, 20, "hot"))
+
+
+def gram_design(N, K, H, dtype, kind="even", seed=0):
+    """A column-sparse [N, K] stim of ``kind`` (``GRAM_DESIGNS``) built
+    on the card, and a spike posterior that is zero off it."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    width = 2 * H - 1 if kind == "uneven" else H
+    keys = torch.rand(K, N, generator=g, device="cuda")
+    if kind == "hot":  # weighted draws without replacement (Gumbel top-k)
+        logw = torch.randn(N, generator=g, device="cuda")
+        keys = logw - torch.log(-torch.log(keys.clamp_min(1e-12)))
+    rows = torch.topk(keys, width, dim=1).indices.T        # [width, K]
+    del keys
+    cols = torch.arange(K, device="cuda").expand(width, K)
+    keep = torch.ones(width, K, dtype=torch.bool, device="cuda")
+    if kind == "uneven":
+        h = torch.randint(1, width + 1, (K,), generator=g, device="cuda")
+        keep = torch.arange(width, device="cuda")[:, None] < h
+    levels = torch.tensor(POWERS, dtype=dtype, device="cuda")
+    stim = torch.zeros(N, K, dtype=dtype, device="cuda")
+    stim[rows[keep], cols[keep]] = levels[torch.randint(
+        0, len(POWERS), (int(keep.sum()),), generator=g, device="cuda")]
+    lam = torch.where(stim > 0, torch.rand(N, K, generator=g, device="cuda",
+                                           dtype=dtype), 0.0)
+    return stim, lam
+
+
+def w1_and_dense_ms(lam, lists):
+    """Device ms of one W1 launch (its C entry on prepared tensors) and of
+    the dense product in full float32, each from a CUDA graph of 20."""
+    import torch
+    from circuitmap_torch._device import highest_matmul
+    from circuitmap_torch.ops import gram_cuda
+
+    N, K = lam.shape
+    nnz = lists.targets.numel()
+    p = gram_cuda.plan(N, nnz, lists.hmax, lam.element_size())
+    vals = torch.empty(nnz, dtype=lam.dtype, device="cuda")
+    G = torch.empty(N, N, dtype=lam.dtype, device="cuda")
+    D = torch.empty_like(G)
+    w1 = graph_ms(lambda: gram_cuda._enqueue(
+        lam, lists, vals, G, (N, K, nnz, p.stride, p.width,
+                              p.gather_blocks)))
+    with highest_matmul():
+        dense = graph_ms(lambda: torch.mm(lam, lam.T, out=D))
+    return w1, dense
+
+
+def phase_gram():
+    """W1 (``csrc/gram_costim.cu``), the weight update's Gram over the
+    design's co-stimulation lists, at the two benchmark maps' shapes
+    (N=1000, K=20,000 and N=2000, K=40,000, H=10): held against the dense
+    product in full float32 (``lam @ lam.mT`` under ``highest_matmul``,
+    its plain version and the path it replaced) and the float64 exact
+    Gram, within the rounding bound of a sequential sum of m nonnegative
+    products ((1 + u)^m - 1, m the most trials a neuron takes), which a
+    dropped trial or a TF32 or bfloat16 product fails; exact zeros off
+    the co-stimulated pairs, exact symmetry, the same bits from two
+    launches; float64 within 1e-12 of the largest entry. Timed beside the
+    dense product (CUDA graphs) against its byte bound (G written, each
+    target's posterior gathered as a 32-byte sector). Then the crossover:
+    W1 and the dense product in float32 and float64 on ``GRAM_DESIGNS``,
+    with what ``gram_cuda.takes_w1`` picks and whether it picked the
+    faster. Its launches are counted on the paths (phase 5: 50 a
+    fit)."""
+    import torch
+    from circuitmap_torch._device import highest_matmul
+    from circuitmap_torch.ops import gram_cuda
+
+    log("phase 3e: W1, the Gram over the co-stimulation lists, vs the "
+        "dense product (N=1000 K=20000 and N=2000 K=40000, H=10), then the "
+        "crossover")
+    shapes, worst = {}, 0.0
+    for n, k in ((N, K), (2 * N, 2 * K)):
+        rec = {}
+        for dtype in (torch.float32, torch.float64):
+            stim, lam = gram_design(n, k, H, dtype, seed=n)
+            lists = gram_cuda.costim_lists(stim)
+            if lists is None:
+                raise AssertionError(f"N={n} K={k}: W1 turned down the "
+                                     "benchmark's design")
+            G = gram_cuda.costim_gram(lam, lists)
+            with highest_matmul():
+                dense = lam @ lam.mT
+            exact = lam.double() @ lam.double().mT
+            nz = exact > 0
+            m = int(torch.max(lists.row_ptr[1:] - lists.row_ptr[:-1]))
+            if dtype == torch.float32:
+                bound = (1 + 2.0 ** -24) ** m - 1
+                err = float(torch.max(torch.abs(G.double() - exact)[nz]
+                                      / exact[nz]))
+                dense_err = float(torch.max(
+                    torch.abs(dense.double() - exact)[nz] / exact[nz]))
+                ok = err <= bound
+            else:
+                bound = 1e-12
+                err = float(torch.max(torch.abs(G - dense))
+                            / torch.max(dense))
+                dense_err = 0.0
+                ok = err <= bound
+            ok = (ok and bool(torch.all(G[~nz] == 0))
+                  and torch.equal(G, G.T)
+                  and torch.equal(gram_cuda.costim_gram(lam, lists), G))
+            w1_ms, dense_ms = w1_and_dense_ms(lam, lists)
+            nbytes = (n * n * lam.element_size()
+                      + lists.targets.numel() * 32)
+            name = str(dtype)[6:]
+            rec[name] = dict(
+                ms=w1_ms, plain_ms=dense_ms,
+                bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, rel_err=err,
+                dense_rel_err=dense_err, err_bound=bound, m=m)
+            log(f"N={n} K={k} {name}: W1 {w1_ms:.4f} ms, dense "
+                f"{dense_ms:.4f} ms, byte bound "
+                f"{rec[name]['bound_ms']:.4f} ms ({nbytes} B); "
+                + (f"relative to the exact Gram W1 {err:.3e}, the dense "
+                   f"product {dense_err:.3e}, bound {bound:.3e} (m={m})"
+                   if dtype == torch.float32 else
+                   f"W1 - dense {err:.3e} of the largest entry")
+                + f"; symmetric, zeros and repeat {ok}")
+            if not ok:
+                raise AssertionError(f"W1 at N={n} K={k} {name}: error "
+                                     f"{err:.3e} past {bound:.3e}, or not "
+                                     "symmetric, zero or repeatable")
+            worst = max(worst, err if dtype == torch.float32 else 0.0)
+            del stim, lam, G, dense, exact, lists
+            torch.cuda.empty_cache()
+        shapes[f"{n}x{k}"] = rec
+
+    crossover, wrong = [], []
+    for n, h, kind in GRAM_DESIGNS:
+        k = 20 * n
+        for dtype in (torch.float32, torch.float64):
+            stim, lam = gram_design(n, k, h, dtype, kind, seed=n + h)
+            lists = gram_cuda.costim_lists(stim, always=True)
+            hits = (stim != 0).to(dtype)
+            per_trial = hits.sum(0)
+            row = hits @ per_trial          # each neuron's pairs
+            pairs = int(per_trial.square().sum())
+            trials_max = int(hits.sum(1).max())
+            w1_ms, dense_ms = w1_and_dense_ms(lam, lists)
+            takes = gram_cuda.takes_w1(n, k, lists.hmax, trials_max, pairs,
+                                       dtype)
+            right = takes == (w1_ms <= dense_ms)
+            line = dict(N=n, K=k, H=h, kind=kind, dtype=str(dtype)[6:],
+                        hmax=lists.hmax, pairs=pairs,
+                        row_max=int(row.max()), row_mean=float(row.mean()),
+                        trials_max=trials_max, w1_ms=w1_ms,
+                        dense_ms=dense_ms, takes_w1=takes, right=right)
+            crossover.append(line)
+            log(f"{kind} N={n} H={h} {line['dtype']}: pairs {pairs}, row "
+                f"max {line['row_max']} (mean {line['row_mean']:.0f}), W1 "
+                f"{w1_ms * 1e3:.1f} us, dense {dense_ms * 1e3:.1f} us, "
+                f"ratio {w1_ms / dense_ms:.3f}; takes W1 {takes}"
+                + ("" if right else " (the slower)"))
+            if not right:
+                wrong.append(line)
+            del stim, lam, hits, lists
+            torch.cuda.empty_cache()
+    log(f"the rule picked the slower path on {len(wrong)} of "
+        f"{len(crossover)} designs")
+    main = shapes[f"{N}x{K}"]["float32"]
+    return dict(name="costim_gram", route="cuda",
+                source="circuitmap_torch/csrc/gram_costim.cu",
+                replaces="none (an XLA dot: circuitmap_tpu/solvers/"
+                         "caviar.py::update_weights)",
+                max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by="bytes",
+                library_ms=main["plain_ms"],
+                bound_share=main["bound_ms"] / main["ms"], shapes=shapes,
+                crossover=crossover, rule_wrong=len(wrong))
 
 
 OPS_PER_BUCKET = 30  # one bucket's share of a direction or an objective
@@ -687,6 +880,7 @@ def phase_laplace(sweep_state):
 def phase_main_path():
     import torch
     from circuitmap_torch import Model, NeuralDemixer, simulate
+    from circuitmap_torch.ops.gram_cuda import costim_gram
     from circuitmap_torch.ops.laplace_cuda import laplace_from_stats
     from circuitmap_torch.ops.resize_cuda import relu_resize_cat
     from circuitmap_torch.ops.sweep_cuda import sweep_spikes_blocked
@@ -715,10 +909,13 @@ def phase_main_path():
     first_s = time.time() - t0
     launches = {"sweep_blocked": sweep_spikes_blocked.launches,
                 "laplace": laplace_from_stats.launches,
-                "relu_resize_cat": relu_resize_cat.launches}
+                "relu_resize_cat": relu_resize_cat.launches,
+                "costim_gram": costim_gram.launches}
+    gram_plans = dict(costim_gram.plans)
     by_path = kernel_launches(read_counts())
     r2 = r2_score(sim["weights"], model.state["mu"])
-    log(f"first run {first_s:.3f} s; launches {launches}; truth-R2 {r2:.4f}")
+    log(f"first run {first_s:.3f} s; launches {launches}; the Gram's "
+        f"plans {gram_plans}; truth-R2 {r2:.4f}")
     for key in ("mu", "beta", "lam", "shape", "rate", "phi", "phi_cov", "z"):
         if np.isnan(np.asarray(model.state[key])).any():
             raise AssertionError(f"posterior {key} holds a NaN")
@@ -729,6 +926,10 @@ def phase_main_path():
     if launches["relu_resize_cat"] != 4 * -(-K // DEMIX_CHUNK):
         raise AssertionError("the demix must launch the epilogue kernel four "
                              f"times a {DEMIX_CHUNK}-row chunk: {launches}")
+    if launches["costim_gram"] != 50 or gram_plans != {"costim": 50}:
+        raise AssertionError("the fit must take W1 for its Gram every "
+                             f"iteration: launches {launches}, plans "
+                             f"{gram_plans}")
     if r2 < 0.98:
         raise AssertionError(f"truth-R2 {r2:.4f} < 0.98")
 
@@ -4043,9 +4244,10 @@ def phase_float64(sim, dem):
     r2 = r2_score(sim["weights"], mu)
     log(f"Model.fit(dtype=float64) on the main map: {fit_s:.3f} s, "
         f"launches {launches}, truth-R2 {r2:.6f}, mu {mu.dtype}")
-    require_launches(launches == launch_dict(0, 0, 0, (50, 51, 0)),
+    require_launches(launches == launch_dict(0, 0, 0, (50, 51, 0), (0, 50)),
                      "the float64 main-map fit", launches,
-                     "50 float64 B1, 51 float64 B2, no float32 launch")
+                     "50 float64 B1, 51 float64 B2, 50 float64 W1, no "
+                     "float32 launch")
     if r2 < 0.98 or mu.dtype != np.float64:
         raise AssertionError(f"the float64 fit: truth-R2 {r2:.4f}, mu "
                              f"{mu.dtype}")
@@ -4465,6 +4667,7 @@ def main():
     laplace_rec = phase_laplace(sweep_state)
     del sweep_state
     epilogue_rec = phase_epilogue()
+    gram_rec = phase_gram()
     wide = phase_blocks_and_levels()
     sweep_rec["pinned_blocks"] = wide["blocks"]
     sweep_rec["p16"] = wide["sweep_p16"]
@@ -4524,7 +4727,8 @@ def main():
     paths["frontier"], solvers["frontier"] = phase_frontier()
     log(f"solvers: {json.dumps(solvers)}")
     laplace_rec["main_path_profiled_ms"] = laplace_profiled_ms
-    records = (sweep_rec, laplace_rec, row_rec, epilogue_rec, *f64_records)
+    records = (sweep_rec, laplace_rec, row_rec, epilogue_rec, gram_rec,
+               *f64_records)
     for rec in records:
         # launches: the sum over the paths driven, each counted from 0
         rec["launches_by_path"] = {path: c.get(rec["name"], 0)

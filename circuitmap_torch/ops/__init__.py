@@ -2,7 +2,7 @@
 
 The primitives are exported here under the JAX package's names
 (``circuitmap_tpu.ops``); the kernel wrappers live in ``sweep_cuda``,
-``sweep_row_cuda`` and ``laplace_cuda``.
+``sweep_row_cuda``, ``laplace_cuda``, ``resize_cuda`` and ``gram_cuda``.
 """
 
 from .charge import integrated_charge, prepare_observations, trial_activity_mask

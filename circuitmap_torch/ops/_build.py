@@ -132,6 +132,11 @@ def _declare(lib):
                lib.cm_relu_resize_cat_bf16, lib.cm_relu_resize_cat_f16):
         fn.argtypes = [p] * 6 + [i] * 6 + [ctypes.c_longlong, i, i, p]
         fn.restype = i
+    # lam, row_ptr, row_trials, row_pos, trial_ptr, targets, trials, vals,
+    # G, then N, K, nnz, stride, width, gather_blocks
+    for fn in (lib.cm_costim_gram_f32, lib.cm_costim_gram_f64):
+        fn.argtypes = [p] * 9 + [i] * 6 + [p]
+        fn.restype = i
     lib.cm_error_string.argtypes = [i]
     lib.cm_error_string.restype = ctypes.c_char_p
     return lib

@@ -13,11 +13,13 @@ power-curve means, one spike sweep, the noise update, the bucket
 statistics with the Laplace refit of phi, and the soft-threshold
 spontaneous update. On CUDA the sweep is the cluster kernel at 8 rows
 a step (ops/sweep_cuda.py) or, at block 1, at one row a step
-(ops/sweep_row_cuda.py), and the refit the Laplace kernel
-(ops/laplace_cuda.py); on the CPU their plain versions run, with the
-reference's strictly sequential sweep (block 1) by default. The loop
-needs no host read; the reconnection scan after it reads one flag per
-reconnection.
+(ops/sweep_row_cuda.py), the refit the Laplace kernel
+(ops/laplace_cuda.py), and, for one experiment whose design it pays on,
+the Gram W1 over the design's co-stimulation lists (ops/gram_cuda.py,
+built before the loop with one host read); on the CPU their plain
+versions run, with the reference's strictly sequential sweep (block 1)
+by default. The loop needs no host read; the reconnection scan after it
+reads one flag per reconnection.
 
 The updates and the loop take one experiment ([K] charges, [N, K]
 spikes) or a stack of independent experiments with a leading axis
@@ -39,6 +41,7 @@ import torch
 
 from .._device import highest_matmul, resolve_device, torch_dtype
 from ..ops.charge import prepare_observations
+from ..ops.gram_cuda import costim_lists, gram
 from ..ops.pava import isotonic_fit_at_max_batched
 from ..ops.sweep_cuda import (_sweep_row_blocks,
                               sweep_spikes_blocked,
@@ -107,18 +110,19 @@ def _vm(x, A):
         return (x[..., None, :] @ A)[..., 0, :]
 
 
-def update_weights(y, lam, shape, rate, mu_prior, beta_prior):
+def update_weights(y, lam, shape, rate, mu_prior, beta_prior, lists=None):
     """Blocked Gaussian update of all weights: solves the N x N normal
     equations by Cholesky; returns the posterior mean and the covariance
-    diagonal. The Gram matrix runs in full float32 (no TF32)."""
+    diagonal. The Gram matrix runs in full float32 (no TF32): W1 over
+    the stim's co-stimulation ``lists`` (``gram_cuda.costim_lists``)
+    when given, else the dense product."""
     N = lam.shape[-2]
     sig = torch.as_tensor(shape / rate)[..., None]  # [..., 1]
-    with highest_matmul():
-        gram = lam @ lam.mT
+    G = gram(lam, lists)
     lam_y = _mv(lam, y)
     soft_var = torch.sum(lam * (1.0 - lam), dim=-1)
     prior_prec = 1.0 / (beta_prior * beta_prior)
-    M = sig[..., None] * gram + torch.diag_embed(sig * soft_var + prior_prec)
+    M = sig[..., None] * G + torch.diag_embed(sig * soft_var + prior_prec)
     rhs = sig * lam_y + mu_prior * prior_prec
     chol, _ = torch.linalg.cholesky_ex(M)  # no host sync on the info flag
     eye = torch.eye(N, dtype=lam.dtype, device=lam.device)
@@ -254,7 +258,11 @@ def _run_caviar(y, stim, lam0, lam_mask, powers, power_counts, hyper,
     the batched sweep kernels). ``k_true``: None, the real trial count
     (a number) of one experiment, or the real trial counts [E] of a
     stack, when the arrays carry inert padded columns (zero traces, stim
-    and mask); the places that count trials use it.
+    and mask); the places that count trials use it. Before the loop,
+    one experiment's stim on CUDA gives the co-stimulation lists with
+    which each iteration's Gram runs as W1, where the design pays for
+    it (``gram_cuda.costim_lists``, one host read); otherwise the Gram
+    is the dense product.
 
     Warm starts (the resumable and streaming fits): ``init_state`` (a
     :class:`CaviarState`) replaces the priors and ``lam0`` as the
@@ -294,10 +302,14 @@ def _run_caviar(y, stim, lam0, lam_mask, powers, power_counts, hyper,
             torch.zeros(*lead, K, dtype=y.dtype, device=dev),
             torch.zeros(lead, dtype=y.dtype, device=dev))
     mu, beta, lam, shape, rate, phi, phi_cov, z, spont_rate = init_state
+    with span("cm.fit.costim"):  # W1 takes one experiment on the card
+        lists = (costim_lists(stim) if stim.dim() == 2 and stim.is_cuda
+                 else None)
     end = start_iter + iters
     snaps, elbos, stop_at = [], [], end
     for it in range(start_iter, end):
-        mu, beta = update_weights(y, lam, shape, rate, mu_prior, beta_prior)
+        mu, beta = update_weights(y, lam, shape, rate, mu_prior, beta_prior,
+                                  lists)
         if update_order == "identity":
             order = torch.arange(n_slots, device=dev).expand(*lead, n_slots)
         else:
