@@ -132,6 +132,21 @@ _DESIGNER_KEYS = frozenset((
     "N", "H", "powers", "null_trials", "conn_trials",
 ))
 
+# each experiment endpoint's body form: (traces key, design key or None,
+# the 400 when a key is missing) — FitService._decode_experiment
+_BODY_FORMS = {
+    "fit": ("psc", "stim",
+            "npz must carry 'psc' [K, T|1] and 'stim' [N, K]"),
+    "stream": ("psc", "stim",
+               "npz must carry 'psc' [k, T] and 'stim' [N, k]"),
+    "demix": ("psc", None, "npz must carry 'psc' [K, T]"),
+    "stacked": ("pscs", "stims",
+                "npz must carry 'pscs' [B, K, T|1] and 'stims' [B, N, K]"),
+    "ragged": ("psc", "stim",
+               "ragged fit_many bodies carry 'psc' [sum_K, T] (or a "
+               "quantised psc_* wire) + 'stim' [N, sum_K] + 'k_trues'"),
+}
+
 
 def _npz_bytes(**arrays):
     buf = io.BytesIO()
@@ -346,42 +361,32 @@ def _encode_psc(psc, wire):
 
 def _decode_arrays(arrays):
     """Reverse the FitClient wire encodings on a request body."""
-    if "stim_sparse_targets" in arrays:
-        missing = {"stim_sparse_codes", "stim_sparse_levels",
-                   "stim_sparse_n"} - set(arrays)
-        if missing:
-            raise _BadRequest(
-                f"sparse stim missing key(s) {sorted(missing)}")
-        if "stim" in arrays:
-            raise _BadRequest("body carries both dense and sparse stim")
-        arrays["stim"] = _decode_stim_sparse(
-            arrays.pop("stim_sparse_targets"),
-            arrays.pop("stim_sparse_codes"),
-            arrays.pop("stim_sparse_levels"),
-            arrays.pop("stim_sparse_n"))
-    if "stims_sparse_targets" in arrays:
+    for dense_key in ("stim", "stims"):
         # batched designs (/fit_many): [B, N, K] shipped as one sparse
         # [N, B*K] matrix (trial columns concatenated across experiments
-        # preserve column-sparsity) plus the experiment count
-        missing = {"stims_sparse_codes", "stims_sparse_levels",
-                   "stims_sparse_n", "stims_sparse_b"} - set(arrays)
+        # preserve column-sparsity) plus the experiment count ``_b``
+        stacked = dense_key == "stims"
+        wire = [f"{dense_key}_sparse_{part}" for part in
+                ("targets", "codes", "levels", "n") + ("b",) * stacked]
+        if wire[0] not in arrays:
+            continue
+        missing = set(wire) - set(arrays)
         if missing:
             raise _BadRequest(
-                f"sparse stims missing key(s) {sorted(missing)}")
-        if "stims" in arrays:
-            raise _BadRequest("body carries both dense and sparse stims")
-        flat = _decode_stim_sparse(
-            arrays.pop("stims_sparse_targets"),
-            arrays.pop("stims_sparse_codes"),
-            arrays.pop("stims_sparse_levels"),
-            arrays.pop("stims_sparse_n"))
-        b = int(np.asarray(arrays.pop("stims_sparse_b")).reshape(()))
-        if b <= 0 or flat.shape[1] % b:
+                f"sparse {dense_key} missing key(s) {sorted(missing)}")
+        if dense_key in arrays:
             raise _BadRequest(
-                f"stims_sparse_b={b} does not divide the "
-                f"{flat.shape[1]} shipped trial columns")
-        arrays["stims"] = np.ascontiguousarray(
-            flat.reshape(flat.shape[0], b, -1).transpose(1, 0, 2))
+                f"body carries both dense and sparse {dense_key}")
+        dense = _decode_stim_sparse(*(arrays.pop(k) for k in wire[:4]))
+        if stacked:
+            b = int(np.asarray(arrays.pop(wire[4])).reshape(()))
+            if b <= 0 or dense.shape[1] % b:
+                raise _BadRequest(
+                    f"stims_sparse_b={b} does not divide the "
+                    f"{dense.shape[1]} shipped trial columns")
+            dense = np.ascontiguousarray(
+                dense.reshape(dense.shape[0], b, -1).transpose(1, 0, 2))
+        arrays[dense_key] = dense
     for dense_key in ("psc", "pscs"):
         qk = f"{dense_key}_q4"
         if qk not in arrays:
@@ -612,28 +617,39 @@ class FitService:
                 "demix requested but the server was started without a "
                 "demixer (pass --demixer to `circuitmap_torch serve`)")
 
-    def _maybe_demix(self, psc, opts, stages=None):
+    def _maybe_demix(self, traces, opts, stages):
         """Demix on request (`demix` option; default: iff the server
         was started with a demixer). The output stays on the device and
         feeds the solver directly. When demixing, ``trace_wire``
         configures the demixer's host→device upload; when not, the
-        option is left in ``opts`` for the solver's raw-trace wire.
-        ``stages``: the request's ``Metrics``, which gets the demix's
-        ``cm.serve.demix`` span."""
-        want = bool(opts.pop("demix", self.demixer is not None))
-        if not want:
-            return psc
+        option is left in ``opts`` for the solver's raw-trace wire."""
+        if not opts.pop("demix", self.demixer is not None):
+            return traces
         wire = self._wire_token(opts)
         self._require_demixer()
-        self.n_demixes += 1
         # a --mesh server demixes sharded too (rows split over the
         # mesh), but only for a request whose resolved options carry the
         # mesh: a {"sharded": false} opt-out or a cosamp fit runs the
         # single-device solver
+        return self._demix(traces, wire, stages, keep_on_device=True,
+                           mesh=self._demix_mesh(opts))
+
+    def _demix(self, traces, wire, stages, **kw):
+        """The demixer on [..., K, T] traces, dense or
+        ``PackedInt4Traces``: leading dims flatten into one call's rows
+        and are restored on its output. ``stages``: the request's
+        ``Metrics``, which gets the ``cm.serve.demix`` span."""
+        from .utils.quant import PackedInt4Traces
+
+        lead = traces.shape[:-2]
+        if lead:
+            traces = (traces.flat() if isinstance(traces, PackedInt4Traces)
+                      else np.asarray(traces).reshape(-1, traces.shape[-1]))
+        self.n_demixes += 1
         with span("cm.serve.demix", stages):
-            return self.demixer(psc, verbose=False, keep_on_device=True,
-                                transfer_dtype=wire,
-                                mesh=self._demix_mesh(opts))
+            out = self.demixer(traces, verbose=False, transfer_dtype=wire,
+                               **kw)
+        return out.reshape(*lead, -1, out.shape[-1]) if lead else out
 
     @staticmethod
     def _demix_mesh(opts):
@@ -645,6 +661,124 @@ class FitService:
 
         mesh = opts.get("mesh")
         return mesh if mesh_compatible(mesh) else None
+
+    def _resolve_mesh(self, opts, what, method=None, ragged=False):
+        """Parse the request's ``sharded`` option and set
+        ``opts["mesh"]`` where the fit runs on the server's mesh: on a
+        --mesh server unless the request opts out with
+        ``{"sharded": false}``, and never for a fit with no sharded path
+        — cosamp (a host-side greedy baseline) or a ragged sns/mbcs
+        batch (per-experiment sequential fits). An explicit
+        ``{"sharded": true}`` the server cannot honour is a 400.
+        ``method``: the /fit method, or a ragged /fit_many's."""
+        sharded = opts.pop("sharded", None)
+        if sharded is not None:
+            sharded = bool(sharded)  # JSON 0/1 behave like false/true
+        sequential = ragged and method != "caviar"
+        if sharded:
+            if sequential:
+                raise _BadRequest(
+                    f"ragged fit_many with method={method!r} runs "
+                    "per-experiment sequential fits (no traced-k_true "
+                    "program to shard) — drop 'sharded', or use "
+                    "method='caviar'")
+            if self.mesh is None:
+                raise _BadRequest(f"sharded {what} requested but the "
+                                  "server has no mesh (start it with "
+                                  "--mesh N)")
+            if method == "cosamp":
+                raise _BadRequest("cosamp has no sharded path (it is a "
+                                  "host-side greedy baseline) — drop "
+                                  "sharded or pick another method")
+        if (self.mesh is not None and sharded is not False
+                and method != "cosamp" and not sequential):
+            opts["mesh"] = self.mesh
+
+    def _decode_experiment(self, body, stages, form):
+        """The traces, design and ragged trial counts of an experiment
+        request's body, ``(psc, stim, k_trues)``, decoded and validated
+        in the ``cm.serve.decode`` span. ``form`` is a key of
+        ``_BODY_FORMS``; "fit_many" is "ragged" when the body carries
+        ``k_trues`` (else "stacked", and ``k_trues`` None). A
+        sparse-shipped design reconstructs from its (validated, tiny)
+        level table — finite by construction, so the dense isfinite
+        pass is only paid for a dense-shipped one."""
+        with span("cm.serve.decode", stages):
+            raw = _load_npz(body)
+            if form == "fit_many":
+                form = "ragged" if "k_trues" in raw else "stacked"
+            psc_key, stim_key, need = _BODY_FORMS[form]
+            stim_trusted = f"{stim_key}_sparse_targets" in raw
+            arrays = _decode_arrays(raw)
+            ks = None
+            if form == "ragged":
+                ks = np.asarray(arrays.pop("k_trues")).ravel()
+                if (ks.size == 0 or not np.issubdtype(ks.dtype, np.integer)
+                        or (ks <= 0).any()):
+                    raise _BadRequest("k_trues must be positive integer "
+                                      "trial counts")
+                ks = ks.astype(np.int64)
+            if psc_key not in arrays or (stim_key and
+                                         stim_key not in arrays):
+                raise _BadRequest(need)
+            psc, stim = arrays[psc_key], arrays.get(stim_key)
+            if form == "fit" and psc.shape[0] != stim.shape[1]:
+                raise _BadRequest(
+                    f"psc carries {psc.shape[0]} trials but stim "
+                    f"{stim.shape[1]} — psc is [K, T], stim [N, K]")
+            if form == "stacked":
+                if psc.ndim != 3 or stim.ndim != 3:
+                    raise _BadRequest(
+                        f"pscs must be [B, K, T] and stims [B, N, K]; got "
+                        f"{psc.shape} and {stim.shape}")
+                if psc.shape[0] != stim.shape[0]:
+                    raise _BadRequest(
+                        f"pscs carries {psc.shape[0]} experiments but "
+                        f"stims {stim.shape[0]}")
+                if psc.shape[1] != stim.shape[2]:
+                    raise _BadRequest(
+                        f"pscs carries {psc.shape[1]} trials but stims "
+                        f"{stim.shape[2]} — pscs is [B, K, T], stims "
+                        "[B, N, K]")
+            if form == "ragged":
+                sum_k = int(ks.sum())
+                if psc.ndim != 2 or len(psc) != sum_k:
+                    raise _BadRequest(
+                        f"psc must be [sum(k_trues)={sum_k}, T]; got "
+                        f"{tuple(psc.shape)}")
+                if stim.ndim != 2 or stim.shape[1] != sum_k:
+                    raise _BadRequest(
+                        f"stim must be [N, sum(k_trues)={sum_k}]; got "
+                        f"{tuple(stim.shape)}")
+            # a non-finite block would fit to a silently-NaN posterior
+            # (and a stream's get persisted by --state-dir auto-save)
+            _require_finite(psc_key, psc)
+            if stim is not None and not stim_trusted:
+                _require_finite(stim_key, stim)
+        return psc, stim, ks
+
+    @staticmethod
+    def _respond(results, return_fields, stages, what="fit", stack=None,
+                 lam_wire=None):
+        """The npz response of a fit, in the ``cm.serve.encode`` span:
+        one result dict, or (``stack`` given) a list of one per
+        experiment that ``stack`` joins into one dict; each filtered to
+        ``return_fields`` and made host numpy. ``lam_wire='int8'``
+        ships ``lam`` as per-row peak int8 codes."""
+        with span("cm.serve.encode", stages):
+            outs = [{k: np.asarray(v) for k, v in
+                     _filter_fields(r, return_fields, what).items()}
+                    for r in (results if stack else [results])]
+            out = stack(outs) if stack else outs[0]
+            if lam_wire == "int8" and "lam" in out:
+                # lam dominates the response size (80 MB f32 at N=1000,
+                # K=20000; spike posteriors in [0, 1]) — per-row peak
+                # int8 codes quarter it at <=0.4%-of-peak step error.
+                # History arrays keep full precision (opt-in and rare)
+                enc = encode_psc_int8(out.pop("lam"))
+                out["lam_q8"] = enc["psc_q8"]
+                out["lam_q8_scale"] = enc["psc_q8_scale"]
+            return "application/npz", _npz_bytes(**out)
 
     # -- endpoints ----------------------------------------------------------
 
@@ -696,21 +830,13 @@ class FitService:
         opts = self._parse_options(
             options_header, frozenset(("trace_wire", "response_wire")),
             "demix")
-        with span("cm.serve.decode", stages):
-            arrays = _decode_arrays(_load_npz(body))
-            if "psc" not in arrays:
-                raise _BadRequest("npz must carry 'psc' [K, T]")
-            _require_finite("psc", arrays["psc"])
+        psc, _, _ = self._decode_experiment(body, stages, "demix")
         if self.demixer is None:
             raise _BadRequest("server started without a demixer")
         # RESPONSE wire: the same quantised vocabulary the request body
         # uses works on the way back (per-trace peak scales)
         response_wire = opts.pop("response_wire", None)
-        wire = self._wire_token(opts)
-        self.n_demixes += 1
-        with span("cm.serve.demix", stages):
-            out = self.demixer(arrays["psc"], verbose=False,
-                               transfer_dtype=wire)
+        out = self._demix(psc, self._wire_token(opts), stages)
         with span("cm.serve.encode", stages):
             if response_wire is None:
                 return "application/npz", _npz_bytes(demixed=out)
@@ -741,43 +867,13 @@ class FitService:
                 f"unknown fit response_wire {response_wire!r}; only "
                 "'int8' is supported (per-row peak codes on the [N, K] "
                 "lam posterior — use return_fields to drop it instead)")
-        with span("cm.serve.decode", stages):
-            raw = _load_npz(body)
-            # a sparse-shipped design reconstructs from its (validated,
-            # tiny) level table — finite by construction, so the dense
-            # [N, K] isfinite pass is only paid for dense-shipped bodies
-            stim_trusted = "stim_sparse_targets" in raw
-            arrays = _decode_arrays(raw)
-            if "psc" not in arrays or "stim" not in arrays:
-                raise _BadRequest("npz must carry 'psc' [K, T|1] and "
-                                  "'stim' [N, K]")
-            psc, stim = arrays["psc"], arrays["stim"]
-            if psc.shape[0] != stim.shape[1]:
-                raise _BadRequest(
-                    f"psc carries {psc.shape[0]} trials but stim "
-                    f"{stim.shape[1]} — psc is [K, T], stim [N, K]")
-            _require_finite("psc", psc)
-            if not stim_trusted:
-                _require_finite("stim", stim)
+        psc, stim, _ = self._decode_experiment(body, stages, "fit")
         method = opts.pop("method", "caviar")
         if method not in ("caviar", "cavi_sns", "mbcs", "cosamp"):
             raise _BadRequest(
                 f"unknown method {method!r}; expected "
                 "caviar | cavi_sns | mbcs | cosamp")
-        sharded = opts.pop("sharded", None)
-        if sharded is not None:
-            sharded = bool(sharded)  # JSON 0/1 behave like false/true
-        if sharded:
-            if self.mesh is None:
-                raise _BadRequest("sharded fit requested but the server "
-                                  "has no mesh (start it with --mesh N)")
-            if method == "cosamp":
-                raise _BadRequest("cosamp has no sharded path (it is a "
-                                  "host-side greedy baseline) — drop "
-                                  "sharded or pick another method")
-        if (self.mesh is not None and sharded is not False
-                and method != "cosamp"):  # cosamp is host-side: no mesh path
-            opts["mesh"] = self.mesh
+        self._resolve_mesh(opts, "fit", method)
         obs = self._maybe_demix(psc, opts, stages)
         if method != "cosamp":  # the host baseline takes no verbose
             opts.setdefault("verbose", False)
@@ -795,67 +891,25 @@ class FitService:
             # not a server fault — the request, not the server, is wrong
             raise _BadRequest(f"{method} rejected the request: {exc}")
         self.n_fits += 1
-        with span("cm.serve.encode", stages):
-            # include device-resident (un-pulled) fields so a typo'd
-            # return_fields 400 names the FULL available set; the filter
-            # then keeps only requested fields, which Model already
-            # pulled
-            out = {k: v for k, v in model.state.items()
-                   if isinstance(v, (np.ndarray, torch.Tensor))}
-            out["fit_time_s"] = np.float64(model.time)
-            if model.history:
-                out.update({f"history_{k}": v
-                            for k, v in model.history.items()
-                            if v is not None})
-            out = _filter_fields(out, return_fields)
-            out = {k: np.asarray(v) for k, v in out.items()}
-            if response_wire == "int8":
-                # lam dominates the response size (80 MB f32 at N=1000,
-                # K=20000; spike posteriors in [0, 1]) — per-row peak
-                # int8 codes quarter it at <=0.4%-of-peak step error.
-                # History arrays keep full precision (opt-in and rare)
-                if "lam" in out:
-                    enc = encode_psc_int8(np.asarray(out.pop("lam")))
-                    out["lam_q8"] = enc["psc_q8"]
-                    out["lam_q8_scale"] = enc["psc_q8_scale"]
-            return "application/npz", _npz_bytes(**out)
+        # include device-resident (un-pulled) fields so a typo'd
+        # return_fields 400 names the FULL available set; the filter
+        # then keeps only requested fields, which Model already pulled
+        out = {k: v for k, v in model.state.items()
+               if isinstance(v, (np.ndarray, torch.Tensor))}
+        out["fit_time_s"] = np.float64(model.time)
+        if model.history:
+            out.update({f"history_{k}": v for k, v in model.history.items()
+                        if v is not None})
+        return self._respond(out, return_fields, stages,
+                             lam_wire=response_wire)
 
-    def _maybe_demix_many(self, pscs, opts, stages=None):
-        """Batch variant of ``_maybe_demix``: one demixer call over the
-        flattened [B*K, T] block, reshaped back on the device."""
-        want = bool(opts.pop("demix", self.demixer is not None))
-        if not want:
-            return pscs
-        wire = self._wire_token(opts)
-        self._require_demixer()
-        from .utils.quant import PackedInt4Traces
-
-        b, k, t = pscs.shape
-        self.n_demixes += 1
-        flat_in = (pscs.flat() if isinstance(pscs, PackedInt4Traces)
-                   else np.asarray(pscs).reshape(b * k, t))
-        with span("cm.serve.demix", stages):
-            flat = self.demixer(flat_in, verbose=False, keep_on_device=True,
-                                transfer_dtype=wire,
-                                mesh=self._demix_mesh(opts))
-        return flat.reshape(b, k, flat.shape[-1])
-
-    def _resolve_many_mesh(self, opts):
-        """Shared /fit_many handling of the sharded= knob."""
-        sharded = opts.pop("sharded", None)
-        if sharded is not None:
-            sharded = bool(sharded)
-        if sharded and self.mesh is None:
-            raise _BadRequest("sharded fit_many requested but the server "
-                              "has no mesh (start it with --mesh N)")
-        if self.mesh is not None and sharded is not False:
-            opts["mesh"] = self.mesh
-
-    def _run_many(self, obs, stims, opts, method="caviar", **extra):
-        """Shared /fit_many solver call: method dispatch over the
-        batched solver family, default priors, 400 on solver-level
-        rejections (bad values AND unknown knobs for the chosen
-        method — each *_many signature rejects foreign kwargs)."""
+    def _run_many(self, obs, stims, opts, stages, method="caviar",
+                  **extra):
+        """Shared /fit_many solver call, in the ``cm.serve.fit`` span:
+        method dispatch over the batched solver family, default priors,
+        400 on solver-level rejections (bad values AND unknown knobs
+        for the chosen method — each *_many signature rejects foreign
+        kwargs)."""
         from .model import default_priors
         from .solvers import caviar_many, mbcs_many, sns_many
 
@@ -885,18 +939,17 @@ class FitService:
                 f"unknown fit_many method {method!r}; expected 'caviar' "
                 "| 'cavi_sns' | 'mbcs'")
         try:
-            results = fn(obs, stims, *prior_args, **extra, **opts,
-                         device=self.torch_device)
+            with span("cm.serve.fit", stages):
+                results = fn(obs, stims, *prior_args, **extra, **opts,
+                             device=self.torch_device)
         except (ValueError, TypeError) as exc:
             raise _BadRequest(
                 f"{fn.__name__} rejected the request: {exc}")
         self.n_fits += len(results)
         return results
 
-    def _fit_many_ragged(self, arrays, opts, method="caviar",
-                         return_fields=None, wire_meta=False,
-                         stim_trusted=False):
-        """Ragged /fit_many: ``k_trues`` splits a concatenated
+    def _fit_many_ragged(self, psc, stim, ks, opts, method, stages):
+        """Ragged /fit_many: the trial counts ``ks`` split a concatenated
         single-experiment-wire body ('psc' [sum_K, T] — dense or any
         quantised psc_* wire — + 'stim' [N, sum_K]) into B experiments
         with different trial counts. For caviar the server pads to one
@@ -904,33 +957,11 @@ class FitService:
         keep the device pass-through) and runs caviar_many with
         ``k_trues``. sns/mbcs instead split the flat block and run
         per-experiment true-shape sequential fits (their *_many ragged
-        contract). Trial-axis outputs return zero-padded to the shared
-        K with k_trues echoed so the client slices true widths."""
+        contract). Returns the per-experiment results and the shared
+        K."""
         from .utils.quant import PackedInt4Traces
 
-        ks = np.asarray(arrays.pop("k_trues")).ravel()
-        if (ks.size == 0 or not np.issubdtype(ks.dtype, np.integer)
-                or (ks <= 0).any()):
-            raise _BadRequest("k_trues must be positive integer trial "
-                              "counts")
-        ks = ks.astype(np.int64)
-        B, sum_k = int(ks.size), int(ks.sum())
-        if "psc" not in arrays or "stim" not in arrays:
-            raise _BadRequest(
-                "ragged fit_many bodies carry 'psc' [sum_K, T] (or a "
-                "quantised psc_* wire) + 'stim' [N, sum_K] + 'k_trues'")
-        psc, stim = arrays["psc"], arrays["stim"]
-        if psc.ndim != 2 or len(psc) != sum_k:
-            raise _BadRequest(
-                f"psc must be [sum(k_trues)={sum_k}, T]; got "
-                f"{tuple(psc.shape)}")
-        if stim.ndim != 2 or stim.shape[1] != sum_k:
-            raise _BadRequest(
-                f"stim must be [N, sum(k_trues)={sum_k}]; got "
-                f"{tuple(stim.shape)}")
-        _require_finite("psc", psc)
-        if not stim_trusted:
-            _require_finite("stim", stim)
+        B = int(ks.size)
         k_pad = -(-int(ks.max()) // 128) * 128
         offs = np.concatenate([[0], np.cumsum(ks)])
         # the server pads EVERY experiment to the longest one's width,
@@ -953,22 +984,14 @@ class FitService:
                 f"(~{pad_bytes >> 30} GB server-side, > "
                 f"{_MAX_SPARSE_DENSE_BYTES >> 30} GB) — split the "
                 "batch, or group experiments of similar length")
+        self._resolve_mesh(opts, "fit_many", method, ragged=True)
         if method != "caviar":
             # sns/mbcs run per-experiment TRUE-SHAPE sequential fits
             # (solvers/batched.py): demix once over the flat block,
-            # split at the offsets, hand the ragged lists over. An
-            # EXPLICIT sharded request must fail loudly
-            if bool(opts.get("sharded")):
-                raise _BadRequest(
-                    f"ragged fit_many with method={method!r} runs "
-                    "per-experiment sequential fits (no traced-k_true "
-                    "program to shard) — drop 'sharded', or use "
-                    "method='caviar'")
+            # split at the offsets, hand the ragged lists over
             import torch
 
-            self._resolve_many_mesh(opts)
-            opts.pop("mesh", None)
-            obs_flat = self._maybe_demix(psc, opts)
+            obs_flat = self._maybe_demix(psc, opts, stages)
             obs_flat = (obs_flat.cpu().numpy()
                         if isinstance(obs_flat, torch.Tensor)
                         else np.asarray(obs_flat))
@@ -976,12 +999,8 @@ class FitService:
                        for b in range(B)]
             st_list = [stim[:, int(offs[b]):int(offs[b + 1])]
                        for b in range(B)]
-            results = self._run_many(ys_list, st_list, opts,
-                                     method=method)
-            results = [_filter_fields(r, return_fields, "fit_many")
-                       for r in results]
-            return self._pack_ragged_results(results, np.asarray(ks),
-                                             k_pad, wire_meta)
+            return self._run_many(ys_list, st_list, opts, stages,
+                                  method=method), k_pad
         if isinstance(psc, PackedInt4Traces):
             # pad at the wire level (16x smaller than dense): zero
             # packed rows at scale 1 decode to exact zeros
@@ -1004,17 +1023,14 @@ class FitService:
         for b in range(B):
             stims[b, :, :int(ks[b])] = stim[:, int(offs[b]):
                                             int(offs[b + 1])]
-        self._resolve_many_mesh(opts)
-        obs = self._maybe_demix_many(pscs, opts)
-        results = self._run_many(obs, stims, opts, method=method,
-                                 k_trues=ks)
-        results = [_filter_fields(r, return_fields, "fit_many")
-                   for r in results]
-        return self._pack_ragged_results(results, ks, k_pad, wire_meta)
+        obs = self._maybe_demix(pscs, opts, stages)
+        return self._run_many(obs, stims, opts, stages, method=method,
+                              k_trues=ks), k_pad
 
     @staticmethod
     def _pack_ragged_results(results, ks, k_pad, wire_meta=False):
-        """Stack true-width per-experiment result dicts into one npz.
+        """Stack true-width per-experiment result dicts (host numpy)
+        into one response dict.
 
         Trial-axis fields — any field whose LAST dim equals each
         experiment's true trial count in every experiment (lam
@@ -1039,7 +1055,7 @@ class FitService:
         k_fields = []
         shape_fields = []
         for key in results[0]:
-            vals = [np.asarray(r[key]) for r in results]
+            vals = [r[key] for r in results]
             trialish = all(
                 v.ndim >= 1 and v.shape[-1] == int(ks[b])
                 for b, v in enumerate(vals))
@@ -1066,7 +1082,7 @@ class FitService:
             out["_k_fields"] = np.asarray(k_fields)
             out["_shape_fields"] = np.asarray(shape_fields)
             out.update(meta)
-        return "application/npz", _npz_bytes(**out)
+        return out
 
     def do_fit_many(self, body, options_header, stages=None):
         """Fit B same-shape experiments in one request
@@ -1075,8 +1091,7 @@ class FitService:
         job array. Ragged batches (different trial counts) arrive as a
         concatenated body + 'k_trues' (``_fit_many_ragged``; all three
         methods). ``stages``: the request's ``Metrics``, which gets the
-        ``cm.serve.decode`` span and, for a same-shape batch, the
-        ``demix``, ``fit`` and ``encode`` spans."""
+        ``cm.serve.decode``, ``demix``, ``fit`` and ``encode`` spans."""
         opts = self._parse_options(options_header, _FIT_MANY_OPTION_KEYS,
                                    "fit_many")
         method = str(opts.pop("method", "caviar"))
@@ -1090,54 +1105,26 @@ class FitService:
         # Client/server version skew is a designed-for scenario (the
         # client deploys numpy-only on acquisition machines)
         wire_meta = bool(opts.pop("wire_meta", False))
-        with span("cm.serve.decode", stages):
-            raw = _load_npz(body)
-            # sparse-shipped designs reconstruct from validated level
-            # tables — skip the dense isfinite pass for those (see
-            # do_fit)
-            stim_trusted = ("stim_sparse_targets" in raw
-                            or "stims_sparse_targets" in raw)
-            arrays = _decode_arrays(raw)
-        if "k_trues" in arrays:
+        psc, stim, ks = self._decode_experiment(body, stages, "fit_many")
+        if ks is not None:
             # ragged batch: one concatenated [sum_K, T] trace block +
             # one flat [N, sum_K] stim (the SINGLE-experiment wire,
-            # reused verbatim) + per-experiment trial counts. caviar
-            # runs the traced-k_true padded program; sns/mbcs run
-            # per-experiment true-shape sequential fits
-            return self._fit_many_ragged(arrays, opts, method,
-                                         return_fields=return_fields,
-                                         wire_meta=wire_meta,
-                                         stim_trusted=stim_trusted)
-        if "pscs" not in arrays or "stims" not in arrays:
-            raise _BadRequest("npz must carry 'pscs' [B, K, T|1] and "
-                              "'stims' [B, N, K]")
-        pscs, stims = arrays["pscs"], arrays["stims"]
-        if pscs.ndim != 3 or stims.ndim != 3:
-            raise _BadRequest(
-                f"pscs must be [B, K, T] and stims [B, N, K]; got "
-                f"{pscs.shape} and {stims.shape}")
-        if pscs.shape[0] != stims.shape[0]:
-            raise _BadRequest(
-                f"pscs carries {pscs.shape[0]} experiments but stims "
-                f"{stims.shape[0]}")
-        if pscs.shape[1] != stims.shape[2]:
-            raise _BadRequest(
-                f"pscs carries {pscs.shape[1]} trials but stims "
-                f"{stims.shape[2]} — pscs is [B, K, T], stims [B, N, K]")
-        with span("cm.serve.decode", stages):
-            _require_finite("pscs", pscs)
-            if not stim_trusted:
-                _require_finite("stims", stims)
-        self._resolve_many_mesh(opts)
-        obs = self._maybe_demix_many(pscs, opts, stages)
-        with span("cm.serve.fit", stages):
-            results = self._run_many(obs, stims, opts, method=method)
-        with span("cm.serve.encode", stages):
-            results = [_filter_fields(r, return_fields, "fit_many")
-                       for r in results]
-            out = {key: np.stack([np.asarray(r[key]) for r in results])
-                   for key in results[0]}
-            return "application/npz", _npz_bytes(**out)
+            # reused verbatim) + per-experiment trial counts
+            results, k_pad = self._fit_many_ragged(psc, stim, ks, opts,
+                                                   method, stages)
+
+            def stack(rs):
+                return self._pack_ragged_results(rs, ks, k_pad, wire_meta)
+        else:
+            self._resolve_mesh(opts, "fit_many")
+            obs = self._maybe_demix(psc, opts, stages)
+            results = self._run_many(obs, stim, opts, stages, method=method)
+
+            def stack(rs):
+                return {key: np.stack([r[key] for r in rs])
+                        for key in rs[0]}
+        return self._respond(results, return_fields, stages, "fit_many",
+                             stack)
 
     def do_warm(self, options_header):
         """Run the demix+fit pipeline once on synthetic data of the given
@@ -1183,24 +1170,16 @@ class FitService:
         return "application/json", json.dumps(
             {"warmed": timings}).encode()
 
-    def do_stream_update(self, name, body, options_header):
+    def do_stream_update(self, name, body, options_header, stages=None):
+        """``stages``: the request's ``Metrics``, which gets the
+        ``cm.serve.decode``, ``demix``, ``fit`` and ``encode`` spans."""
         from .solvers import OnlineCaviar
 
         opts = self._parse_options(
             options_header,
             frozenset(("iters", "fn_scan", "trace_wire", "demix", "create")),
             "stream-update")
-        raw = _load_npz(body)
-        stim_trusted = "stim_sparse_targets" in raw
-        arrays = _decode_arrays(raw)
-        if "psc" not in arrays or "stim" not in arrays:
-            raise _BadRequest("npz must carry 'psc' [k, T] and 'stim' [N, k]")
-        psc, stim = arrays["psc"], arrays["stim"]
-        # a non-finite block would poison the stream's posterior AND
-        # get persisted by --state-dir auto-save — reject like /fit
-        _require_finite("psc", psc)
-        if not stim_trusted:
-            _require_finite("stim", stim)
+        psc, stim, _ = self._decode_experiment(body, stages, "stream")
         create = opts.pop("create", {}) or {}
         if not isinstance(create, dict):
             raise _BadRequest("'create' must be a JSON object of "
@@ -1233,13 +1212,15 @@ class FitService:
         # maps to 400 below.
         import torch
 
-        obs = self._maybe_demix(psc, opts)
+        obs = self._maybe_demix(psc, opts, stages)
         try:
-            stream.update(obs if isinstance(obs, torch.Tensor)
-                          else np.asarray(obs), stim,
-                          iters=int(opts.pop("iters", 10)),
-                          fn_scan=bool(opts.pop("fn_scan", True)),
-                          trace_wire=opts.pop("trace_wire", None) or None)
+            with span("cm.serve.fit", stages):
+                stream.update(obs if isinstance(obs, torch.Tensor)
+                              else np.asarray(obs), stim,
+                              iters=int(opts.pop("iters", 10)),
+                              fn_scan=bool(opts.pop("fn_scan", True)),
+                              trace_wire=opts.pop("trace_wire", None)
+                              or None)
         except ValueError as exc:
             raise _BadRequest(str(exc))
         if fresh:
@@ -1266,7 +1247,8 @@ class FitService:
                 designer.observe(stim, stream.posterior())
             except Exception as exc:
                 reply["designer_error"] = f"{type(exc).__name__}: {exc}"
-        return "application/json", json.dumps(reply).encode()
+        with span("cm.serve.encode", stages):
+            return "application/json", json.dumps(reply).encode()
 
     def _get_stream(self, name):
         stream = self.streams.get(name)
@@ -1630,7 +1612,7 @@ def _make_handler(service, server_box):
                     name = unquote(name)
                     if method == "POST" and verb == "update":
                         return service.do_stream_update(
-                            name, self._body(), opts)
+                            name, self._body(), opts, self.stages)
                     if method == "POST" and verb == "save":
                         return service.do_stream_save(name)
                     if method == "POST" and verb == "load":
@@ -2075,11 +2057,8 @@ class FitClient:
         response — the demixed [K, T] block is 72 MB f32 at the
         flagship shape; int4 returns it at 1/16th (decoded to f32
         here, numpy-only)."""
-        opts = {}
-        if trace_wire:
-            opts["trace_wire"] = trace_wire
-        if response_wire:
-            opts["response_wire"] = str(response_wire)
+        opts = self._options({"trace_wire": trace_wire} if trace_wire
+                             else {}, response_wire=response_wire or None)
         out = self._request("POST", "/demix",
                             body=self._body(psc, None, False, psc_wire),
                             options=opts or None)
@@ -2093,13 +2072,50 @@ class FitClient:
         return np.asarray(dec["psc"])
 
     @staticmethod
-    def _body(psc, stim, sparse_stim, psc_wire):
+    def _options(base, demix=None, return_fields=None, response_wire=None):
+        """A request's X-Options: ``base`` and the serve-level levers
+        that are set."""
+        opts = dict(base)
+        if demix is not None:
+            opts["demix"] = bool(demix)
+        if return_fields is not None:
+            opts["return_fields"] = [str(f) for f in (
+                [return_fields] if isinstance(return_fields, str)
+                else return_fields)]
+        if response_wire is not None:
+            opts["response_wire"] = str(response_wire)
+        return opts
+
+    @staticmethod
+    def _body(psc, stim, sparse_stim, psc_wire, stacked=False, **extra):
+        """A request's npz body: traces ``psc`` typed by ``psc_wire``
+        and design ``stim`` (None: traces only), in its sparse-hologram
+        form when ``sparse_stim`` and the design is column-sparse.
+        ``stacked``: [B, K, T] traces and [B, N, K] designs under the
+        ``pscs``/``stims`` keys, the designs sparse as one [N, B*K]
+        matrix (trial columns side by side stay column-sparse) plus the
+        experiment count. ``extra``: arrays shipped as they are."""
+        s = "s" if stacked else ""
         with span("cm.client.encode"):
-            arrays = _encode_psc(psc, psc_wire)
+            arrays = {"psc" + s + k[len("psc"):]: v
+                      for k, v in _encode_psc(psc, psc_wire).items()}
             if stim is not None:
-                sparse = encode_stim_sparse(stim) if sparse_stim else None
-                arrays.update(sparse if sparse is not None
-                              else {"stim": np.asarray(stim)})
+                stim = np.asarray(stim)
+                flat = stim
+                if stacked:
+                    flat = (stim.transpose(1, 0, 2).reshape(stim.shape[1],
+                                                            -1)
+                            if stim.ndim == 3 else None)
+                sparse = (encode_stim_sparse(flat)
+                          if sparse_stim and flat is not None else None)
+                if sparse is None:
+                    arrays["stim" + s] = stim
+                else:
+                    arrays.update({"stim" + s + k[len("stim"):]: v
+                                   for k, v in sparse.items()})
+                    if stacked:
+                        arrays["stims_sparse_b"] = np.int32(len(stim))
+            arrays.update(extra)
             return _npz_bytes(**arrays)
 
     def fit(self, psc, stim, method="caviar", demix=None,
@@ -2133,15 +2149,8 @@ class FitClient:
         their wire form with no host recode — 'int4d2' additionally
         mean-pools 2× exactly like the *_int4d2qat.npz train-time
         transform, so pair it with that server demixer)."""
-        opts = {"method": method, **fit_options}
-        if demix is not None:
-            opts["demix"] = bool(demix)
-        if return_fields is not None:
-            opts["return_fields"] = [str(f) for f in (
-                [return_fields] if isinstance(return_fields, str)
-                else return_fields)]
-        if response_wire is not None:
-            opts["response_wire"] = str(response_wire)
+        opts = self._options({"method": method, **fit_options}, demix,
+                             return_fields, response_wire)
         response = self._exchange("POST", "/fit",
                                   body=self._body(psc, stim, sparse_stim,
                                                   psc_wire),
@@ -2182,13 +2191,7 @@ class FitClient:
         metadata capability (``wire_meta``), so the server names every
         padded field and ALL of them come back at true shape.
         ``return_fields`` trims the response as in ``fit``."""
-        opts = dict(fit_options)
-        if demix is not None:
-            opts["demix"] = bool(demix)
-        if return_fields is not None:
-            opts["return_fields"] = [str(f) for f in (
-                [return_fields] if isinstance(return_fields, str)
-                else return_fields)]
+        opts = self._options(fit_options, demix, return_fields)
         # a LIST input always returns a list of per-experiment dicts
         # (never silently flips to the stacked dict the day two folds
         # happen to record the same trial count); an array input
@@ -2199,21 +2202,11 @@ class FitClient:
             if len(set(ks)) > 1:
                 return self._fit_many_ragged(pscs, stims, ks, sparse_stim,
                                              psc_wire, opts)
-        pscs, stims = np.asarray(pscs), np.asarray(stims)
-        arrays = {"pscs" + key[len("psc"):]: val
-                  for key, val in _encode_psc(pscs, psc_wire).items()}
-        sparse = None
-        if sparse_stim and stims.ndim == 3:
-            flat = stims.transpose(1, 0, 2).reshape(stims.shape[1], -1)
-            sparse = encode_stim_sparse(flat)
-        if sparse is not None:
-            arrays.update({k.replace("stim_", "stims_", 1): v
-                           for k, v in sparse.items()})
-            arrays["stims_sparse_b"] = np.int32(stims.shape[0])
-        else:
-            arrays["stims"] = stims
         out = self._request("POST", "/fit_many",
-                            body=_npz_bytes(**arrays), options=opts)
+                            body=self._body(np.asarray(pscs), stims,
+                                            sparse_stim, psc_wire,
+                                            stacked=True),
+                            options=opts)
         if as_list:
             return [{key: val[b] for key, val in out.items()}
                     for b in range(len(pscs))]
@@ -2231,16 +2224,13 @@ class FitClient:
                 raise ValueError(
                     f"experiment {b}: stim carries {np.shape(s)[-1]} "
                     f"trials but traces {ks[b]}")
-        cat = np.concatenate([np.asarray(p) for p in pscs], axis=0)
-        flat = np.concatenate([np.asarray(s) for s in stims], axis=1)
-        arrays = _encode_psc(cat, psc_wire)
-        sparse = encode_stim_sparse(flat) if sparse_stim else None
-        arrays.update(sparse if sparse is not None else {"stim": flat})
-        arrays["k_trues"] = np.asarray(ks, np.int32)
+        body = self._body(
+            np.concatenate([np.asarray(p) for p in pscs], axis=0),
+            np.concatenate([np.asarray(s) for s in stims], axis=1),
+            sparse_stim, psc_wire, k_trues=np.asarray(ks, np.int32))
         # capability signal: this client understands the response
         # metadata arrays — servers only emit them when asked, so a
         # pre-metadata client's every-key iteration keeps working
-        body = _npz_bytes(**arrays)
         try:
             out = self._request("POST", "/fit_many", body=body,
                                 options={**opts, "wire_meta": 1})

@@ -189,13 +189,18 @@ ENDPOINT_STAGES = {
     "/demix": {"read", "decode", "demix", "encode", "write"},
     "/fit_many": {"read", "decode", "demix", "fit", "encode", "write"},
     "/health": {"write"},
+    "/fit_many (ragged)": {"read", "decode", "demix", "fit", "encode",
+                           "write"},
+    "/stream/<name>/update": {"read", "decode", "demix", "fit", "encode",
+                              "write"},
 }
 
 
 @pytest.fixture(scope="module")
 def request_log(sim, tmp_path_factory):
     """One request to each endpoint of ``ENDPOINT_STAGES`` and the
-    client's spans of its ``/fit``: ({path: log row}, cm.* events)."""
+    client's spans of its ``/fit``: ({endpoint: log row}, cm.*
+    events)."""
     path = tmp_path_factory.mktemp("serve") / "requests.jsonl"
     opts = dict(FIT_OPTS)
     opts.pop("verbose")
@@ -205,11 +210,20 @@ def request_log(sim, tmp_path_factory):
         client.demix(psc[:50], psc_wire="int4d2", trace_wire="int4d2")
         client.fit_many(np.stack([psc, psc]), np.stack([stim, stim]),
                         psc_wire="int4d2", trace_wire="int4d2", iters=3)
+        client.fit_many([psc[:80], psc[80:]], [stim[:, :80], stim[:, 80:]],
+                        psc_wire="int4d2", trace_wire="int4d2", iters=3)
+        client.stream_update("rig/1", psc[:100], stim[:, :100], iters=2,
+                             psc_wire="int4d2", trace_wire="int4d2")
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             client.fit(psc, stim, psc_wire="int4d2", trace_wire="int4d2",
                        response_wire="int8", **opts)
     rows = [json.loads(line) for line in path.read_text().splitlines()]
-    return {r["path"]: r for r in rows}, _cm_events(prof)
+    endpoints = ["/health", "/demix", "/fit_many", "/fit_many (ragged)",
+                 "/stream/<name>/update", "/fit"]
+    assert [r["path"] for r in rows] == [
+        "/health", "/demix", "/fit_many", "/fit_many",
+        "/stream/rig%2F1/update", "/fit"]
+    return dict(zip(endpoints, rows)), _cm_events(prof)
 
 
 @pytest.mark.parametrize("endpoint", sorted(ENDPOINT_STAGES))

@@ -11,6 +11,8 @@ result of its dense decode, and ``Model.fit(_materialize=)``,
 counterparts. All on the CPU, at small shapes.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -99,6 +101,94 @@ def test_unknown_trace_wire_is_rejected_like_jax():
     with pytest.raises(ValueError) as theirs:
         js._encode_psc(np.zeros((2, 4)), "int2")
     assert str(ours.value) == str(theirs.value)
+
+
+# ------------------------------------------------- the clients' requests
+
+
+def _client_calls():
+    psc, stim = _traces(9, (40, 64)), _stim(10, n=12, k=40, h=2)
+    pscs = np.stack([psc[:20], psc[20:]])
+    stims = np.stack([stim[:, :20], stim[:, 20:]])
+    return {
+        "fit_dense": lambda c: c.fit(psc, stim, sparse_stim=False, iters=3,
+                                     seed=1),
+        "fit_sparse": lambda c: c.fit(psc, stim, demix=False,
+                                      return_fields="mu", iters=3),
+        "fit_dense_int4d2": lambda c: c.fit(
+            psc, stim, sparse_stim=False, psc_wire="int4d2",
+            trace_wire="int4d2", response_wire="int8"),
+        "fit_sparse_int4d2": lambda c: c.fit(
+            psc, stim, method="mbcs", psc_wire="int4d2",
+            return_fields=["mu", "lam"]),
+        "fit_many_stacked": lambda c: c.fit_many(
+            pscs, stims, demix=True, return_fields=("mu",),
+            method="cavi_sns", seeds=[1, 2]),
+        "fit_many_stacked_dense": lambda c: c.fit_many(
+            pscs, stims, sparse_stim=False, psc_wire="int4", iters=2),
+        "fit_many_ragged": lambda c: c.fit_many(
+            [psc[:16], psc[16:]], [stim[:, :16], stim[:, 16:]],
+            psc_wire="int8", return_fields="mu", iters=2),
+        "demix": lambda c: c.demix(psc, trace_wire="int8", psc_wire="f16",
+                                   response_wire="int4"),
+        "stream_update": lambda c: c.stream_update(
+            "rig A/1", psc, stim, iters=4, create={"seed": 2}, demix=False),
+    }
+
+
+CLIENT_CALLS = _client_calls()
+
+
+def _canned_reply(path):
+    """A response each client method can unpack: JSON for a stream,
+    else a two-experiment npz."""
+    if path.startswith("/stream/"):
+        return b"{}", "application/json"
+    key = "demixed" if path == "/demix" else "mu"
+    return (ts._npz_bytes(**{key: np.zeros((2, 3), np.float32)}),
+            "application/npz")
+
+
+class _FrozenZipClock:
+    """``np.savez`` stamps each zip member with the local time to 2 s;
+    held still, two bodies built a moment apart differ only where their
+    contents do."""
+
+    @staticmethod
+    def time():
+        return 0.0
+
+    @staticmethod
+    def localtime(*_):
+        return (2020, 1, 1, 0, 0, 0)
+
+
+@pytest.mark.parametrize("call", sorted(CLIENT_CALLS))
+def test_the_clients_send_jaxs_requests_byte_for_byte(call, monkeypatch):
+    """Each FitClient method sends the JAX package's client's method,
+    path, X-Options header and npz body, byte for byte."""
+    import zipfile
+
+    monkeypatch.setattr(zipfile, "time", _FrozenZipClock)
+    sent = {"ours": [], "theirs": []}
+
+    def record(who, method, path, body, options):
+        sent[who].append((method, path,
+                          json.dumps(options) if options else None, body))
+        return _canned_reply(path)
+
+    monkeypatch.setattr(
+        ts.FitClient, "_exchange",
+        lambda self, method, path, body=None, options=None: record(
+            "ours", method, path, body, options))
+    monkeypatch.setattr(
+        js.FitClient, "_request",
+        lambda self, method, path, body=None, options=None: ts.FitClient.
+        _decode(*record("theirs", method, path, body, options)))
+    CLIENT_CALLS[call](ts.FitClient("http://127.0.0.1:1"))
+    CLIENT_CALLS[call](js.FitClient("http://127.0.0.1:1"))
+    assert len(sent["ours"]) == 1
+    assert sent["ours"] == sent["theirs"]
 
 
 def _body_forms():
