@@ -134,7 +134,11 @@ update's Gram over the design's co-stimulation lists, at both benchmark
 maps' shapes against the dense product within a sequential sum's
 rounding bound, timed beside it, with the crossover between them over
 even, uneven and skewed designs in float32 and float64 (phase 3e), and
-its launch every iteration of the main path's fit (phase 5). One warm
+its launch every iteration of the main path's fit (phase 5); the pull
+of a fit's fields to the host (``utils/pull.py``), ``.cpu()`` against a
+cached page-locked copy from 4 KB to 512 MB with the crossover that
+sets ``PINNED_MIN_BYTES`` and the first block's cost (phase 3f), and
+the main path's ``lam`` on the pinned path (phase 5). One warm
 main-path fit runs under torch.profiler (phase 5b: the top device
 operations, the Laplace total, the device's idle share), and one warm
 2-iteration CAVI-SnS fit (phase 13).
@@ -690,6 +694,77 @@ def phase_gram():
                 crossover=crossover, rule_wrong=len(wrong))
 
 
+PULL_SIZES = tuple(4096 << (2 * i) for i in range(9)) + (
+    80_000_000, 320_000_000, 512 << 20)
+
+
+def phase_pull():
+    """The pull of a fit's fields to the host (``utils/pull.py``) at
+    field sizes from 4 KB to 512 MB (and ``lam``'s 80 MB and 320 MB at
+    the two benchmark maps): ``.cpu().numpy()`` (pageable, a fresh host
+    array each call) against ``to_host``'s page-locked copy into a
+    cached block (the array dropped each call, so its block takes the
+    next), wall ms with a synchronise, median; the same bytes from both.
+    The crossover is the smallest size from which the pinned copy is the
+    faster at every larger size; ``PINNED_MIN_BYTES`` must lie within one
+    step (4x) of it. Then the first block's cost: the host cache emptied
+    before one pull of 128 MB and one of 512 MB (``cudaHostAlloc``)."""
+    import torch
+    from circuitmap_torch.utils import pull
+
+    log("phase 3f: the pull to the host, .cpu() against a cached pinned "
+        "copy, 4 KB to 512 MB")
+    rows = []
+    for nbytes in PULL_SIZES:
+        t = torch.rand(nbytes // 4, device="cuda")
+        ref = t.cpu().numpy()
+        got = pull.to_host({"t": t})["t"]
+        if got.tobytes() != ref.tobytes():
+            raise AssertionError(f"{nbytes} B: the pinned copy's bytes differ")
+        del ref, got
+        reps = 20 if nbytes <= 16 << 20 else 5
+        pageable = call_ms(lambda: t.cpu().numpy(), reps=reps, warmup=2)
+        pinned = call_ms(lambda: pull.pinned_copy(t)[1].synchronize(),
+                         reps=reps, warmup=2)
+        helper = call_ms(lambda: pull.to_host({"t": t}), reps=reps, warmup=2)
+        rows.append(dict(bytes=nbytes, pageable_ms=pageable,
+                         pinned_ms=pinned, to_host_ms=helper,
+                         plan=pull.plan(t.device, nbytes)))
+        log(f"{nbytes:>11} B: pageable {pageable:.4f} ms "
+            f"({nbytes / pageable / 1e6:.2f} GB/s), pinned {pinned:.4f} ms "
+            f"({nbytes / pinned / 1e6:.2f} GB/s), to_host {helper:.4f} ms "
+            f"({rows[-1]['plan']})")
+        del t
+        torch.cuda.empty_cache()
+    cross = None
+    for row in reversed(rows):
+        if row["pinned_ms"] >= row["pageable_ms"]:
+            break
+        cross = row["bytes"]
+    log(f"the pinned copy is the faster from {cross} B up; "
+        f"PINNED_MIN_BYTES {pull.PINNED_MIN_BYTES}")
+    first = {}
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    for nbytes in (128 << 20, 512 << 20):
+        t = torch.rand(nbytes // 4, device="cuda")
+        torch.cuda.synchronize()
+        if empty is not None:
+            empty()
+        t0 = time.perf_counter()
+        pull.to_host({"t": t})
+        first[nbytes] = (time.perf_counter() - t0) * 1e3
+        log(f"{nbytes} B, the host cache emptied first: {first[nbytes]:.2f} "
+            "ms (a new page-locked block)")
+        del t
+        torch.cuda.empty_cache()
+    if cross is None or not (cross / 4 <= pull.PINNED_MIN_BYTES
+                             <= cross * 4):
+        raise AssertionError(
+            f"the crossover moved: the pinned copy is the faster from "
+            f"{cross} B, PINNED_MIN_BYTES is {pull.PINNED_MIN_BYTES}")
+    return dict(rows=rows, crossover_bytes=cross, first_block_ms=first)
+
+
 OPS_PER_BUCKET = 30  # one bucket's share of a direction or an objective
 
 
@@ -885,6 +960,7 @@ def phase_main_path():
     from circuitmap_torch.ops.resize_cuda import relu_resize_cat
     from circuitmap_torch.ops.sweep_cuda import sweep_spikes_blocked
     from circuitmap_torch.utils.metrics import r2_score
+    from circuitmap_torch.utils.pull import reset_pulls, to_host
 
     log("phase 5: main path (simulate N=1000 K=20000, int4d2 demix, "
         "50-iteration CAVIaR)")
@@ -903,10 +979,12 @@ def phase_main_path():
                                  fit_options=dict(opts))
 
     reset_counts()
+    reset_pulls()
     t0 = time.time()
     dem, model = pipeline()
     torch.cuda.synchronize()
     first_s = time.time() - t0
+    pulls = dict(to_host.plans)
     launches = {"sweep_blocked": sweep_spikes_blocked.launches,
                 "laplace": laplace_from_stats.launches,
                 "relu_resize_cat": relu_resize_cat.launches,
@@ -915,7 +993,10 @@ def phase_main_path():
     by_path = kernel_launches(read_counts())
     r2 = r2_score(sim["weights"], model.state["mu"])
     log(f"first run {first_s:.3f} s; launches {launches}; the Gram's "
-        f"plans {gram_plans}; truth-R2 {r2:.4f}")
+        f"plans {gram_plans}; pulls {pulls} ({dict(to_host.plan_bytes)} "
+        f"B); truth-R2 {r2:.4f}")
+    if pulls.get("pinned", 0) < 1 or to_host.plan_bytes["pinned"] < N * K * 4:
+        raise AssertionError(f"lam must take the pinned pull: {pulls}")
     for key in ("mu", "beta", "lam", "shape", "rate", "phi", "phi_cov", "z"):
         if np.isnan(np.asarray(model.state[key])).any():
             raise AssertionError(f"posterior {key} holds a NaN")
@@ -4668,6 +4749,7 @@ def main():
     del sweep_state
     epilogue_rec = phase_epilogue()
     gram_rec = phase_gram()
+    solvers_pull = phase_pull()
     wide = phase_blocks_and_levels()
     sweep_rec["pinned_blocks"] = wide["blocks"]
     sweep_rec["p16"] = wide["sweep_p16"]
@@ -4725,6 +4807,7 @@ def main():
     del timeline
     solvers["mesh_training"] = phase_mesh_training(trained)
     paths["frontier"], solvers["frontier"] = phase_frontier()
+    solvers["pull"] = solvers_pull
     log(f"solvers: {json.dumps(solvers)}")
     laplace_rec["main_path_profiled_ms"] = laplace_profiled_ms
     records = (sweep_rec, laplace_rec, row_rec, epilogue_rec, gram_rec,

@@ -19,6 +19,7 @@ import torch
 
 from ._device import resolve_device
 from .utils.profiling import span
+from .utils.pull import to_host
 
 
 def default_priors(N):
@@ -35,18 +36,16 @@ def default_priors(N):
 
 
 def _host(v):
-    if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
-    return v
+    return to_host({"v": v})["v"]
 
 
 class DeviceField(torch.Tensor):
     """A posterior field left on the fit's device by
     ``Model.fit(_materialize=)``: a tensor whose ``np.asarray`` pulls it
-    to the host on access."""
+    to the host on access (``utils/pull.py::to_host``)."""
 
     def __array__(self, dtype=None, copy=None):
-        out = self.as_subclass(torch.Tensor).detach().cpu().numpy()
+        out = _host(self)
         return out if dtype is None else out.astype(dtype, copy=False)
 
 
@@ -109,18 +108,21 @@ class Model:
         self.time = time.time() - t0
         return self
 
-    def _pull(self, name, value):
-        """A result field under the ``_materialize`` policy (see fit)."""
-        if not isinstance(value, torch.Tensor):
-            return value
-        if self._materialize is None or name in self._materialize:
-            return _host(value)
-        return value.detach().as_subclass(DeviceField)
+    def _pull(self, fields):
+        """Result fields ({name: value}) under the ``_materialize``
+        policy (see fit): the named ones to the host in one
+        ``to_host`` call, the others left on the device."""
+        keep = self._materialize
+        out = to_host({k: v for k, v in fields.items()
+                       if keep is None or k in keep
+                       or not isinstance(v, torch.Tensor)})
+        return {k: out[k] if k in out
+                else v.detach().as_subclass(DeviceField)
+                for k, v in fields.items()}
 
     def _update_state(self, **fields):
         with span("cm.fit.pull"):
-            self.state.update({k: self._pull(k, v)
-                               for k, v in fields.items()})
+            self.state.update(self._pull(fields))
 
     def summary(self, stim=None, verbose=True):
         """Per-neuron posterior summary (``circuitmap_torch.summarize``);
@@ -133,8 +135,9 @@ class Model:
         return out
 
     def _set_history(self, names, hists):
-        self.history = {n: self._pull(f"history_{n}", h)
-                        for n, h in zip(names, hists)}
+        pulled = self._pull({f"history_{n}": h
+                             for n, h in zip(names, hists)})
+        self.history = {n: pulled[f"history_{n}"] for n in names}
 
     def _fit_caviar(self, obs, stimuli, fit_options, device):
         from .solvers.caviar import caviar

@@ -40,6 +40,7 @@ import torch
 
 from .._device import resolve_device, torch_dtype
 from ..ops.charge import integrated_charge, prepare_observations
+from ..utils.pull import to_host
 from ..utils.quant import PackedInt4Traces
 from ._common import (_levels, _powers_dev, _stim_on_device, _upload_plan,
                       prepare_traces, warn_single_chip_envelope)
@@ -406,8 +407,7 @@ def caviar_many(
             total_trials=None if kts is None else kts[reconnected])
         for j, b in enumerate(reconnected):
             results[b]["phi"], results[b]["phi_cov"] = phi[j], phi_cov[j]
-    return [{name: v.cpu().numpy() for name, v in res.items()}
-            for res in results]
+    return [to_host(res) for res in results]
 
 
 def _ragged_sequential_guard(name, mesh, compile_mode, powers):
@@ -432,7 +432,7 @@ def _float_device(device, dtype, mesh=None):
 
 def _split(finals, fields):
     """Per-experiment dicts of numpy arrays from a stacked final state."""
-    host = {f: v.cpu().numpy() for f, v in zip(fields, finals)}
+    host = to_host(dict(zip(fields, finals)))
     return [{f: host[f][b] for f in fields}
             for b in range(len(next(iter(host.values()))))]
 
@@ -480,7 +480,7 @@ def sns_many(
             print(f"Running CAVI-SnS (PyTorch) on {len(ys_list)} "
                   f"experiments (ragged trials {min(ks)}-{max(ks)}, "
                   "sequential true-shape fits).")
-        return [dict(zip(SNS_FIELDS, (v.cpu().numpy() for v in cavi_sns(
+        return [to_host(dict(zip(SNS_FIELDS, cavi_sns(
             yb, sb, mu_prior, beta_prior, alpha_prior, shape_prior,
             rate_prior, phi_prior, phi_cov_prior, iters=iters,
             num_mc_samples=num_mc_samples, seed=int(seeds[b]),
@@ -614,7 +614,7 @@ def mbcs_many(
         single = dict(params, init_spike_prior=init_spike_prior,
                       spont_rate=spont_rate, y_xcorr_thresh=y_xcorr_thresh,
                       lam_mask_fraction=lam_mask_fraction)
-        return [dict(zip(MBCS_FIELDS, (v.cpu().numpy() for v in mbcs_single(
+        return [to_host(dict(zip(MBCS_FIELDS, mbcs_single(
             yb, sb, mu_prior, beta_prior, shape_prior, rate_prior,
             iters=iters, seed=int(seeds[b]), dtype=dtype,
             save_histories=False, verbose=False, device=dev,
