@@ -40,6 +40,7 @@ import torch
 
 from .._device import resolve_device, torch_dtype
 from ..ops.charge import integrated_charge, prepare_observations
+from ..utils.profiling import span
 from ..utils.pull import to_host
 from ..utils.quant import PackedInt4Traces
 from ._common import (_levels, _powers_dev, _stim_on_device, _upload_plan,
@@ -242,6 +243,7 @@ def _device_stack(y_pscs, stims_np, k_trues, powers_np, y_xcorr_thresh,
                                               device), kts
 
 
+@span("cm.many")
 def caviar_many(
     y_pscs, stims, mu_prior, beta_prior, shape_prior, rate_prior, phi_prior,
     phi_cov_prior, iters=50, seeds=None, num_mc_samples=100,
@@ -250,12 +252,15 @@ def caviar_many(
     tol=0.05, spont_orthogonality=0.1, fn_scan=True, dtype=torch.float32,
     analytic_mc=False, mesh=None, powers=None, sweep_block_size="auto",
     laplace_impl="auto", compile_mode="auto", trace_wire=None, k_trues=None,
-    verbose=True, device=None,
+    verbose=True, update_order="random", device=None,
 ):
     """Fit B experiments. y_pscs: [B, K, T] (host array or tensor);
     stims: [B, N, K]. The signature of
-    ``circuitmap_tpu.solvers.caviar_many`` plus ``device`` (None means
-    CUDA; the package's device rule).
+    ``circuitmap_tpu.solvers.caviar_many`` plus ``update_order`` (as
+    ``caviar``: "random", each experiment's rows in an order drawn from
+    its generator, or "identity", in index order, which with
+    ``analytic_mc=True`` makes each fit a function of its inputs) and
+    ``device`` (None means CUDA; the package's device rule).
 
     Priors are shared. Returns a list of B dicts of numpy arrays with
     keys mu/beta/lam/shape/rate/phi/phi_cov/z, each at its experiment's
@@ -285,9 +290,14 @@ def caviar_many(
     experiments on its device, with no collective ("auto" is then
     "batched"; "sequential" raises). Results come back on the host as
     without a mesh.
+
+    The call is one ``cm.many`` span, its stages ``cm.many.stim`` (the
+    stack's upload and observations), ``.loop``, ``.scan`` (the
+    reconnection scans and the refit) and ``.pull`` in that order.
     """
     dev = _fit_device(mesh, device)
     dtype = torch_dtype(dtype)
+    update_order = _validate_update_order(str(update_order))
     if k_trues is not None:
         k_trues = np.asarray(k_trues, dtype=np.int64)
     from_list = False  # a ragged list, padded here with zero stim
@@ -346,9 +356,10 @@ def caviar_many(
         print(f"Running CAVIaR (PyTorch) on {B} experiments "
               f"(compile_mode={mode}, sweep block {block}{ragged}).")
 
-    ys, stim_dev, lam_masks, lam0, powers_t, kts = _device_stack(
-        y_pscs, stims_np, k_trues, powers_np, y_xcorr_thresh, dtype,
-        trace_wire, dev)
+    with span("cm.many.stim"):
+        ys, stim_dev, lam_masks, lam0, powers_t, kts = _device_stack(
+            y_pscs, stims_np, k_trues, powers_np, y_xcorr_thresh, dtype,
+            trace_wire, dev)
     hyper = tuple(_as(a, dtype, dev) for a in (
         mu_prior, beta_prior, shape_prior, rate_prior, phi_prior,
         phi_cov_prior))
@@ -363,51 +374,57 @@ def caviar_many(
         max_backtrack_iters=int(max_backtrack_iters), tol=float(tol),
         spont_orthogonality=float(spont_orthogonality),
         analytic_mc=bool(analytic_mc), save_histories=False,
-        sweep_block_size=block, update_order="random")
-    if mode == "sequential":
-        finals = [_run_caviar(
-            ys[b], stim_dev[b], lam0[b], lam_masks[b], powers_t, counts[b],
-            hyper, [gens[b]], k_true=None if kts is None else kts[b],
-            **loop)[0] for b in range(B)]
-        final = [torch.stack(xs) for xs in zip(*finals)]
-    elif mesh is None:
-        final = _run_caviar(ys, stim_dev, lam0, lam_masks, powers_t,
-                            counts, hyper, gens, k_true=kts, **loop)[0]
-    else:
-        final = _mesh_chunks(mesh, B, lambda ix, d: _run_caviar(
-            *_on(d, ys[ix], stim_dev[ix], lam0[ix], lam_masks[ix],
-                 powers_t, counts[ix]), _on(d, *hyper),
-            [seeded_generator(seeds[b], d) for b in ix.tolist()],
-            k_true=None if kts is None else kts[ix].to(d), **loop)[0])
+        sweep_block_size=block, update_order=update_order)
+    with span("cm.many.loop"):
+        if mode == "sequential":
+            finals = [_run_caviar(
+                ys[b], stim_dev[b], lam0[b], lam_masks[b], powers_t,
+                counts[b], hyper, [gens[b]],
+                k_true=None if kts is None else kts[b], **loop)[0]
+                for b in range(B)]
+            final = [torch.stack(xs) for xs in zip(*finals)]
+        elif mesh is None:
+            final = _run_caviar(ys, stim_dev, lam0, lam_masks, powers_t,
+                                counts, hyper, gens, k_true=kts, **loop)[0]
+        else:
+            final = _mesh_chunks(mesh, B, lambda ix, d: _run_caviar(
+                *_on(d, ys[ix], stim_dev[ix], lam0[ix], lam_masks[ix],
+                     powers_t, counts[ix]), _on(d, *hyper),
+                [seeded_generator(seeds[b], d) for b in ix.tolist()],
+                k_true=None if kts is None else kts[ix].to(d), **loop)[0])
 
-    results, reconnected = [], []
-    for b in range(B):
-        kb = K if k_trues is None else int(k_trues[b])
-        res = {name: v[b] for name, v in zip(FIELDS, final)}
-        res["lam"], res["z"] = res["lam"][:, :kb], res["z"][:kb]
-        if fn_scan:
-            res["mu"], res["beta"], res["lam"], res["z"], n_rec = (
-                _reconnect_scan_device(
-                    stim_dev[b, :, :kb], res["lam"], res["mu"], res["beta"],
-                    res["z"], powers_t, float(msrmp),
-                    float(minimum_spike_count)))
-            if n_rec:
-                reconnected.append(b)
-        results.append(res)
-    if reconnected:
-        # one refit for every changed experiment; a ragged stack pads lam
-        # back to K and counts each experiment's own trials
-        lam_sel = torch.zeros((len(reconnected), *final[2].shape[1:]),
-                              dtype=dtype, device=dev)
-        for j, b in enumerate(reconnected):
-            lam_sel[j, :, :results[b]["lam"].shape[1]] = results[b]["lam"]
-        phi, phi_cov = laplace_phi_update(
-            lam_sel, stim_dev[reconnected], hyper[4], hyper[5],
-            powers=powers_t,
-            total_trials=None if kts is None else kts[reconnected])
-        for j, b in enumerate(reconnected):
-            results[b]["phi"], results[b]["phi_cov"] = phi[j], phi_cov[j]
-    return [to_host(res) for res in results]
+    with span("cm.many.scan"):
+        results, reconnected = [], []
+        for b in range(B):
+            kb = K if k_trues is None else int(k_trues[b])
+            res = {name: v[b] for name, v in zip(FIELDS, final)}
+            res["lam"], res["z"] = res["lam"][:, :kb], res["z"][:kb]
+            if fn_scan:
+                res["mu"], res["beta"], res["lam"], res["z"], n_rec = (
+                    _reconnect_scan_device(
+                        stim_dev[b, :, :kb], res["lam"], res["mu"],
+                        res["beta"], res["z"], powers_t, float(msrmp),
+                        float(minimum_spike_count)))
+                if n_rec:
+                    reconnected.append(b)
+            results.append(res)
+        if reconnected:
+            # one refit for every changed experiment; a ragged stack pads
+            # lam back to K and counts each experiment's own trials
+            lam_sel = torch.zeros((len(reconnected), *final[2].shape[1:]),
+                                  dtype=dtype, device=dev)
+            for j, b in enumerate(reconnected):
+                lam_sel[j, :, :results[b]["lam"].shape[1]] = \
+                    results[b]["lam"]
+            phi, phi_cov = laplace_phi_update(
+                lam_sel, stim_dev[reconnected], hyper[4], hyper[5],
+                powers=powers_t,
+                total_trials=None if kts is None else kts[reconnected])
+            for j, b in enumerate(reconnected):
+                results[b]["phi"] = phi[j]
+                results[b]["phi_cov"] = phi_cov[j]
+    with span("cm.many.pull"):
+        return [to_host(res) for res in results]
 
 
 def _ragged_sequential_guard(name, mesh, compile_mode, powers):

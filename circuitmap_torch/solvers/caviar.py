@@ -296,7 +296,8 @@ def _run_caviar(y, stim, lam0, lam_mask, powers, power_counts, hyper,
     k_count = K if k_true is None else k_true
     if init_state is None:
         init_state = CaviarState(
-            mu_prior, beta_prior, lam0, shape_prior, rate_prior,
+            mu_prior.expand(*lead, N), beta_prior.expand(*lead, N), lam0,
+            shape_prior.expand(lead), rate_prior.expand(lead),
             phi_prior.expand(*lead, N, 2),
             phi_cov_prior.expand(*lead, N, 2, 2),
             torch.zeros(*lead, K, dtype=y.dtype, device=dev),

@@ -272,7 +272,66 @@ def test_signature_is_the_jax_one_plus_device():
 
     jax_params = list(inspect.signature(jax_many).parameters)
     port_params = list(inspect.signature(caviar_many).parameters)
-    assert port_params == jax_params + ["device"]
+    # update_order as caviar() takes it, so that a stack of folds can be
+    # fit as a function of its inputs
+    assert port_params == jax_params + ["update_order", "device"]
+
+
+@pytest.fixture(scope="module")
+def folds():
+    """Four cross-validation folds of one experiment, fold f holding out
+    the f-th contiguous quarter of its 320 trials: ([4, 240, T] traces,
+    [4, N, 240] stims)."""
+    np.random.seed(34)
+    s = simulate(N=N, trials=320, H=3, connection_prob=0.2, spont_prob=0.01,
+                 gp_scale=1e-3, verbose=False)
+    keeps = [np.r_[0:f * 80, (f + 1) * 80:320] for f in range(4)]
+    return (np.stack([s["psc"][k] for k in keeps]),
+            np.stack([s["stim_matrix"][:, k] for k in keeps]))
+
+
+@pytest.mark.parametrize("block", [1, 8])
+@pytest.mark.parametrize("mode", ["sequential", "batched", "mesh"])
+def test_identity_order_folds_match_their_single_fits(folds, mode, block):
+    """With ``update_order="identity"`` and exact power-curve means each
+    fold's fit is a function of its inputs: in float64 the sequential
+    mode is the single fit's own loop (equal), and the batched mode, also
+    on two CPU shards, sums in other orders (batched Cholesky and
+    products; measured 4e-14)."""
+    from circuitmap_torch.parallel import trial_mesh
+
+    kw = dict(iters=10, analytic_mc=True, sweep_block_size=block,
+              update_order="identity", dtype=torch.float64, **CPU)
+    batch = caviar_many(
+        *folds, *PRIORS, **kw,
+        **(dict(compile_mode="batched", mesh=trial_mesh(devices=["cpu"] * 2))
+           if mode == "mesh" else dict(compile_mode=mode)))
+    tol = (dict(rtol=0, atol=0) if mode == "sequential"
+           else dict(rtol=1e-10, atol=1e-10))
+    for f in range(4):
+        out = tcav.caviar(folds[0][f], folds[1][f], *PRIORS, **kw)
+        want = dict(zip(tbat.FIELDS, (v.numpy() for v in out[:8])))
+        _assert_close(batch[f], want, tol)
+        assert batch[f]["lam"].dtype == np.float64
+
+
+@pytest.mark.parametrize("mode", ["sequential", "batched"])
+def test_zero_iterations_give_each_folds_single_fit(folds, mode):
+    """A loop that runs no iteration leaves every fold at the priors'
+    state, shaped as a fold's (a stack once returned the shared [N]
+    priors and a scalar noise, which no fold could be cut from)."""
+    kw = dict(iters=0, analytic_mc=True, update_order="identity",
+              dtype=torch.float64, **CPU)
+    batch = caviar_many(*folds, *PRIORS, compile_mode=mode, **kw)
+    for f in range(4):
+        out = tcav.caviar(folds[0][f], folds[1][f], *PRIORS, **kw)
+        want = dict(zip(tbat.FIELDS, (v.numpy() for v in out[:8])))
+        _assert_close(batch[f], want, dict(rtol=1e-12, atol=1e-12))
+
+
+def test_unknown_update_order_is_refused(folds):
+    with pytest.raises(ValueError, match="update_order"):
+        caviar_many(*folds, *PRIORS, update_order="reverse", **CPU)
 
 
 def test_auto_sweep_falls_back_to_the_row_kernel_above_max_k():

@@ -7,7 +7,8 @@ span exports as a host ``cpu_op`` (a ``user_annotation`` is what the
 profiler mirrors onto the device timeline); a fit under the profiler
 equals one without it bit for bit; the fit server's request log gives
 each request its stages, and the fit client's calls show their encode
-and decode.
+and decode; a batched ``caviar_many`` opens ``cm.many`` and its four
+stages in order.
 """
 
 import contextlib
@@ -137,6 +138,47 @@ def test_a_fit_under_the_profiler_equals_one_without(sim):
     for key, want in plain.items():
         if isinstance(want, np.ndarray):
             np.testing.assert_array_equal(traced[key], want, err_msg=key)
+
+
+MANY_ORDER = ("cm.many.stim", "cm.many.loop", "cm.many.scan",
+              "cm.many.pull")
+
+
+def test_a_batched_fit_opens_its_spans_in_order_and_never_syncs(
+        sim, monkeypatch, tmp_path):
+    """``caviar_many``: one ``cm.many`` holding its four stages once each,
+    in order, each a host ``cpu_op``; no span waits on the device, and
+    the fits under the profiler equal those without it."""
+    syncs = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: syncs.append(a))
+    p = cm.default_priors(N)
+    args = (np.stack([sim["psc"][:100], sim["psc"][100:]]),
+            np.stack([sim["stim_matrix"][:, :100],
+                      sim["stim_matrix"][:, 100:]]),
+            p["mu"], p["beta"], p["shape"], p["rate"], p["phi"], p["phi_cov"])
+    kw = dict(iters=4, compile_mode="batched", update_order="identity",
+              analytic_mc=True, device="cpu", verbose=False)
+    plain = cm.caviar_many(*args, **kw)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = cm.caviar_many(*args, **kw)
+    events = _cm_events(prof)
+    (call,) = [e for e in events if e.name == "cm.many"]
+    stages = sorted((e for e in events if e.name in MANY_ORDER),
+                    key=lambda e: e.time_range.start)
+    assert tuple(e.name for e in stages) == MANY_ORDER
+    assert all(e.cpu_parent is call for e in stages)
+    for a, b in zip(stages, stages[1:]):
+        assert a.time_range.end <= b.time_range.start
+    path = tmp_path / "many.json"
+    prof.export_chrome_trace(str(path))
+    cats = {e.get("cat") for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("name", "").startswith("cm.many")}
+    assert cats == {"cpu_op"}
+    assert syncs == []
+    for got, want in zip(traced, plain):
+        for key, value in want.items():
+            np.testing.assert_array_equal(got[key], value, err_msg=key)
 
 
 # ------------------------------------------------------------- span()
